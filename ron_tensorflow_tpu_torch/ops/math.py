@@ -1,0 +1,39 @@
+"""Exact top-k with `lax.top_k`'s tie order.
+
+Port of `ron_tensorflow_tpu/ops/math.py::exact_top_k_chunked`. Ties go to
+the smallest index, as `lax.top_k` does (`math.py:60-67`). `torch.topk`
+does not promise that order (on the CPU it returns tied indices out of
+order), so the selection is built on a stable descending sort.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _stable_top_k(x: torch.Tensor, k: int):
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def exact_top_k_chunked(x: torch.Tensor, k: int, num_chunks: int = 16):
+    """Exact top-k along the last axis via per-chunk top-k + a final top-k
+    over the candidate pool: the same values, indices, order and tie
+    resolution as `lax.top_k`. Every global top-k element is inside its
+    own chunk's top-k, and the pool is laid out chunk-major (ascending
+    original index among equal scores), so the final stable selection
+    picks the same elements in the same order. Falls back to one stable
+    sort when chunking cannot shrink the problem (n < num_chunks * k)."""
+    *lead, n = x.shape
+    if num_chunks <= 1 or n < num_chunks * k:
+        return _stable_top_k(x, k)
+    pad = (-n) % num_chunks
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=float("-inf"))
+    m = (n + pad) // num_chunks
+    chunk_vals, chunk_idx = _stable_top_k(x.reshape(*lead, num_chunks, m), k)
+    base = (torch.arange(num_chunks, device=x.device) * m)[:, None]
+    pool_idx = (chunk_idx + base).reshape(*lead, num_chunks * k)
+    pool_vals = chunk_vals.reshape(*lead, num_chunks * k)
+    vals, pos = _stable_top_k(pool_vals, k)
+    return vals, torch.gather(pool_idx, -1, pos)

@@ -1,0 +1,73 @@
+"""Carry flax RON weights into the port's modules.
+
+The JAX package names every variable by its flax path, joined with '/'
+(`ron_tensorflow_tpu/train/checkpoint.py::flatten_params`), e.g.
+`backbone/conv1_1/conv/kernel` or `block4_box/conv/bn/mean`. The port's
+modules use the same path with '.', and torch's leaf names:
+
+  conv  kernel [kh, kw, in, out] (HWIO)   -> weight [out, in, kh, kw] (OIHW)
+  2x2 deconv deconv_kernel [2, 2, in, out] -> weight [in, out, 2, 2], taps
+        flipped (`layers.py:180-189`): weight[c, o, dy, dx] = kernel[1-dy, 1-dx, c, o]
+  BN    scale / bias / mean / var          -> weight / bias / running_mean / running_var
+  conv  bias, deconv_bias                  -> bias
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def _convert(path: str, value: torch.Tensor) -> Tuple[str, torch.Tensor]:
+    *scope, leaf = path.split("/")
+    if leaf == "kernel":
+        return ".".join(scope + ["weight"]), value.permute(3, 2, 0, 1).contiguous()
+    if leaf == "deconv_kernel":
+        return ".".join(scope + ["weight"]), value.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    renamed = {
+        "scale": "weight",
+        "bias": "bias",
+        "deconv_bias": "bias",
+        "mean": "running_mean",
+        "var": "running_var",
+    }
+    if leaf not in renamed:
+        raise KeyError(f"no torch counterpart for flax variable {path!r}")
+    return ".".join(scope + [renamed[leaf]]), value.contiguous()
+
+
+def from_jax_params(
+    params_flat: Mapping[str, object], stats_flat: Mapping[str, object]
+) -> Dict[str, torch.Tensor]:
+    """Flax flat-name params and batch stats (numpy arrays or tensors) ->
+    a float32 `state_dict` for `models.ron.RON`."""
+    state = {}
+    for path, value in list(params_flat.items()) + list(stats_flat.items()):
+        if not torch.is_tensor(value):
+            value = torch.from_numpy(np.array(value, dtype=np.float32))
+        key, tensor = _convert(path, value.float())
+        state[key] = tensor
+    return state
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16).float()
+
+
+def load_trained_fixture(path: str):
+    """The step-20000 trained RON-320 packed in
+    `tests/fixtures/e2e_parity_trained.npz`: bf16 bit patterns stored as
+    uint16 under 'wp::<flax path>' (params) and 'ws::<flax path>' (batch
+    stats). Returns (params_flat, stats_flat) as float32 tensors."""
+    params, stats = {}, {}
+    with np.load(path, allow_pickle=False) as fx:
+        for key in fx.files:
+            if key.startswith("wp::"):
+                params[key[4:]] = _bf16_bits_to_f32(fx[key])
+            elif key.startswith("ws::"):
+                stats[key[4:]] = _bf16_bits_to_f32(fx[key])
+    if not params:
+        raise ValueError(f"{path} holds no packed 'wp::' weights")
+    return params, stats
