@@ -4,15 +4,25 @@
 
 Phases, each ending with a line that gives its elapsed seconds:
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the port's CUDA kernels, one nvcc call;
+  2. build    the port's five CUDA kernels, one nvcc call;
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes (and a few edge shapes);
+              edge shapes (random, exact-threshold and K = 1024 NMS rows,
+              ragged conv tiles, f32 and bf16 inputs);
   4. main     full-width RON-320 with the trained weights packed in
               tests/fixtures/e2e_parity_trained.npz, pixels to boxes:
               (a) float32, TF32 off, against the fixture's reference
-              detections; (b) bf16, batch 32, fused block 1, through both
-              kernels (launch counts read around this run);
-  5. timing   the bf16 batch-32 Detector's images/s, and each kernel's time
+              detections, through the fixpoint NMS (the Detector's) and
+              again through `nms_sorted_kernel(method='scan')`; (b) bf16,
+              batch 32, fused block 1, through K-A and K-B (launch counts
+              read around this run: K-C, K-D and K-E stay at 0);
+  5. api      the kernels API on the main path's own data (counts read
+              around it): K-C on the bf16 run's NMS candidates, K-D on
+              relu(conv1_1) of its batch with conv1_2's weights, K-E on the
+              VGG block-2 and block-3 tails; each output against its plain
+              version, and K-D against K-B on the same batch;
+  6. grad     K-B's gradients (kernel forward, recompute backward) against
+              autograd through the unfused composition, bf16, batch 32;
+  7. timing   the bf16 batch-32 Detector's images/s, and each kernel's time
               beside its plain version's, its bound and a library yardstick.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
@@ -36,7 +46,9 @@ from ron_tensorflow_tpu_torch import kernels
 from ron_tensorflow_tpu_torch.data.preprocess import eval_preprocess
 from ron_tensorflow_tpu_torch.inference.detector import TOPK_CHUNKS, DetectionConfig, Detector
 from ron_tensorflow_tpu_torch.kernels import _build
-from ron_tensorflow_tpu_torch.kernels.nms import fixpoint_keep, nms_sorted_kernel, suppression_matrix
+from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
+from ron_tensorflow_tpu_torch.kernels.nms import compact_keep, fixpoint_keep, nms_sorted_kernel, suppression_matrix
+from ron_tensorflow_tpu_torch.models.layers import max_pool_2x2
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC
 from ron_tensorflow_tpu_torch.ops.math import exact_top_k_chunked
@@ -59,6 +71,16 @@ PEAK_F32_FLOPS = 67e12
 # by ~1-2%, well past rtol.
 BLOCK1_RTOL, BLOCK1_ATOL = 8e-3, 0.1
 PARITY_ATOL = 2e-3  # tests/test_e2e_parity.py's tolerance on scores and boxes
+# K-D/K-E against their plain versions: the f32 sums differ in order, within
+# CONV_F32_TOL * (1 + |plain|); a bf16-rounded output may land one bf16 ulp
+# further apart (see conv_err).
+CONV_F32_TOL = 1e-4
+# K-B's gradients against autograd through the unfused composition, as a
+# share of each gradient's largest magnitude: the backward IS that
+# composition's VJP, but cuDNN's bf16 weight gradients may sum with atomics
+# in another order on each run, a few bf16 ulps (2^-8 each).
+GRAD_REL_TOL = 2e-2
+SCAN_KEEP_TOP_K = [16, 100, 200]  # K-C's cap in the edge-shape checks
 
 
 @contextlib.contextmanager
@@ -80,6 +102,14 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def smi_sample():
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
 
 
 def bound(nbytes, flops, peak_flops):
@@ -122,9 +152,49 @@ def block1_err(label, got, ref):
     return float(diff.max())
 
 
+def bf16_ulp(ref):
+    """One bf16 ulp of each bf16-valued entry, 2^(floor(log2 |ref|) - 7); 0 at
+    0. The exponent comes from frexp, exact: log2 on the card is not exact at
+    powers of two."""
+    _, e = torch.frexp(ref)
+    return torch.where(ref != 0, torch.ldexp(torch.ones_like(ref), e - 8), 0.0)
+
+
+def conv_err(label, got, ref, rounded, f32_tol=CONV_F32_TOL):
+    """Check a K-D/K-E output against its reference: |diff| within
+    f32_tol * (1 + |ref|), plus one bf16 ulp of ref where the output is
+    rounded to bf16. Returns max |diff|."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+    g, r = got.double(), ref.double()
+    diff = (g - r).abs()
+    tol = f32_tol * (1 + r.abs()) + (bf16_ulp(r) if rounded else 0.0)
+    used = float(torch.where(diff > 0, diff / tol, 0.0).max())  # inf where tol is 0 and diff is not
+    print(f"  {label}: max |kernel - ref| = {float(diff.max()):.6g} (max |ref| = {float(r.abs().max()):.6g}), "
+          f"{int((diff > 0).sum())} of {diff.numel()} differ, {used:.3f} of the tolerance used")
+    if used > 1.0:
+        raise AssertionError(f"{label}: {int((diff > tol).sum())} outputs out of tolerance")
+    return float(diff.max())
+
+
+def conv_case(seed, shape, cin, cout, dtype):
+    """Random NHWC activations (post-ReLU scale) and He-scaled OIHW weights."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(*shape, cin, generator=g) * 3).to(dtype).cuda()
+    w = (torch.randn(cout, cin, 3, 3, generator=g) * (2.0 / (9 * cin)) ** 0.5).cuda()
+    b = (torch.randn(cout, generator=g) * 0.1).cuda()
+    return x, w, b
+
+
+CONV_KERNELS = {
+    "fused_stem_conv_relu_pool2": (kernels.fused_stem_conv_relu_pool2, kernels.fused_stem_conv_relu_pool2_plain),
+    "fused_conv3x3_relu_pool2": (kernels.fused_conv3x3_relu_pool2, kernels.fused_conv3x3_relu_pool2_plain),
+}
+
+
 def check_kernels(block1_weights):
     """Phase 3: every kernel against its plain version on the card."""
-    errs = {"nms_fixpoint_keep_mask": 0.0}
+    errs = {"nms_fixpoint_keep_mask": 0.0, "nms_scan_keep_mask": 0.0}
     for label, (r, k, grid, thr) in {
         "main-path shape": (BATCH * 20, NMS_CFG.top_k, None, NMS_CFG.nms_threshold),
         "exact-threshold grid": (64, NMS_CFG.top_k, 8, 0.5),
@@ -141,6 +211,28 @@ def check_kernels(block1_weights):
                   f"{int(ref.sum())} kept")
             if n_diff:
                 raise AssertionError(f"NMS keep masks differ ({label}, {mode})")
+            for cap in SCAN_KEEP_TOP_K:
+                got = kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)
+                ref = kernels.nms_scan_keep_mask_plain(scores, boxes, thr, cap, mode)
+                torch.cuda.synchronize()
+                err, n_diff = mask_err(got, ref)
+                errs["nms_scan_keep_mask"] = max(errs["nms_scan_keep_mask"], err)
+                if n_diff:
+                    raise AssertionError(f"scan NMS keep masks differ ({label}, {mode}, keep_top_k {cap}): {n_diff}")
+            print(f"  nms_scan_keep_mask {label} [{r},{k}] {mode}, keep_top_k {SCAN_KEEP_TOP_K}: "
+                  f"0 mask differences")
+
+    for name, shape, cin, cout in (
+        ("fused_stem_conv_relu_pool2", (2, 36, 52), 64, 64),  # ragged tiles
+        ("fused_conv3x3_relu_pool2", (3, 36, 52), 128, 256),  # ragged, Ci != Co
+        ("fused_conv3x3_relu_pool2", (2, 20, 26), 512, 512),  # 16 input-channel chunks
+    ):
+        kernel, plain = CONV_KERNELS[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = conv_case(sum(shape) + cin, shape, cin, cout, dtype)
+            rounded = dtype == torch.bfloat16 or kernel is kernels.fused_stem_conv_relu_pool2
+            err = conv_err(f"{name} {list(shape) + [cin]} -> {cout} {dtype}", kernel(x, w, b), plain(x, w, b), rounded)
+            errs[name] = max(errs.get(name, 0.0), err)
 
     w1, b1, w2, b2 = block1_weights
     g = torch.Generator().manual_seed(0)
@@ -156,11 +248,27 @@ def check_kernels(block1_weights):
 
 
 def f32_parity(state, images):
-    """Phase 4a: float32, TF32 off, against the reference detections."""
+    """Phase 4a: float32, TF32 off, against the reference detections: the
+    Detector as it runs (fixpoint NMS), then its candidates through the
+    scan NMS."""
     model = RON(RON_320_SPEC, dtype=torch.float32)
     model.load_state_dict(state, strict=True)
     det = Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")
-    scores, boxes = (t.cpu().numpy() for t in det(images))
+    check_detections("fixpoint NMS (the Detector's)", *det(images))
+    with torch.inference_mode():
+        flat_s, flat_b = det.candidates(det.model(images))
+        scan_s, scan_b = nms_sorted_kernel(flat_s, flat_b, NMS_CFG.nms_threshold, NMS_CFG.keep_top_k,
+                                           NMS_CFG.nms_mode, method="scan")
+    c = RON_320_SPEC.num_classes - 1
+    check_detections("scan NMS", scan_s.reshape(len(images), c, -1), scan_b.reshape(len(images), c, -1, 4))
+    del det, model
+
+
+def check_detections(label, scores, boxes):
+    """Detections [B, C-1, keep_top_k(, 4)] of the demo images against the
+    fixture's reference: equal keep counts and labels, scores and boxes
+    within PARITY_ATOL."""
+    scores, boxes = scores.cpu().numpy(), boxes.cpu().numpy()
     fx = np.load(TRAINED_FIXTURE, allow_pickle=False)
     worst, n_kept = 0.0, 0
     for i, img in enumerate(IMAGES):
@@ -177,9 +285,124 @@ def f32_parity(state, images):
                 worst = max(worst, float(np.abs(scores[i, cls - 1, :ref_n] - ref_s[:ref_n]).max()),
                             float(np.abs(boxes[i, cls - 1, :ref_n] - ref_b[:ref_n]).max()))
             n_kept += ref_n
-    print(f"  f32: {n_kept} detections over {len(IMAGES)} images x 20 classes equal the reference "
+    print(f"  f32, {label}: {n_kept} detections over {len(IMAGES)} images x 20 classes equal the reference "
           f"(keep counts, labels); max |diff| of scores and boxes {worst:.3g} <= {PARITY_ATOL}")
-    del det, model
+
+
+MAIN_PATH = ("nms_fixpoint_keep_mask", "fused_vgg_block1")
+API_PATH = ("nms_scan_keep_mask", "fused_stem_conv_relu_pool2", "fused_conv3x3_relu_pool2")
+
+
+def check_counts(label, launches, on_path):
+    """Every kernel of the path launched, and no other."""
+    print(f"  launches on the {label}: {launches}")
+    missing = [n for n in on_path if launches[n] < 1]
+    stray = [n for n in launches if n not in on_path and launches[n]]
+    if missing or stray:
+        raise AssertionError(f"{label}: never launched {missing}; launched off the path {stray}")
+
+
+def nhwc(t):
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def api_path(model, det, batch, block1, max_err):
+    """Phase 5: the kernels API on the main path's own data. Its inputs are
+    made first (the backbone runs K-B); the counts are reset just before
+    the four calls and read just after. Returns the inputs, for timing."""
+    thr, mode, cap = NMS_CFG.nms_threshold, NMS_CFG.nms_mode, NMS_CFG.keep_top_k
+    w1, b1, w2, b2 = block1
+    bb = model.backbone
+    with torch.inference_mode():
+        flat_s, flat_b = (t.contiguous() for t in det.candidates(det.model(batch)))
+        x = batch.to(torch.bfloat16)
+        # relu(conv1_1) rounded to bf16, as K-B's plain version computes it
+        y1 = nhwc(F.relu(F.conv2d(x.float().permute(0, 3, 1, 2), w1.to(torch.bfloat16).float(), b1.float(),
+                                  padding=1)).to(torch.bfloat16))
+        a21 = bb.conv2_1(bb._block1(x.permute(0, 3, 1, 2)))  # VGG block-2 tail's input
+        a32 = bb.conv3_2(bb.conv3_1(max_pool_2x2(bb.conv2_2(a21))))  # block-3 tail's input
+        tails = {"block2": (nhwc(a21), bb.conv2_2.conv), "block3": (nhwc(a32), bb.conv3_3.conv)}
+        block1_out = kernels.fused_vgg_block1(x.contiguous(), w1, b1, w2, b2)
+        torch.cuda.synchronize()
+
+        kernels.reset_launch_counts()
+        scan_s, scan_b = nms_sorted_kernel(flat_s, flat_b, thr, cap, mode, method="scan")
+        stem_out = kernels.fused_stem_conv_relu_pool2(y1, w2, b2)
+        tail_out = {k: kernels.fused_conv3x3_relu_pool2(a, c.weight, c.bias) for k, (a, c) in tails.items()}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    check_counts("kernels API path", launches, API_PATH)
+
+    with torch.inference_mode():
+        keep = kernels.nms_scan_keep_mask(flat_s, flat_b, thr, cap, mode)
+        keep_plain = kernels.nms_scan_keep_mask_plain(flat_s, flat_b, thr, cap, mode)
+        err, n_diff = mask_err(keep, keep_plain)
+        ref_s, ref_b = compact_keep(keep_plain, flat_s, flat_b, cap)
+        if n_diff or not (torch.equal(scan_s, ref_s) and torch.equal(scan_b, ref_b)):
+            raise AssertionError(f"scan NMS on the main path's candidates: {n_diff} mask differences")
+        max_err["nms_scan_keep_mask"] = max(max_err["nms_scan_keep_mask"], err)
+        print(f"  nms_scan_keep_mask on the main path's candidates {list(flat_s.shape)}, keep_top_k {cap}: "
+              f"0 mask differences, {int(keep_plain.sum())} kept; detections equal the plain mask's")
+        name = "fused_stem_conv_relu_pool2"
+        max_err[name] = max(max_err[name], conv_err(
+            f"{name} relu(conv1_1) {list(y1.shape)} -> 64 vs plain", stem_out,
+            kernels.fused_stem_conv_relu_pool2_plain(y1, w2, b2), rounded=True))
+        # K-B rounds conv1_1 to bf16 as y1 is: the same function, one bf16 ulp apart at most
+        conv_err(f"{name} vs fused_vgg_block1 on the batch", stem_out, block1_out, rounded=True, f32_tol=0.0)
+        name = "fused_conv3x3_relu_pool2"
+        for k, (a, c) in tails.items():
+            max_err[name] = max(max_err[name], conv_err(
+                f"{name} {k} tail {list(a.shape)} -> {c.out_channels} vs plain", tail_out[k],
+                kernels.fused_conv3x3_relu_pool2_plain(a, c.weight, c.bias), rounded=True))
+    return launches, (flat_s, flat_b, keep_plain), y1, tails
+
+
+def block1_grads(x, block1):
+    """Phase 6: K-B's gradients (kernel forward, recompute backward) against
+    autograd through `block1_reference`, for one random output gradient."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, h, w, _ = x.shape
+    go = torch.randn(b, h // 2, w // 2, 64, generator=g, device="cuda").to(x.dtype)
+    grads = {}
+    for fn in (kernels.fused_vgg_block1, block1_reference):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, *block1)]
+        kernels.reset_launch_counts()
+        fn(*leaves).backward(go)
+        torch.cuda.synchronize()
+        if kernels.fused_vgg_block1.launches != (fn is kernels.fused_vgg_block1):
+            raise AssertionError("the gradient run did not go through the block-1 kernel")
+        grads[fn.__name__] = [t.grad for t in leaves]
+    for name, got, ref in zip(("x", "w1", "b1", "w2", "b2"), *grads.values()):
+        if got is None or not torch.isfinite(got).all():
+            raise AssertionError(f"d{name}: no finite gradient through the kernel path")
+        scale = float(ref.float().abs().max())
+        err = float((got.float() - ref.float()).abs().max())
+        print(f"  d{name} {list(got.shape)} {got.dtype}: max |kernel path - composition| = {err:.6g}, "
+              f"{err / scale:.3g} of max |grad| {scale:.6g} (tolerance {GRAD_REL_TOL})")
+        if err > GRAD_REL_TOL * scale:
+            raise AssertionError(f"d{name} differs from the composition's")
+
+
+def conv_row(name, calls, max_err, launches, replaces):
+    """One kernels-line row for K-D or K-E: times summed over the calls
+    [(x, weight, bias)] of its path."""
+    kernel, plain = CONV_KERNELS[name]
+    ms = plain_ms = library_ms = nbytes = flops = 0.0
+    for x, w, b in calls:
+        bsz, h, wd, cin = x.shape
+        cout = w.shape[0]
+        flops += 2 * bsz * h * wd * cin * cout * 9
+        nbytes += x.numel() * 2 + bsz * (h // 2) * (wd // 2) * cout * 2 + w.numel() * 2 + cout * 4
+        xn, wl, bl = x.permute(0, 3, 1, 2), w.to(torch.bfloat16), b.to(torch.bfloat16)
+        ms += cuda_ms(lambda: kernel(x, w, b), reps=5)
+        plain_ms += cuda_ms(lambda: plain(x, w, b), reps=2)
+        library_ms += cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xn, wl, bl, padding=1)), 2, 2), reps=5)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    return {
+        "name": name, "route": "cuda", "source": "ron_tensorflow_tpu_torch/csrc/conv3x3_relu_pool2.cu",
+        "replaces": replaces, "path": "kernels API", "launches": launches[name], "max_abs_err": max_err[name],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
 
 
 def main() -> int:
@@ -224,9 +447,7 @@ def main() -> int:
         scores, boxes = det(batch)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-        print(f"  launches on the main path: {launches}")
-        if min(launches.values()) < 1:
-            raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        check_counts("main path", launches, MAIN_PATH)
         c = RON_320_SPEC.num_classes - 1
         if scores.shape != (BATCH, c, NMS_CFG.keep_top_k) or boxes.shape != (BATCH, c, NMS_CFG.keep_top_k, 4):
             raise AssertionError(f"bad output shapes {tuple(scores.shape)}, {tuple(boxes.shape)}")
@@ -237,12 +458,18 @@ def main() -> int:
         if int(kept.min()) < 1:
             raise AssertionError("an image kept no detection")
 
+    with phase("api"):
+        api_launches, (flat_s, flat_b, scan_keep), y1, tails = api_path(model, det, batch, block1, max_err)
+
+    with phase("grad"):
+        block1_grads(batch.to(torch.bfloat16).contiguous(), block1)
+
     with phase("timing"):
+        print(f"  card before timing: {smi_sample()} (SM clock, power, temperature)")
         with torch.inference_mode():
             ms_det = cuda_ms(lambda: det(batch), reps=5, warmup=2)
             out = det.model(batch)
-            flat_s, flat_b = (t.contiguous() for t in det.candidates(out))
-            nhwc = batch.to(torch.bfloat16).contiguous()
+            nhwc_batch = batch.to(torch.bfloat16).contiguous()
             # where the Detector's time goes, stage by stage (CUDA events)
             breakdown = {
                 "forward": cuda_ms(lambda: det.model(batch), reps=5),
@@ -250,6 +477,7 @@ def main() -> int:
                 "nms": cuda_ms(lambda: nms_sorted_kernel(
                     flat_s, flat_b, NMS_CFG.nms_threshold, NMS_CFG.keep_top_k, NMS_CFG.nms_mode), reps=20),
             }
+            print(f"  card after the stage split: {smi_sample()}")
             # the per-class top-k as the Detector runs it (chunked) against one
             # stable sort of each whole row, on the main path's scores
             cls_scores, _ = det.class_scores(out)
@@ -262,69 +490,16 @@ def main() -> int:
                 "chunked": cuda_ms(lambda: exact_top_k_chunked(cls_scores, k_top, TOPK_CHUNKS), reps=20),
                 "one_sort": cuda_ms(lambda: torch.sort(cls_scores, dim=-1, descending=True, stable=True), reps=20),
             }
-        print(f"  Detector bf16 batch {BATCH}: {ms_det:.3f} ms/batch, {BATCH * 1e3 / ms_det:.1f} img/s; "
-              f"stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()))
-        print(f"  top-k of {list(cls_scores.shape)}, k={k_top}: {TOPK_CHUNKS} chunks {topk_ms['chunked']:.4f} ms, "
-              f"one stable sort {topk_ms['one_sort']:.4f} ms")
-        results = []
-
-        thr, mode = NMS_CFG.nms_threshold, NMS_CFG.nms_mode
-        r, k = flat_s.shape
-        # the kernels once more against their plain versions, on the main path's own inputs
-        keep = kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode)
-        keep_plain = kernels.nms_fixpoint_keep_mask_plain(flat_s, flat_b, thr, mode)
-        err, n_diff = mask_err(keep, keep_plain)
-        max_err["nms_fixpoint_keep_mask"] = max(max_err["nms_fixpoint_keep_mask"], err)
-        if n_diff:
-            raise AssertionError(f"NMS keep masks differ on the main path's candidates ({n_diff} entries)")
-        w1, b1, w2, b2 = block1
-        max_err["fused_vgg_block1"] = max(max_err["fused_vgg_block1"], block1_err(
-            "main path's batch", kernels.fused_vgg_block1(nhwc, w1, b1, w2, b2),
-            kernels.fused_vgg_block1_plain(nhwc, w1, b1, w2, b2)))
-        # fixpoint steps on these rows: the data-dependent part of K-A's work
-        _, steps = fixpoint_keep(flat_s > 0, suppression_matrix(flat_b, thr, mode))
-        words = (k + 31) // 32
-        nms_bytes = r * k * (4 + 16 + 1)
-        nms_ops = r * k * (k - 1) / 2 * 11 + steps * r * k * words * 2
-        nms_bound, nms_by = bound(nms_bytes, nms_ops, PEAK_F32_FLOPS)
-        results.append({
-            "name": "nms_fixpoint_keep_mask", "route": "cuda",
-            "source": "ron_tensorflow_tpu_torch/csrc/nms_fixpoint.cu",
-            "replaces": "ron_tensorflow_tpu/kernels/nms_pallas.py:225",
-            "launches": launches["nms_fixpoint_keep_mask"],
-            "max_abs_err": max_err["nms_fixpoint_keep_mask"],
-            "ms": cuda_ms(lambda: kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode), reps=50),
-            "plain_ms": cuda_ms(lambda: kernels.nms_fixpoint_keep_mask_plain(flat_s, flat_b, thr, mode), reps=3),
-            "bound_ms": nms_bound, "bound_by": nms_by, "library_ms": None,
-        })
-        print(f"  nms rows [{r},{k}]: {steps} fixpoint steps, {int(keep.sum())} kept; "
-              f"block 1 on the batch: max |kernel - plain| = {max_err['fused_vgg_block1']:.6g}")
-
-        bsz, h, w, _ = nhwc.shape
-        blk_flops = 2 * bsz * h * w * 64 * 9 * (3 + 64)
-        blk_bytes = nhwc.numel() * 2 + bsz * (h // 2) * (w // 2) * 64 * 2 + (w1.numel() + w2.numel()) * 2 + 128 * 4
-        blk_bound, blk_by = bound(blk_bytes, blk_flops, PEAK_BF16_FLOPS)
-        x_nchw = nhwc.permute(0, 3, 1, 2)  # channels_last view, no copy
-        lw1, lb1, lw2, lb2 = (t.to(torch.bfloat16) for t in block1)
-
-        def library_block1():
-            y = F.relu(F.conv2d(x_nchw, lw1, lb1, padding=1))
-            return F.max_pool2d(F.relu(F.conv2d(y, lw2, lb2, padding=1)), 2, 2)
-
-        results.append({
-            "name": "fused_vgg_block1", "route": "cuda",
-            "source": "ron_tensorflow_tpu_torch/csrc/fused_vgg_block1.cu",
-            "replaces": "ron_tensorflow_tpu/kernels/fused_conv_pool.py:388",
-            "launches": launches["fused_vgg_block1"],
-            "max_abs_err": max_err["fused_vgg_block1"],
-            "ms": cuda_ms(lambda: kernels.fused_vgg_block1(nhwc, w1, b1, w2, b2), reps=5),
-            "plain_ms": cuda_ms(lambda: kernels.fused_vgg_block1_plain(nhwc, w1, b1, w2, b2), reps=3),
-            "bound_ms": blk_bound, "bound_by": blk_by,
-            "library_ms": cuda_ms(library_block1, reps=5),
-        })
+            print(f"  Detector bf16 batch {BATCH}: {ms_det:.3f} ms/batch, {BATCH * 1e3 / ms_det:.1f} img/s; "
+                  f"stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()))
+            print(f"  top-k of {list(cls_scores.shape)}, k={k_top}: {TOPK_CHUNKS} chunks {topk_ms['chunked']:.4f} ms, "
+                  f"one stable sort {topk_ms['one_sort']:.4f} ms")
+            results = timing_rows(launches, api_launches, max_err, block1, nhwc_batch,
+                                  flat_s, flat_b, scan_keep, y1, tails)
         for res in results:
             print(f"  {res['name']}: {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.4f} "
                   f"by {res['bound_by']}, library {res['library_ms']})")
+        print(f"  card after timing: {smi_sample()}")
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "topk_ms": topk_ms}))
@@ -333,6 +508,85 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, flat_b, scan_keep, y1, tails):
+    """Phase 7: one row per kernel, each timed on its path's own inputs."""
+    results = []
+    thr, mode, cap = NMS_CFG.nms_threshold, NMS_CFG.nms_mode, NMS_CFG.keep_top_k
+    r, k = flat_s.shape
+    # the kernels once more against their plain versions, on the main path's own inputs
+    keep = kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode)
+    keep_plain = kernels.nms_fixpoint_keep_mask_plain(flat_s, flat_b, thr, mode)
+    err, n_diff = mask_err(keep, keep_plain)
+    max_err["nms_fixpoint_keep_mask"] = max(max_err["nms_fixpoint_keep_mask"], err)
+    if n_diff:
+        raise AssertionError(f"NMS keep masks differ on the main path's candidates ({n_diff} entries)")
+    w1, b1, w2, b2 = block1
+    max_err["fused_vgg_block1"] = max(max_err["fused_vgg_block1"], block1_err(
+        "main path's batch", kernels.fused_vgg_block1(nhwc_batch, w1, b1, w2, b2),
+        kernels.fused_vgg_block1_plain(nhwc_batch, w1, b1, w2, b2)))
+    # fixpoint steps on these rows: the data-dependent part of K-A's work
+    _, steps = fixpoint_keep(flat_s > 0, suppression_matrix(flat_b, thr, mode))
+    words = (k + 31) // 32
+    nms_bytes = r * k * (4 + 16 + 1)
+    nms_ops = r * k * (k - 1) / 2 * 11 + steps * r * k * words * 2
+    nms_bound, nms_by = bound(nms_bytes, nms_ops, PEAK_F32_FLOPS)
+    results.append({
+        "name": "nms_fixpoint_keep_mask", "route": "cuda",
+        "source": "ron_tensorflow_tpu_torch/csrc/nms_fixpoint.cu",
+        "replaces": "ron_tensorflow_tpu/kernels/nms_pallas.py:225", "path": "main",
+        "launches": launches["nms_fixpoint_keep_mask"],
+        "max_abs_err": max_err["nms_fixpoint_keep_mask"],
+        "ms": cuda_ms(lambda: kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode), reps=50),
+        "plain_ms": cuda_ms(lambda: kernels.nms_fixpoint_keep_mask_plain(flat_s, flat_b, thr, mode), reps=3),
+        "bound_ms": nms_bound, "bound_by": nms_by, "library_ms": None,
+    })
+    print(f"  nms rows [{r},{k}]: {steps} fixpoint steps, {int(keep.sum())} kept; "
+          f"block 1 on the batch: max |kernel - plain| = {max_err['fused_vgg_block1']:.6g}")
+
+    bsz, h, w, _ = nhwc_batch.shape
+    blk_flops = 2 * bsz * h * w * 64 * 9 * (3 + 64)
+    blk_bytes = nhwc_batch.numel() * 2 + bsz * (h // 2) * (w // 2) * 64 * 2 + (w1.numel() + w2.numel()) * 2 + 128 * 4
+    blk_bound, blk_by = bound(blk_bytes, blk_flops, PEAK_BF16_FLOPS)
+    x_nchw = nhwc_batch.permute(0, 3, 1, 2)  # channels_last view, no copy
+    lw1, lb1, lw2, lb2 = (t.to(torch.bfloat16) for t in block1)
+
+    def library_block1():
+        y = F.relu(F.conv2d(x_nchw, lw1, lb1, padding=1))
+        return F.max_pool2d(F.relu(F.conv2d(y, lw2, lb2, padding=1)), 2, 2)
+
+    results.append({
+        "name": "fused_vgg_block1", "route": "cuda",
+        "source": "ron_tensorflow_tpu_torch/csrc/fused_vgg_block1.cu",
+        "replaces": "ron_tensorflow_tpu/kernels/fused_conv_pool.py:388", "path": "main",
+        "launches": launches["fused_vgg_block1"],
+        "max_abs_err": max_err["fused_vgg_block1"],
+        "ms": cuda_ms(lambda: kernels.fused_vgg_block1(nhwc_batch, w1, b1, w2, b2), reps=5),
+        "plain_ms": cuda_ms(lambda: kernels.fused_vgg_block1_plain(nhwc_batch, w1, b1, w2, b2), reps=3),
+        "bound_ms": blk_bound, "bound_by": blk_by,
+        "library_ms": cuda_ms(library_block1, reps=5),
+    })
+
+    # K-C: the pairs this run's scan evaluates, each kept i against every later j
+    later = torch.arange(k - 1, -1, -1, device=scan_keep.device)
+    pairs = int((scan_keep * later).sum())
+    scan_bound, scan_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
+    results.append({
+        "name": "nms_scan_keep_mask", "route": "cuda", "source": "ron_tensorflow_tpu_torch/csrc/nms_scan.cu",
+        "replaces": "ron_tensorflow_tpu/kernels/nms_pallas.py:93", "path": "kernels API",
+        "launches": api_launches["nms_scan_keep_mask"], "max_abs_err": max_err["nms_scan_keep_mask"],
+        "ms": cuda_ms(lambda: kernels.nms_scan_keep_mask(flat_s, flat_b, thr, cap, mode), reps=50),
+        "plain_ms": cuda_ms(lambda: kernels.nms_scan_keep_mask_plain(flat_s, flat_b, thr, cap, mode), reps=2),
+        "bound_ms": scan_bound, "bound_by": scan_by, "library_ms": None,
+    })
+    print(f"  scan rows [{r},{k}], keep_top_k {cap}: {int(scan_keep.sum())} kept, {pairs} overlaps evaluated")
+
+    results.append(conv_row("fused_stem_conv_relu_pool2", [(y1, w2, b2)], max_err, api_launches,
+                            "ron_tensorflow_tpu/kernels/fused_conv_pool.py:116"))
+    results.append(conv_row("fused_conv3x3_relu_pool2", [(a, c.weight, c.bias) for a, c in tails.values()],
+                            max_err, api_launches, "ron_tensorflow_tpu/kernels/fused_conv_pool.py:470"))
+    return results
 
 
 if __name__ == "__main__":

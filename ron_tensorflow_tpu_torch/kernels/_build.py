@@ -22,7 +22,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("nms_fixpoint.cu", "fused_vgg_block1.cu")
+SOURCES = ("nms_fixpoint.cu", "nms_scan.cu", "fused_vgg_block1.cu", "conv3x3_relu_pool2.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -36,8 +36,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     # scores, boxes, keep, rows, k, threshold, union_mode, stream
     "nms_fixpoint_keep_mask": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
+    # scores, boxes, keep, rows, k, threshold, keep_top_k, union_mode, stream
+    "nms_scan_keep_mask": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
     # x, w1, b1, w2, b2, out, batch, height, width, stream
     "fused_vgg_block1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w, b, out, batch, height, width, cin, cout, stream
+    "fused_stem_conv_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, b, out, batch, height, width, cin, cout, out_bf16, stream
+    "fused_conv3x3_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,14 +1,29 @@
-"""Fused VGG block 1 (conv1_1 + ReLU + conv1_2 + ReLU + 2x2 max-pool): the
-CUDA kernel and its plain version.
+"""Fused 3x3 conv + bias + ReLU + 2x2 max-pool kernels and their plain
+versions.
 
-Port of `ron_tensorflow_tpu/kernels/fused_conv_pool.py::fused_vgg_block1`,
-forward only. The kernel is `csrc/fused_vgg_block1.cu`. Its numerics are
-the TPU kernel's: input and weights rounded to bf16, f32 sums and biases,
-conv1_1's output rounded to bf16 before conv1_2, one bf16 rounding of the
-pooled output.
+Ports of `ron_tensorflow_tpu/kernels/fused_conv_pool.py`:
+
+- `fused_vgg_block1` (conv1_1 + ReLU + conv1_2 + ReLU + pool), kernel
+  `csrc/fused_vgg_block1.cu`. Its numerics are the TPU kernel's: input and
+  weights rounded to bf16, f32 sums and biases, conv1_1's output rounded
+  to bf16 before conv1_2, one bf16 rounding of the pooled output. It is
+  differentiable as the JAX custom VJP is: the backward recomputes the
+  unfused composition (`block1_reference`) and differentiates that; only
+  the five inputs are saved.
+- `fused_stem_conv_relu_pool2` (C -> C) and `fused_conv3x3_relu_pool2`
+  (Ci -> Co): one kernel, `csrc/conv3x3_relu_pool2.cu`, for
+  maxpool2(relu(conv3x3_SAME(x, w) + b)) with x and w rounded to bf16 and
+  f32 sums. The stem rounds the pooled value to bf16 before the cast to
+  x.dtype, as its TPU kernel's identity-matmul pool does
+  (`fused_conv_pool.py:78-90`); the general one casts the f32 value to
+  x.dtype only (`:466`).
+
+Layouts: x NHWC, weights OIHW (the port's `Conv.weight`), biases [Co].
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +31,33 @@ import torch.nn.functional as F
 from . import _build
 
 CIN, C = 3, 64  # VGG block 1; the kernel is built for these widths
+
+
+@contextlib.contextmanager
+def _full_f32_convs():
+    """cuDNN convolutions in full f32 (no TF32) inside the block."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _to_nchw_f32_bf16(x):
+    """NHWC -> NCHW float32 holding bf16-rounded values."""
+    return x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+
+
+def _check_cuda_args(name, x, *params):
+    if x.device.type != "cuda" or any(t.device != x.device for t in params):
+        raise ValueError(f"{name}: x and the weights must lie on one CUDA device")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: x must be bf16 or f32, got {x.dtype}")
+
+
+# --------------------------------------------------------------------------- #
+# Fused VGG block 1 (K-B)
 
 
 def fused_block1_supported(height: int, width: int) -> bool:
@@ -30,24 +72,31 @@ def fused_vgg_block1_plain(x, w1, b1, w2, b2):
     x: [B, H, W, Ci] NHWC; w1: [C, Ci, 3, 3] and w2: [C, C, 3, 3] OIHW;
     b1, b2: [C] -> [B, H/2, W/2, C] in x.dtype (bf16-valued)."""
     bf16 = torch.bfloat16
-    xb = x.to(bf16).float().permute(0, 3, 1, 2)
-    y1 = F.relu(F.conv2d(xb, w1.to(bf16).float(), b1.float(), padding=1))
-    y1 = y1.to(bf16).float()
-    z = F.relu(F.conv2d(y1, w2.to(bf16).float(), b2.float(), padding=1))
+    with _full_f32_convs():
+        y1 = F.relu(F.conv2d(_to_nchw_f32_bf16(x), w1.to(bf16).float(), b1.float(), padding=1))
+        y1 = y1.to(bf16).float()
+        z = F.relu(F.conv2d(y1, w2.to(bf16).float(), b2.float(), padding=1))
     out = F.max_pool2d(z, 2, 2, ceil_mode=True).to(bf16)
     return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
-def fused_vgg_block1(x, w1, b1, w2, b2):
-    """The fused block-1 kernel for a CUDA tensor, its plain version for a
-    CPU tensor. Same arguments as `fused_vgg_block1_plain`; on CUDA,
-    Ci = 3, C = 64, H and W even, x contiguous bf16 or f32."""
+def block1_reference(x, w1, b1, w2, b2):
+    """The unfused composition the block-1 kernel replaces, counterpart of
+    `fused_conv_pool.py::_block1_xla_reference`: params cast to x.dtype,
+    SAME 3x3 convs, + bias, ReLU, twice, then the 2x2/s2 max pool; no bf16
+    rounding beyond x.dtype's own. Its gradients are the kernel's."""
+    dt = x.dtype
+    h = x.permute(0, 3, 1, 2)
+    h = F.relu(F.conv2d(h, w1.to(dt), padding=1) + b1.to(dt)[:, None, None])
+    h = F.relu(F.conv2d(h, w2.to(dt), padding=1) + b2.to(dt)[:, None, None])
+    return F.max_pool2d(h, 2, 2, ceil_mode=True).permute(0, 2, 3, 1)
+
+
+def _block1_forward(x, w1, b1, w2, b2):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return fused_vgg_block1_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda" or any(t.device != x.device for t in (w1, b1, w2, b2)):
-        raise ValueError("x and the weights must lie on one CUDA device")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x must be bf16 or f32, got {x.dtype}")
+    _check_cuda_args("fused_vgg_block1", x, w1, b1, w2, b2)
     if x.dim() != 4 or x.shape[-1] != CIN or not x.is_contiguous():
         raise ValueError(f"x must be contiguous NHWC [B, H, W, {CIN}], got {tuple(x.shape)}")
     if w1.shape != (C, CIN, 3, 3) or w2.shape != (C, C, 3, 3) or b1.shape != (C,) or b2.shape != (C,):
@@ -76,4 +125,133 @@ def fused_vgg_block1(x, w1, b1, w2, b2):
     return out.to(x.dtype)
 
 
+class _FusedBlock1(torch.autograd.Function):
+    """Forward through the kernel (or its plain version); backward by
+    recomputing `block1_reference` from the saved inputs, as the JAX custom
+    VJP does (`fused_conv_pool.py:366-385`): no block-1 activation is kept
+    between the two passes."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _block1_forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = block1_reference(*inputs)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def fused_vgg_block1(x, w1, b1, w2, b2):
+    """The fused block-1 kernel for a CUDA tensor, its plain version for a
+    CPU tensor. Same arguments as `fused_vgg_block1_plain`; on CUDA,
+    Ci = 3, C = 64, H and W even, x contiguous bf16 or f32.
+
+    Differentiable (recompute backward, see `_FusedBlock1`). When no input
+    needs a gradient, or under `torch.no_grad()`/`torch.inference_mode()`,
+    it calls the forward directly: nothing is saved."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _FusedBlock1.apply(x, w1, b1, w2, b2)
+    return _block1_forward(x, w1, b1, w2, b2)
+
+
 fused_vgg_block1.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# conv3x3 + ReLU + 2x2 pool (K-D stem, K-E general)
+
+
+def _conv_relu_pool_f32(x, w, b):
+    """maxpool2(relu(conv3x3_SAME(bf16(x), bf16(w)) + b)) in f32, NHWC."""
+    with _full_f32_convs():
+        z = F.conv2d(_to_nchw_f32_bf16(x), w.to(torch.bfloat16).float(), padding=1)
+    z = F.relu(z + b.float()[:, None, None])
+    return F.max_pool2d(z, 2, 2).permute(0, 2, 3, 1).contiguous()
+
+
+def _check_conv_shapes(name, x, w, b, same_channels):
+    if x.dim() != 4 or w.dim() != 4 or w.shape[2:] != (3, 3) or w.shape[1] != x.shape[-1]:
+        raise ValueError(f"{name}: need x [B, H, W, Ci] and w [Co, Ci, 3, 3], got {tuple(x.shape)}, {tuple(w.shape)}")
+    if b.shape != (w.shape[0],):
+        raise ValueError(f"{name}: need b [{w.shape[0]}], got {tuple(b.shape)}")
+    if same_channels and w.shape[0] != w.shape[1]:
+        raise ValueError(f"{name}: the stem kernel needs C = Co, got {w.shape[1]} -> {w.shape[0]}")
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"{name}: even spatial dims required, got {x.shape[1]}x{x.shape[2]}")
+
+
+def fused_stem_conv_relu_pool2_plain(x, w, b):
+    """K-D's function in plain PyTorch: x [B, H, W, C], w [C, C, 3, 3] OIHW,
+    b [C] -> [B, H/2, W/2, C], the pooled value rounded to bf16, then cast
+    to x.dtype."""
+    _check_conv_shapes("fused_stem_conv_relu_pool2", x, w, b, same_channels=True)
+    return _conv_relu_pool_f32(x, w, b).to(torch.bfloat16).to(x.dtype)
+
+
+def fused_conv3x3_relu_pool2_plain(x, w, b):
+    """K-E's function in plain PyTorch: x [B, H, W, Ci], w [Co, Ci, 3, 3]
+    OIHW, b [Co] -> [B, H/2, W/2, Co], the f32 value cast to x.dtype."""
+    _check_conv_shapes("fused_conv3x3_relu_pool2", x, w, b, same_channels=False)
+    return _conv_relu_pool_f32(x, w, b).to(x.dtype)
+
+
+def _launch_conv_relu_pool(name, x, w, b, round_bf16):
+    """Run `csrc/conv3x3_relu_pool2.cu`: bf16 NHWC in; bf16 out when the
+    value is rounded to bf16 anyway (the stem, or a bf16 x), else f32."""
+    _check_cuda_args(name, x, w, b)
+    batch, height, width, cin = x.shape
+    cout = w.shape[0]
+    if cout % 8:
+        raise ValueError(f"{name}: the kernel needs Co a multiple of 8, got {cout}")
+    xb = x.to(torch.bfloat16).contiguous()
+    wh = w.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
+    bf = b.float().contiguous()
+    out_bf16 = round_bf16 or x.dtype == torch.bfloat16
+    out = torch.empty(
+        batch, height // 2, width // 2, cout,
+        dtype=torch.bfloat16 if out_bf16 else torch.float32, device=x.device,
+    )
+    if wh.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{name}: weights and output must be 16-byte aligned")
+    args = [xb.data_ptr(), wh.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, height, width, cin, cout]
+    if not round_bf16:
+        args.append(int(out_bf16))  # the general kernel stores bf16 only for a bf16 x
+    with torch.cuda.device(x.device):
+        err = getattr(_build.library(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    _build.check(name, err)
+    return out.to(x.dtype)
+
+
+def fused_stem_conv_relu_pool2(x, w, b):
+    """K-D, `maxpool2(relu(conv3x3_SAME(x, w) + b))` with C = Co: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor. Same
+    arguments as `fused_stem_conv_relu_pool2_plain`; on CUDA, C a multiple
+    of 8, x bf16 or f32. The output is bf16-valued whatever x.dtype."""
+    if x.device.type == "cpu":
+        return fused_stem_conv_relu_pool2_plain(x, w, b)
+    _check_conv_shapes("fused_stem_conv_relu_pool2", x, w, b, same_channels=True)
+    out = _launch_conv_relu_pool("fused_stem_conv_relu_pool2", x, w, b, round_bf16=True)
+    fused_stem_conv_relu_pool2.launches += 1
+    return out
+
+
+def fused_conv3x3_relu_pool2(x, w, b):
+    """K-E, `maxpool2(relu(conv3x3_SAME(x, w) + b))`, Ci -> Co: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor. Same
+    arguments as `fused_conv3x3_relu_pool2_plain`; on CUDA, Co a multiple
+    of 8, x bf16 or f32. An f32 x gives an f32 result, not rounded to bf16."""
+    if x.device.type == "cpu":
+        return fused_conv3x3_relu_pool2_plain(x, w, b)
+    _check_conv_shapes("fused_conv3x3_relu_pool2", x, w, b, same_channels=False)
+    out = _launch_conv_relu_pool("fused_conv3x3_relu_pool2", x, w, b, round_bf16=False)
+    fused_conv3x3_relu_pool2.launches += 1
+    return out
+
+
+fused_stem_conv_relu_pool2.launches = 0
+fused_conv3x3_relu_pool2.launches = 0

@@ -1,13 +1,19 @@
-"""Fixpoint greedy-NMS keep mask: the CUDA kernel and its plain version.
+"""Greedy-NMS keep masks: two CUDA kernels, each beside its plain version.
 
-Port of `ron_tensorflow_tpu/kernels/nms_pallas.py`
-(`pallas_nms_fixpoint_keep_mask`, `nms_sorted_pallas` with
-method='fixpoint'). The kernel is `csrc/nms_fixpoint.cu`. Both versions use
-the TPU kernel's division-free predicate `inter >= t * denom && denom > 0`
-(`nms_pallas.py:179-181`), so they give the same mask bit for bit; it is
-the port's only NMS predicate. (The JAX package's CPU path,
-`ops/nms.py::overlap_matrix`, divides instead and can differ from both
-exactly at the threshold.)
+Port of `ron_tensorflow_tpu/kernels/nms_pallas.py`:
+
+- fixpoint (`pallas_nms_fixpoint_keep_mask`, `csrc/nms_fixpoint.cu`): the
+  uncapped keep mask through the suppression fixpoint, with the TPU
+  kernel's division-free predicate `inter >= t * denom && denom > 0`
+  (`nms_pallas.py:179-181`). The Detector's NMS.
+- scan (`pallas_nms_keep_mask`, `csrc/nms_scan.cu`): the K-step sequential
+  scan with the `keep_top_k` cap inside, and the TPU scan kernel's
+  dividing predicate `ov = inter / denom if denom > 0 else 0; ov >= t`
+  (`nms_pallas.py:75`).
+
+Each kernel gives its plain version's mask bit for bit. The two predicates
+can disagree for a pair that sits on the threshold, as the two TPU kernels
+do; each is held to its own TPU kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +28,22 @@ MODES = ("min", "union")
 def _check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown NMS mode: {mode!r}")
+
+
+def _check_cuda_rows(scores: torch.Tensor, boxes: torch.Tensor):
+    """Raise unless the rows are what the NMS kernels take; returns (R, K)."""
+    if scores.device.type != "cuda" or boxes.device != scores.device:
+        raise ValueError(f"tensors on {scores.device} and {boxes.device}: need one CUDA device")
+    if scores.dtype != torch.float32 or boxes.dtype != torch.float32:
+        raise TypeError(f"need float32, got {scores.dtype} and {boxes.dtype}")
+    if scores.dim() != 2 or boxes.shape != (*scores.shape, 4):
+        raise ValueError(f"need scores [R, K] and boxes [R, K, 4], got {scores.shape}, {boxes.shape}")
+    if not (scores.is_contiguous() and boxes.is_contiguous()):
+        raise ValueError("scores and boxes must be contiguous")
+    r, k = scores.shape
+    if k > 1024:
+        raise ValueError(f"K={k} > 1024 candidates per row")
+    return r, k
 
 
 def suppression_matrix(boxes: torch.Tensor, nms_threshold: float, mode: str) -> torch.Tensor:
@@ -100,17 +122,7 @@ def nms_fixpoint_keep_mask(
     _check_mode(mode)
     if scores.device.type == "cpu":
         return nms_fixpoint_keep_mask_plain(scores, boxes, nms_threshold, mode)
-    if scores.device.type != "cuda" or boxes.device != scores.device:
-        raise ValueError(f"tensors on {scores.device} and {boxes.device}: need one CUDA device")
-    if scores.dtype != torch.float32 or boxes.dtype != torch.float32:
-        raise TypeError(f"need float32, got {scores.dtype} and {boxes.dtype}")
-    if scores.dim() != 2 or boxes.shape != (*scores.shape, 4):
-        raise ValueError(f"need scores [R, K] and boxes [R, K, 4], got {scores.shape}, {boxes.shape}")
-    if not (scores.is_contiguous() and boxes.is_contiguous()):
-        raise ValueError("scores and boxes must be contiguous")
-    r, k = scores.shape
-    if k > 1024:
-        raise ValueError(f"K={k} > 1024 candidates per row")
+    r, k = _check_cuda_rows(scores, boxes)
     keep = torch.empty(r, k, dtype=torch.bool, device=scores.device)
     with torch.cuda.device(scores.device):
         err = _build.library().nms_fixpoint_keep_mask(
@@ -126,18 +138,94 @@ def nms_fixpoint_keep_mask(
 nms_fixpoint_keep_mask.launches = 0
 
 
+def nms_scan_keep_mask_plain(
+    scores: torch.Tensor,
+    boxes: torch.Tensor,
+    nms_threshold: float = 0.5,
+    keep_top_k: int = 200,
+    mode: str = "min",
+) -> torch.Tensor:
+    """Capped greedy-NMS keep mask by the sequential scan, plain PyTorch: K
+    steps, each vectorised over the rows. scores [R, K], boxes [R, K, 4]
+    -> bool [R, K]. Step i takes candidate i iff it is alive, its score is
+    > 0 and fewer than keep_top_k are kept; a taken i kills every j with
+    ov(i, j) >= t, ov = inter / denom where denom > 0, else 0."""
+    _check_mode(mode)
+    y0, x0, y1, x1 = boxes.unbind(-1)
+    vol = (y1 - y0) * (x1 - x0)
+    t = torch.tensor(nms_threshold, dtype=boxes.dtype, device=boxes.device)
+    r, k = scores.shape
+    alive = torch.ones(r, k, dtype=torch.bool, device=scores.device)
+    keep = torch.zeros(r, k, dtype=torch.bool, device=scores.device)
+    kept = torch.zeros(r, dtype=torch.long, device=scores.device)
+    for i in range(k):
+        take = alive[:, i] & (scores[:, i] > 0.0) & (kept < keep_top_k)
+        ih = torch.clamp(torch.minimum(y1, y1[:, i, None]) - torch.maximum(y0, y0[:, i, None]), min=0.0)
+        iw = torch.clamp(torch.minimum(x1, x1[:, i, None]) - torch.maximum(x0, x0[:, i, None]), min=0.0)
+        inter = ih * iw
+        if mode == "union":
+            denom = (vol + vol[:, i, None]) - inter
+        else:
+            denom = torch.minimum(vol, vol[:, i, None])
+        pos = denom > 0.0
+        ov = torch.where(pos, inter / torch.where(pos, denom, 1.0), 0.0)
+        alive &= ~((ov >= t) & take[:, None])
+        keep[:, i] = take
+        kept += take
+    return keep
+
+
+def nms_scan_keep_mask(
+    scores: torch.Tensor,
+    boxes: torch.Tensor,
+    nms_threshold: float = 0.5,
+    keep_top_k: int = 200,
+    mode: str = "min",
+) -> torch.Tensor:
+    """Capped greedy-NMS keep mask by the sequential scan: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor. scores [R, K]
+    float32, boxes [R, K, 4] float32 contiguous, K <= 1024 -> bool [R, K]."""
+    _check_mode(mode)
+    if scores.device.type == "cpu":
+        return nms_scan_keep_mask_plain(scores, boxes, nms_threshold, keep_top_k, mode)
+    r, k = _check_cuda_rows(scores, boxes)
+    keep = torch.empty(r, k, dtype=torch.bool, device=scores.device)
+    with torch.cuda.device(scores.device):
+        err = _build.library().nms_scan_keep_mask(
+            scores.data_ptr(), boxes.data_ptr(), keep.data_ptr(), r, k,
+            float(nms_threshold), int(min(keep_top_k, k)), int(mode == "union"),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check("nms_scan_keep_mask", err)
+    nms_scan_keep_mask.launches += 1
+    return keep
+
+
+nms_scan_keep_mask.launches = 0
+
+METHODS = ("fixpoint", "scan")
+
+
 def nms_sorted_kernel(
     scores: torch.Tensor,
     boxes: torch.Tensor,
     nms_threshold: float = 0.5,
     keep_top_k: int = 200,
     mode: str = "min",
+    method: str = "fixpoint",
 ):
-    """Batched greedy NMS over score-sorted rows through the keep-mask
-    kernel, then the `keep_top_k` cap (cumsum) and the compaction of
-    `nms_pallas.py:292-300`.
+    """Batched greedy NMS over score-sorted rows through a keep-mask kernel,
+    then the `keep_top_k` cap (cumsum) and the compaction of
+    `nms_sorted_pallas` (`nms_pallas.py:260-300`). method 'fixpoint' (the
+    Detector's) or 'scan' (the cap also inside the kernel).
 
     scores [R, K], boxes [R, K, 4] -> (scores [R, keep_top_k],
     boxes [R, keep_top_k, 4]), zero-padded, in score order."""
-    keep = nms_fixpoint_keep_mask(scores.contiguous(), boxes.contiguous(), nms_threshold, mode)
+    if method not in METHODS:
+        raise ValueError(f"unknown NMS method: {method!r}")
+    s, b = scores.contiguous(), boxes.contiguous()
+    if method == "fixpoint":
+        keep = nms_fixpoint_keep_mask(s, b, nms_threshold, mode)
+    else:
+        keep = nms_scan_keep_mask(s, b, nms_threshold, keep_top_k, mode)
     return compact_keep(keep, scores, boxes, keep_top_k)

@@ -10,11 +10,18 @@ import torch
 
 from ron_tensorflow_tpu_torch import kernels
 from ron_tensorflow_tpu_torch.kernels import (
+    fused_conv3x3_relu_pool2,
+    fused_conv3x3_relu_pool2_plain,
+    fused_stem_conv_relu_pool2,
+    fused_stem_conv_relu_pool2_plain,
     fused_vgg_block1,
     fused_vgg_block1_plain,
     nms_fixpoint_keep_mask,
     nms_fixpoint_keep_mask_plain,
+    nms_scan_keep_mask,
+    nms_scan_keep_mask_plain,
 )
+from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +59,104 @@ def test_nms_kernel_equals_plain(cuda, r, k, grid, thr, mode):
     assert torch.equal(got, ref)
 
 
+NMS_SHAPES = [(640, 200, None, 0.4), (33, 1024, 8, 0.5), (5, 31, 4, 0.25)]
+
+
+@pytest.mark.parametrize("mode", ["min", "union"])
+@pytest.mark.parametrize("r,k,grid,thr", NMS_SHAPES)
+@pytest.mark.parametrize("keep_top_k", [16, 100, 200])
+def test_nms_scan_kernel_equals_plain(cuda, r, k, grid, thr, mode, keep_top_k):
+    scores, boxes = (t.to(cuda) for t in sorted_rows(r + k + keep_top_k, r, k, grid))
+    kernels.reset_launch_counts()
+    got = nms_scan_keep_mask(scores, boxes, thr, keep_top_k, mode)
+    torch.cuda.synchronize()
+    assert nms_scan_keep_mask.launches == 1
+    ref = nms_scan_keep_mask_plain(scores, boxes, thr, keep_top_k, mode)
+    assert torch.equal(got, ref)
+    assert int(got.sum(-1).max()) <= keep_top_k
+
+
+def bf16_ulp(ref):
+    """One bf16 ulp of each bf16-valued entry, 2^(floor(log2 |ref|) - 7); 0 at
+    0. The exponent comes from frexp, exact: log2 on the card is not exact at
+    powers of two."""
+    _, e = torch.frexp(ref)
+    return torch.where(ref != 0, torch.ldexp(torch.ones_like(ref), e - 8), 0.0)
+
+
+def assert_conv_pool_close(got, ref, rounded):
+    """The two f32 sums differ in order and cuDNN's f32 algorithm may be
+    less exact than a plain sum (measured on an H100: up to ~1e-5 from an
+    f64 reference): f32 outputs within 1e-4 * (1 + |ref|). A bf16-rounded
+    output rounds those f32 values, so it may land one bf16 ulp further
+    apart: within ulp(ref) + 1e-4 * (1 + |ref|). (The f32 term matters only
+    near 0, where a sum of a thousand terms cancels to a value whose ulp is
+    below the f32 sums' own error.)"""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    g, r = got.double(), ref.double()
+    tol = 1e-4 * (1 + r.abs()) + (bf16_ulp(r) if rounded else 0.0)
+    bad = (g - r).abs() > tol
+    assert not bad.any(), f"{int(bad.sum())} of {bad.numel()} outputs out of tolerance"
+
+
+CONV_CASES = [
+    # (name, shape [B, H, W], Ci, Co)
+    ("stem", (32, 320, 320), 64, 64),  # block-1 tail, full width
+    ("stem", (2, 36, 52), 64, 64),  # ragged tiles
+    ("general", (32, 160, 160), 128, 128),  # block-2 tail
+    ("general", (32, 80, 80), 256, 256),  # block-3 tail
+    ("general", (3, 36, 52), 128, 256),  # ragged, Ci != Co
+    ("general", (2, 20, 26), 512, 512),  # 16 input-channel chunks
+    ("general", (1, 8, 12), 4, 16),  # Ci below one chunk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,shape,cin,cout", CONV_CASES)
+def test_conv_pool_kernels_within_tolerance_of_plain(cuda, name, shape, cin, cout, dtype):
+    g = torch.Generator().manual_seed(sum(shape) + cin + cout)
+    x = torch.relu(torch.randn(*shape, cin, generator=g) * 3).to(dtype).to(cuda)
+    w = (torch.randn(cout, cin, 3, 3, generator=g) * (2.0 / (9 * cin)) ** 0.5).to(cuda)
+    b = (torch.randn(cout, generator=g) * 0.1).to(cuda)
+    kernel, plain = {
+        "stem": (fused_stem_conv_relu_pool2, fused_stem_conv_relu_pool2_plain),
+        "general": (fused_conv3x3_relu_pool2, fused_conv3x3_relu_pool2_plain),
+    }[name]
+    kernels.reset_launch_counts()
+    got = kernel(x, w, b)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    ref = plain(x, w, b)
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, cout) and got.dtype == dtype
+    assert_conv_pool_close(got, ref, rounded=name == "stem" or dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_block1_grads_match_recompute_composition(cuda, dtype, rel):
+    """Gradients through the kernel path exist and equal autograd through
+    `block1_reference` (the Function's backward is that composition's VJP).
+    Tolerance: rel of each gradient's largest magnitude; cuDNN's weight
+    gradients may sum with atomics in another order on each run, which in
+    bf16 moves a value by a few bf16 ulps."""
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(2, 36, 52, 3, generator=g) * 60).to(dtype)
+    params = [torch.randn(64, 3, 3, 3, generator=g) * 0.1, torch.randn(64, generator=g),
+              torch.randn(64, 64, 3, 3, generator=g) * 0.05, torch.randn(64, generator=g)]
+    go = torch.randn(2, 18, 26, 64, generator=g).to(dtype).to(cuda)
+    grads = []
+    for fn in (fused_vgg_block1, block1_reference):
+        leaves = [t.to(cuda).requires_grad_() for t in (x, *params)]
+        kernels.reset_launch_counts()
+        (fn(*leaves) * go).float().sum().backward()
+        torch.cuda.synchronize()
+        assert fused_vgg_block1.launches == (fn is fused_vgg_block1)
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        assert got is not None and torch.isfinite(got).all()
+        scale = float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= rel * scale
+
+
 @pytest.mark.parametrize("shape", [(1, 16, 32), (2, 36, 52), (1, 8, 12), (2, 320, 320)])
 def test_block1_kernel_within_bf16_of_plain(cuda, shape):
     """Tolerance: both round conv1_1 to bf16 and the output to bf16; their
@@ -84,3 +189,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     b = torch.zeros(64, device=cuda)
     with pytest.raises(ValueError):
         fused_vgg_block1(x, w1, b, w2, b)  # odd height
+    with pytest.raises(ValueError):
+        nms_scan_keep_mask(scores[:, ::2], boxes[:, ::2])
+    with pytest.raises(ValueError):
+        nms_scan_keep_mask(*(t.to(cuda) for t in sorted_rows(1, 2, 1025)))  # K > 1024
+    with pytest.raises(ValueError):
+        nms_scan_keep_mask(scores, boxes.cpu())  # two devices
+    xc = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
+    wc, bc = torch.zeros(64, 64, 3, 3, device=cuda), torch.zeros(64, device=cuda)
+    for fn in (fused_stem_conv_relu_pool2, fused_conv3x3_relu_pool2):
+        with pytest.raises(ValueError):
+            fn(xc[:, :7], wc, bc)  # odd height
+        with pytest.raises(ValueError):
+            fn(xc[:, :, :7], wc, bc)  # odd width
+        with pytest.raises(ValueError):
+            fn(xc, wc.cpu(), bc)  # weights on another device
+        with pytest.raises(TypeError):
+            fn(xc.half(), wc, bc)
+    with pytest.raises(ValueError):
+        fused_stem_conv_relu_pool2(xc, torch.zeros(128, 64, 3, 3, device=cuda), torch.zeros(128, device=cuda))
+    assert fused_conv3x3_relu_pool2(xc, torch.zeros(128, 64, 3, 3, device=cuda),
+                                    torch.zeros(128, device=cuda)).shape == (1, 4, 4, 128)

@@ -21,7 +21,7 @@ def port_modules():
 
 def test_port_modules_found():
     mods = port_modules()
-    for name in ("kernels.nms", "kernels.fused_conv_pool", "inference.detector", "weights"):
+    for name in ("kernels.nms", "kernels.fused_conv_pool", "kernels._build", "inference.detector", "weights"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
 
 

@@ -86,7 +86,13 @@ def test_block1_wrapper_runs_plain_on_cpu_without_counting():
     out = fused_vgg_block1(x, *weights)
     assert out.dtype == torch.bfloat16 and out.shape == (1, 4, 6, 64)
     torch.testing.assert_close(out, fused_vgg_block1_plain(x, *weights), rtol=0, atol=0)
-    assert kernels.launch_counts() == {"nms_fixpoint_keep_mask": 0, "fused_vgg_block1": 0}
+    assert kernels.launch_counts() == {
+        "nms_fixpoint_keep_mask": 0,
+        "fused_vgg_block1": 0,
+        "nms_scan_keep_mask": 0,
+        "fused_stem_conv_relu_pool2": 0,
+        "fused_conv3x3_relu_pool2": 0,
+    }
 
 
 # --------------------------------------------------------------------------- #
