@@ -4,7 +4,9 @@
 
 Phases, each ending with a line that gives its elapsed seconds:
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the port's five CUDA kernels, one nvcc call;
+  2. build    the port's five CUDA kernels, one nvcc call; ptxas's registers
+              and spills and the HGMMA count in the SASS of the two
+              tensor-core kernels (K-B, K-D);
   3. kernels  each kernel against its plain PyTorch version on the card, at
               edge shapes (random, exact-threshold and K = 1024 NMS rows,
               ragged conv tiles, f32 and bf16 inputs);
@@ -12,9 +14,12 @@ Phases, each ending with a line that gives its elapsed seconds:
               tests/fixtures/e2e_parity_trained.npz, pixels to boxes:
               (a) float32, TF32 off, against the fixture's reference
               detections, through the fixpoint NMS (the Detector's) and
-              again through `nms_sorted_kernel(method='scan')`; (b) bf16,
-              batch 32, fused block 1, through K-A and K-B (launch counts
-              read around this run: K-C, K-D and K-E stay at 0);
+              again through `nms_sorted_kernel(method='scan')`, then once
+              more under torch's default flags (cuDNN TF32 on); (b) bf16
+              detections of the four images against the f32 ones, with
+              block 1 unfused (cuDNN) and through K-B; (c) bf16, batch 32,
+              fused block 1, through K-A and K-B (launch counts read around
+              this run: K-C, K-D and K-E stay at 0);
   5. api      the kernels API on the main path's own data (counts read
               around it): K-C on the bf16 run's NMS candidates, K-D on
               relu(conv1_1) of its batch with conv1_2's weights, K-E on the
@@ -22,8 +27,10 @@ Phases, each ending with a line that gives its elapsed seconds:
               version, and K-D against K-B on the same batch;
   6. grad     K-B's gradients (kernel forward, recompute backward) against
               autograd through the unfused composition, bf16, batch 32;
-  7. timing   the bf16 batch-32 Detector's images/s, and each kernel's time
-              beside its plain version's, its bound and a library yardstick.
+  7. timing   the bf16 batch-32 Detector's images/s and stage split, each
+              kernel's time beside its plain version's, its bound and a
+              library yardstick, and one torch.profiler pass over a
+              Detector batch (top device kernels, device busy share).
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -81,6 +88,9 @@ CONV_F32_TOL = 1e-4
 # in another order on each run, a few bf16 ulps (2^-8 each).
 GRAD_REL_TOL = 2e-2
 SCAN_KEEP_TOP_K = [16, 100, 200]  # K-C's cap in the edge-shape checks
+# The kernels that run on the tensor cores: wrapper name -> CUDA kernel name.
+TENSOR_CORE_KERNELS = {"fused_vgg_block1": "fused_vgg_block1_kernel",
+                       "fused_stem_conv_relu_pool2": "stem_conv_mma_kernel"}
 
 
 @contextlib.contextmanager
@@ -110,6 +120,51 @@ def smi_sample():
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+
+
+@contextlib.contextmanager
+def torch_default_flags():
+    """torch's default precision flags inside the block: cuDNN f32
+    convolutions in TF32, f32 matmuls in full f32."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def tensor_core_report():
+    """For each tensor-core kernel: ptxas's registers and spills, its dynamic
+    shared memory and the HGMMA instructions in its SASS (`cuobjdump -sass`
+    on the built library, where the toolkit has it). Fails if a kernel was
+    built without HGMMA."""
+    ptxas = _build.ptxas_report()
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    hgmma = None
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        hgmma, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                hgmma[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                hgmma[fn] += 1
+    lib = _build.library()
+    report = {}
+    for name, kernel in TENSOR_CORE_KERNELS.items():
+        (mangled,) = [n for n in ptxas if kernel in n]
+        info = {**ptxas[mangled], "smem_bytes": getattr(lib, f"{name}_smem_bytes")(),
+                "hgmma": None if hgmma is None else sum(v for f, v in hgmma.items() if kernel in f)}
+        print(f"  {name} ({kernel}): {info['registers']} registers, {info['spill_stores']} bytes spill stores, "
+              f"{info['spill_loads']} bytes spill loads, {info['smem_bytes']} bytes dynamic shared memory, "
+              f"HGMMA in SASS: {info['hgmma'] if hgmma is not None else 'not measured (no cuobjdump)'}")
+        if info["hgmma"] == 0:
+            raise AssertionError(f"{kernel} holds no HGMMA instruction")
+        report[name] = info
+    return report
 
 
 def bound(nbytes, flops, peak_flops):
@@ -247,21 +302,55 @@ def check_kernels(block1_weights):
     return errs
 
 
-def f32_parity(state, images):
-    """Phase 4a: float32, TF32 off, against the reference detections: the
-    Detector as it runs (fixpoint NMS), then its candidates through the
-    scan NMS."""
+def f32_parity(state, images, flags):
+    """Phase 4a: float32 against the reference detections: the Detector as
+    it runs (fixpoint NMS), then its candidates through the scan NMS.
+    Returns the Detector's detections."""
     model = RON(RON_320_SPEC, dtype=torch.float32)
     model.load_state_dict(state, strict=True)
     det = Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")
-    check_detections("fixpoint NMS (the Detector's)", *det(images))
+    dets = det(images)
+    check_detections(f"{flags}, fixpoint NMS (the Detector's)", *dets)
     with torch.inference_mode():
         flat_s, flat_b = det.candidates(det.model(images))
         scan_s, scan_b = nms_sorted_kernel(flat_s, flat_b, NMS_CFG.nms_threshold, NMS_CFG.keep_top_k,
                                            NMS_CFG.nms_mode, method="scan")
     c = RON_320_SPEC.num_classes - 1
-    check_detections("scan NMS", scan_s.reshape(len(images), c, -1), scan_b.reshape(len(images), c, -1, 4))
-    del det, model
+    check_detections(f"{flags}, scan NMS", scan_s.reshape(len(images), c, -1),
+                     scan_b.reshape(len(images), c, -1, 4))
+    return dets
+
+
+def bf16_drift(state, images, f32_dets):
+    """Phase 4b: how far the bf16 detections of the four images lie from the
+    f32 ones, with block 1 unfused (cuDNN) and through K-B: the (image,
+    class) pairs whose keep counts agree, the detections on each side, and
+    over the pairs that agree the largest score and box difference."""
+    ref_s, ref_b = (t.float() for t in f32_dets)
+    drift = {}
+    for fuse in (False, True):
+        model = RON(RON_320_SPEC, dtype=torch.bfloat16, fuse_block1=fuse)
+        model.load_state_dict(state, strict=True)
+        kernels.reset_launch_counts()
+        got_s, got_b = Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")(images)
+        torch.cuda.synchronize()
+        if kernels.fused_vgg_block1.launches != int(fuse):
+            raise AssertionError("the bf16 drift run did not take the intended block 1")
+        n_ref, n_got = (ref_s > 0).sum(-1), (got_s > 0).sum(-1)
+        same = n_ref == n_got
+        rank = torch.arange(ref_s.shape[-1], device=ref_s.device)
+        live = same[..., None] & (rank < n_ref[..., None])
+        d_s = float(torch.where(live, (got_s - ref_s).abs(), 0.0).max())
+        d_b = float(torch.where(live[..., None], (got_b - ref_b).abs(), 0.0).max())
+        label = "K-B" if fuse else "unfused (cuDNN)"
+        drift[label] = {"pairs_equal_counts": int(same.sum()), "pairs": same.numel(),
+                        "detections_bf16": int(n_got.sum()), "detections_f32": int(n_ref.sum()),
+                        "sum_abs_count_diff": int((n_got - n_ref).abs().sum()),
+                        "max_abs_score_diff": d_s, "max_abs_box_diff": d_b}
+        print(f"  bf16 vs f32 detections, block 1 {label}: keep counts equal in {int(same.sum())} of "
+              f"{same.numel()} (image, class) pairs; {int(n_got.sum())} detections vs {int(n_ref.sum())}; "
+              f"over the equal pairs max |score diff| {d_s:.6g}, max |box diff| {d_b:.6g}")
+    return drift
 
 
 def check_detections(label, scores, boxes):
@@ -285,7 +374,7 @@ def check_detections(label, scores, boxes):
                 worst = max(worst, float(np.abs(scores[i, cls - 1, :ref_n] - ref_s[:ref_n]).max()),
                             float(np.abs(boxes[i, cls - 1, :ref_n] - ref_b[:ref_n]).max()))
             n_kept += ref_n
-    print(f"  f32, {label}: {n_kept} detections over {len(IMAGES)} images x 20 classes equal the reference "
+    print(f"  f32 ({label}): {n_kept} detections over {len(IMAGES)} images x 20 classes equal the reference "
           f"(keep counts, labels); max |diff| of scores and boxes {worst:.3g} <= {PARITY_ATOL}")
 
 
@@ -394,15 +483,57 @@ def conv_row(name, calls, max_err, launches, replaces):
         flops += 2 * bsz * h * wd * cin * cout * 9
         nbytes += x.numel() * 2 + bsz * (h // 2) * (wd // 2) * cout * 2 + w.numel() * 2 + cout * 4
         xn, wl, bl = x.permute(0, 3, 1, 2), w.to(torch.bfloat16), b.to(torch.bfloat16)
-        ms += cuda_ms(lambda: kernel(x, w, b), reps=5)
+        ms += cuda_ms(lambda: kernel(x, w, b), reps=20)
         plain_ms += cuda_ms(lambda: plain(x, w, b), reps=2)
-        library_ms += cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xn, wl, bl, padding=1)), 2, 2), reps=5)
+        library_ms += cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xn, wl, bl, padding=1)), 2, 2), reps=20)
     bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    return {
+    return with_rates({
         "name": name, "route": "cuda", "source": "ron_tensorflow_tpu_torch/csrc/conv3x3_relu_pool2.cu",
         "replaces": replaces, "path": "kernels API", "launches": launches[name], "max_abs_err": max_err[name],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-    }
+    }, flops)
+
+
+def with_rates(row, flops):
+    """A conv kernel's row with its achieved TFLOP/s, its share of the bound
+    (bound_ms / ms) and its time over the library call's."""
+    row["tflops"] = flops / row["ms"] * 1e-9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["library_ratio"] = row["ms"] / row["library_ms"]
+    return row
+
+
+def profile_detector(det, batch):
+    """One torch.profiler pass over a bf16 batch-32 Detector call: the top
+    device kernels by time, and the share of the call's wall time in which
+    a kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        det(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            det(batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    # the device's own events (kernels, copies), not the host ops that launched them
+    kernels_run = (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = sorted((e for e in kernels_run if device_us(e) > 0), key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in events)
+    if not events:
+        print("  the profiler trace holds no device time")
+        return {"device_us": 0.0, "wall_us": wall_us, "top": []}
+    top = [{"name": e.key[:120], "device_us": device_us(e), "count": e.count} for e in events[:12]]
+    print(f"  profiled Detector batch: {busy_us / 1e3:.3f} ms of kernels in {wall_us / 1e3:.3f} ms wall "
+          f"(device busy {busy_us / wall_us:.3f}, host clock, profiler on); top kernels:")
+    for t in top:
+        print(f"    {t['device_us'] / 1e3:8.3f} ms  x{t['count']:<4} {t['name']}")
+    return {"device_us": busy_us, "wall_us": wall_us, "top": top}
 
 
 def main() -> int:
@@ -424,6 +555,7 @@ def main() -> int:
     with phase("build"):
         seconds = _build.timed_build()
         print(f"  one nvcc call: {_build.library_path().name} in {seconds:.2f} s")
+        tc_report = tensor_core_report()
 
     with phase("weights"):
         state = from_jax_params(*load_trained_fixture(str(TRAINED_FIXTURE)))
@@ -436,7 +568,12 @@ def main() -> int:
         max_err = check_kernels(block1)
 
     with phase("main f32"):
-        f32_parity(state, images)
+        f32_dets = f32_parity(state, images, "TF32 off")
+        with torch_default_flags():
+            f32_parity(state, images, "torch's default flags, cuDNN TF32 on")
+
+    with phase("bf16 drift"):
+        drift = bf16_drift(state, images, f32_dets)
 
     with phase("main bf16"):
         model = RON(RON_320_SPEC, dtype=torch.bfloat16, fuse_block1=True)
@@ -497,12 +634,19 @@ def main() -> int:
             results = timing_rows(launches, api_launches, max_err, block1, nhwc_batch,
                                   flat_s, flat_b, scan_keep, y1, tails)
         for res in results:
+            res.update(tc_report.get(res["name"], {}))
+            rates = (f", {res['tflops']:.1f} TFLOP/s, {res['bound_share']:.3f} of bound, "
+                     f"{res['library_ratio']:.3f}x the library" if "tflops" in res else "")
             print(f"  {res['name']}: {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.4f} "
-                  f"by {res['bound_by']}, library {res['library_ms']})")
+                  f"by {res['bound_by']}, library {res['library_ms']}{rates})")
         print(f"  card after timing: {smi_sample()}")
 
+    with phase("profile"):
+        profile = profile_detector(det, batch)
+
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
-                      "detector_stage_ms": breakdown, "topk_ms": topk_ms}))
+                      "detector_stage_ms": breakdown, "topk_ms": topk_ms, "bf16_vs_f32": drift,
+                      "profile": profile}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -556,17 +700,17 @@ def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, fla
         y = F.relu(F.conv2d(x_nchw, lw1, lb1, padding=1))
         return F.max_pool2d(F.relu(F.conv2d(y, lw2, lb2, padding=1)), 2, 2)
 
-    results.append({
+    results.append(with_rates({
         "name": "fused_vgg_block1", "route": "cuda",
         "source": "ron_tensorflow_tpu_torch/csrc/fused_vgg_block1.cu",
         "replaces": "ron_tensorflow_tpu/kernels/fused_conv_pool.py:388", "path": "main",
         "launches": launches["fused_vgg_block1"],
         "max_abs_err": max_err["fused_vgg_block1"],
-        "ms": cuda_ms(lambda: kernels.fused_vgg_block1(nhwc_batch, w1, b1, w2, b2), reps=5),
+        "ms": cuda_ms(lambda: kernels.fused_vgg_block1(nhwc_batch, w1, b1, w2, b2), reps=20),
         "plain_ms": cuda_ms(lambda: kernels.fused_vgg_block1_plain(nhwc_batch, w1, b1, w2, b2), reps=3),
         "bound_ms": blk_bound, "bound_by": blk_by,
-        "library_ms": cuda_ms(library_block1, reps=5),
-    })
+        "library_ms": cuda_ms(library_block1, reps=20),
+    }, blk_flops))
 
     # K-C: the pairs this run's scan evaluates, each kept i against every later j
     later = torch.arange(k - 1, -1, -1, device=scan_keep.device)

@@ -9,6 +9,8 @@ and raise when no card is present; tests pass `device="cpu"`.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,16 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+@contextlib.contextmanager
+def full_f32_convs():
+    """cuDNN convolutions in full f32 inside the block, whatever the
+    caller's `torch.backends.cudnn.allow_tf32` (True by default, which
+    runs f32 convolutions in TF32). The flag is restored on exit."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -1,41 +1,44 @@
 // Fused 3x3 SAME conv + bias + ReLU + 2x2/s2 max-pool, NHWC, Ci -> Co.
 // bf16 input and weights, f32 sums, bias, ReLU and pool; the pooled value is
-// stored as bf16 or as f32 (the template argument).
+// stored as bf16 or as f32.
 //
 // Replaces two TPU kernels of ron_tensorflow_tpu/kernels/fused_conv_pool.py
 // that compute the same function up to the output rounding:
 //   `fused_stem_conv_relu_pool2` (`_stem_kernel`, C -> C): the pooled value
 //       is always rounded to bf16 (its identity-matmul pool runs in bf16);
-//       launcher `fused_stem_conv_relu_pool2` stores bf16.
+//       launcher `fused_stem_conv_relu_pool2`, kernel `stem_conv_mma_kernel`.
 //   `fused_conv3x3_relu_pool2` (`_kernel`, Ci -> Co): the f32 value is only
-//       cast to x's dtype; launcher `fused_conv3x3_relu_pool2` stores bf16
-//       for a bf16 x and f32 for an f32 x.
+//       cast to x's dtype; launcher `fused_conv3x3_relu_pool2`, kernel
+//       `conv3x3_relu_pool2_kernel`, which stores bf16 for a bf16 x and f32
+//       for an f32 x.
 // The TPU kernels' merged-column layout, lane rolls with boundary masks and
 // identity-matmul pool serve the MXU's 128 lanes and are not carried over.
 //
-// Design (a direct convolution on the CUDA cores, like fused_vgg_block1.cu's
-// conv1_2): a block owns a 16 x 32 tile of conv outputs (8 x 16 pooled) of
-// one image and one chunk of 64 output channels. It loops over the input
-// channels in chunks of 32; for each chunk it stages the input tile with a
-// 1-pixel zero halo as bf16 planes [32][18][34] (39 KB) and the chunk's
-// weights [9][32][64] bf16 (36 KB) in shared memory. The whole 3x3 x Ci x 64
-// slice cannot stay resident: at Ci = Co = 512 a 32-channel slice alone is
-// 295 KB, over the 227 KB a block may use. Each of the 512 threads owns a
-// 2 x 4 pixel patch (two pool windows) x 8 output channels: 64 f32
-// accumulators in registers; per input channel and kernel row it reads 12
-// activations and three 16-byte weight vectors for 192 FMAs. Bias, ReLU and
-// the pool run in registers, and each thread stores its 2 x 8 pooled values
-// with 16-byte vectors. Channels beyond Ci or Co within a chunk are zeros.
+// Stem (K-D): the tensor-core mainloop of conv3x3_mma.cuh, which fused block
+// 1 (K-B) shares. A persistent grid, one block of 512 threads per SM, walks
+// (16 x 32 output tile, 64-output-channel chunk) units; each unit sums over
+// 64-input-channel chunks, one stage each. The weights of a (co, ci) chunk
+// pair, [9][64][64] bf16 in the swizzled B layout, stay resident while the
+// pair does not change: at C <= 64, for the block's whole life. Each stage's
+// input tile with its 1-pixel halo (18 x 34 x 64 bf16, zero outside the
+// image and past C) is loaded with cp.async into one of two A buffers while
+// the previous stage's MMAs run. Bound on the H100 at [32, 320, 320, 64]:
+// operations (241.6 GFLOP against 0.52 GB), near the ridge, so the loads
+// must overlap the MMAs.
 //
-// Bound on the H100: operations. At [32, 320, 320, 64] -> 64 (and at the
-// VGG block-2 and block-3 tails, [32, 160, 160, 128] -> 128 and
-// [32, 80, 80, 256] -> 256) the conv is ~242 GFLOP against ~0.5 GB of input
-// and output. This first version runs on the CUDA cores (f32 FMA), not the
-// tensor cores; mma.sync/wgmma is the next step for speed.
+// General (K-E): a direct convolution on the CUDA cores. A block owns a
+// 16 x 32 tile of conv outputs (8 x 16 pooled) of one image and one chunk of
+// 64 output channels. It loops over the input channels in chunks of 32; for
+// each chunk it stages the input tile with a 1-pixel zero halo as bf16
+// planes [32][18][34] (39 KB) and the chunk's weights [9][32][64] bf16
+// (36 KB) in shared memory. Each of the 512 threads owns a 2 x 4 pixel patch
+// (two pool windows) x 8 output channels: 64 f32 accumulators in registers.
+// Bias, ReLU and the pool run in registers, and each thread stores its
+// 2 x 8 pooled values with 16-byte vectors. Channels beyond Ci or Co within
+// a chunk are zeros. Bound: operations (the VGG block-2 and block-3 tails
+// are ~242 GFLOP each); it runs on the CUDA cores, not the tensor cores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv3x3_mma.cuh"
 
 namespace {
 
@@ -224,17 +227,142 @@ int launch(const void* x, const void* w, const void* b, void* out, int batch, in
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace cm = conv_mma;
+
+constexpr int kStemSmemBytes = cm::kWBytes + 2 * cm::kABytes + cm::kC * 4 + 1024;  // + alignment
+
+// Asynchronous copies to shared memory; an invalid one writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(cm::kThreads, 1)
+stem_conv_mma_kernel(const uint16_t* __restrict__ x,   // [B, H, W, C] bf16
+                     const uint16_t* __restrict__ w,   // [9, C co, C ci] bf16
+                     const float* __restrict__ bias,   // [C]
+                     uint16_t* __restrict__ out,       // [B, H/2, W/2, C] bf16
+                     int batch, int height, int width, int channels) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t w_smem = cm::smem_u32(smem);  // B operand, 1024-aligned
+  auto abuf = [&](int buf) { return smem + cm::kWBytes + buf * cm::kABytes; };  // two A buffers
+  float* bs = reinterpret_cast<float*>(smem + cm::kWBytes + 2 * cm::kABytes);
+  const int tid = threadIdx.x;
+
+  const int nk = (channels + cm::kC - 1) / cm::kC;  // 64-channel chunks of K and of N
+  const int tiles_x = (width + cm::kTileW - 1) / cm::kTileW;
+  const int tiles_y = (height + cm::kTileH - 1) / cm::kTileH;
+  const int tiles = tiles_x * tiles_y * batch;
+  const int units = tiles * nk;  // (tile, output-channel chunk), the chunk outermost
+  const int my_units = blockIdx.x < units ? (units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int stages = my_units * nk;  // one per input-channel chunk of each unit
+
+  // Input tile of stage i (1-pixel zero halo, channels past C zero) into buf.
+  auto load_tile = [&](int i, int buf) {
+    const int unit = blockIdx.x + (i / nk) * gridDim.x, kc = i % nk;
+    const int tile = unit % tiles;
+    const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y, b = tile / (tiles_x * tiles_y);
+    const uint32_t dst = cm::smem_u32(abuf(buf));
+    for (int v = cm::tid_here(); v < cm::kInH * cm::kInW * 8; v += cm::kThreads) {
+      const int p = v >> 3, c = v & 7;
+      const int r = p / cm::kInW, col = p - r * cm::kInW;
+      const int gy = ty * cm::kTileH - 1 + r, gx = tx * cm::kTileW - 1 + col;
+      const int ch = kc * cm::kC + 8 * c;
+      const bool valid = gy >= 0 && gy < height && gx >= 0 && gx < width && ch < channels;
+      const uint16_t* src = valid ? x + ((static_cast<size_t>(b) * height + gy) * width + gx) * channels + ch : x;
+      cp_async16(dst + cm::a_offset(p, c), src, valid);
+    }
+  };
+
+  if (stages > 0) load_tile(0, 0);
+  cp_async_commit();
+  int resident = -1;  // the (co, ci) chunk pair whose weights are staged
+  float acc[2][32];
+  for (int i = 0; i < stages; ++i) {
+    const int unit = blockIdx.x + (i / nk) * gridDim.x, kc = i % nk;
+    const int co_chunk = unit / tiles, tile = unit % tiles;
+    const int co0 = co_chunk * cm::kC, ci0 = kc * cm::kC;
+    if (co_chunk * nk + kc != resident) {  // the last stage ended at a barrier: the old weights are free
+      resident = co_chunk * nk + kc;
+      for (int v = cm::tid_here(); v < 9 * cm::kC * 8; v += cm::kThreads) {
+        const int c = v & 7, co = (v >> 3) % cm::kC, t = v / (cm::kC * 8);
+        const bool valid = co0 + co < channels && ci0 + 8 * c < channels;
+        const uint16_t* src = valid ? w + (static_cast<size_t>(t) * channels + co0 + co) * channels + ci0 + 8 * c : w;
+        cp_async16(w_smem + cm::w_offset(t, co, c), src, valid);
+      }
+      if (tid < cm::kC) bs[tid] = co0 + tid < channels ? bias[co0 + tid] : 0.0f;
+      cp_async_commit();
+    }
+    if (i + 1 < stages) {  // the next stage's tile loads while this one computes
+      load_tile(i + 1, (i + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (kc == 0) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc[m][k] = 0.0f;
+    }
+    cm::conv_tile_mma(acc, cm::smem_u32(abuf(i & 1)), w_smem);
+    if (kc == nk - 1) {
+      const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y, b = tile / (tiles_x * tiles_y);
+      __syncthreads();  // every warpgroup is done reading this A buffer
+      cm::pool_tile_to_staging(acc, bs, reinterpret_cast<uint32_t*>(abuf(i & 1)));
+      __syncthreads();
+      cm::store_staging(reinterpret_cast<const uint4*>(abuf(i & 1)),
+                        out + static_cast<size_t>(b) * (height / 2) * (width / 2) * channels,
+                        ty * cm::kTileH / 2, tx * cm::kTileW / 2, height / 2, width / 2, co0, channels);
+    }
+    __syncthreads();  // this A buffer and the weights may be overwritten
+  }
+}
+
+int launch_stem(const void* x, const void* w, const void* b, void* out, int batch, int height, int width,
+                int channels, cudaStream_t stream) {
+  if (batch <= 0 || height <= 0 || width <= 0) return 0;
+  if (height % 2 != 0 || width % 2 != 0 || channels <= 0 || channels % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long units = static_cast<long long>(batch) * ((height + cm::kTileH - 1) / cm::kTileH) *
+                          ((width + cm::kTileW - 1) / cm::kTileW) * ((channels + cm::kC - 1) / cm::kC);
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = cm::sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      stem_conv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStemSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  stem_conv_mma_kernel<<<grid, cm::kThreads, kStemSmemBytes, stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), static_cast<const float*>(b),
+      static_cast<uint16_t*>(out), batch, height, width, channels);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// K-D: C -> C, the pooled value always stored as bf16.
+extern "C" int fused_stem_conv_relu_pool2_smem_bytes() { return kStemSmemBytes; }
+
+// K-D: C -> C, the pooled value always stored as bf16; w [9][C co][C ci].
 extern "C" int fused_stem_conv_relu_pool2(const void* x, const void* w, const void* b, void* out,
                                           int batch, int height, int width, int cin, int cout,
                                           cudaStream_t stream) {
   if (cin != cout) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(x, w, b, out, batch, height, width, cin, cout, stream);
+  return launch_stem(x, w, b, out, batch, height, width, cin, stream);
 }
 
-// K-E: Ci -> Co, stored as bf16 when out_bf16 (a bf16 x), else as f32.
+// K-E: Ci -> Co, w [3][3][Ci][Co] (HWIO); stored as bf16 when out_bf16 (a bf16 x), else as f32.
 extern "C" int fused_conv3x3_relu_pool2(const void* x, const void* w, const void* b, void* out,
                                         int batch, int height, int width, int cin, int cout,
                                         int out_bf16, cudaStream_t stream) {

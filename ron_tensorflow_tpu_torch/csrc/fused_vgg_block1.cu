@@ -8,223 +8,187 @@
 // output rounded to bf16 before conv1_2, SAME zero padding for both convs
 // (rows and columns of the conv1_1 map outside the image are 0, not
 // relu(b1): fused_conv_pool.py:219-227), the pool on f32, one rounding of
-// the pooled value to bf16.
+// the pooled value to bf16. The TPU kernel runs conv1_2 on the MXU, bf16 x
+// bf16 into f32; so does this one, on the tensor cores.
 //
-// Design: a block owns a 16 x 32 tile of conv1_2 outputs (8 x 16 pooled) of
-// one image. It stages in shared memory the input tile with a 2-pixel halo
-// (20 x 36 x 3, f32), all of conv1_2's weights (9 x 64 x 64 bf16, 72 KB),
-// and computes conv1_1 on the 18 x 34 tile with a 1-pixel halo, kept as
-// bf16 planes [64][18][34] (76.5 KB): the full-resolution intermediates
-// never reach device memory. Each of the 512 threads then owns a 2 x 4
-// pixel patch (two pool windows) x 8 output channels: 64 f32 accumulators
-// in registers; per input channel and kernel row it reads 12 activations and
-// three 16-byte weight vectors for 192 FMAs. The pool runs in registers and
-// each thread stores its 2 x 8 pooled outputs as two 16-byte vectors.
+// Design: a persistent grid, one block of 512 threads per SM, walks 16 x 32
+// tiles of conv outputs. Each block stages conv1_2's weights once, in the
+// swizzled [tap][co][ci] layout of conv3x3_mma.cuh. Per tile it stages the
+// input with a 2-pixel halo (20 x 36 x 3, f32), computes conv1_1 on the
+// 18 x 34 tile with a 1-pixel halo on the CUDA cores (one thread per
+// vertical pixel pair and 8 channels, fmaf over (dy, dx, ci) in that order;
+// a warp shares one channel chunk, so weight reads broadcast) and writes it as
+// bf16 straight into the pixel-major A tile of the shared mainloop: the
+// full-resolution intermediates never reach device memory. conv1_2, bias,
+// ReLU, pool and the store are the mainloop's (conv3x3_mma.cuh), which the
+// stem kernel K-D shares, so K-D on the same conv1_1 map gives these bits.
 //
 // Bound on the H100: operations. At the main path's [32, 320, 320, 3] the
-// two convs are ~253 GFLOP (conv1_2 ~242), against ~125 MB of input and
-// output. This first version runs on the CUDA cores (f32 FMA), not the
-// tensor cores; mma.sync/wgmma is the next step for speed.
+// two convs are ~253 GFLOP (conv1_2 ~242, on the tensor cores), against
+// ~125 MB of input and output. conv1_1 (about 5% of the FLOPs with its
+// halo) runs on the CUDA cores and is not overlapped with conv1_2's MMAs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv3x3_mma.cuh"
 
 namespace {
 
+using namespace conv_mma;
+
 constexpr int kCin = 3;
-constexpr int kC = 64;
-constexpr int kTileH = 16;            // conv1_2 output rows per block
-constexpr int kTileW = 32;            // conv1_2 output cols per block
-constexpr int kY1H = kTileH + 2;      // conv1_1 rows kept (1-row halo)
-constexpr int kY1W = kTileW + 2;
-constexpr int kXH = kTileH + 4;       // input rows staged (2-row halo)
+constexpr int kXH = kTileH + 4;  // input rows staged (2-row halo)
 constexpr int kXW = kTileW + 4;
-constexpr int kThreads = 512;
-constexpr int kChanPerThread = 8;
-constexpr int kGroups = kC / kChanPerThread;  // 8 channel groups
-constexpr int kPatchCols = kTileW / 4;        // 8 patches of 2 x 4 per row pair
 
-constexpr size_t kW2Bytes = 9 * kC * kC * sizeof(uint16_t);
-constexpr size_t kY1Bytes = kC * kY1H * kY1W * sizeof(uint16_t);
-constexpr size_t kXBytes = kXH * kXW * kCin * sizeof(float);
-constexpr size_t kW1Bytes = 9 * kCin * kC * sizeof(float);
-constexpr size_t kSmemBytes = kW2Bytes + kY1Bytes + kXBytes + kW1Bytes + 2 * kC * sizeof(float);
+constexpr int kPairGroups = ((kInH / 2) * kInW + 31) / 32;  // 32 vertical pixel pairs each
+constexpr int kXBytes = kXH * kXW * kCin * 4;
+constexpr int kW1Bytes = 9 * kCin * kC * 4;
+constexpr int kSmemBytes = kWBytes + kABytes + kXBytes + kW1Bytes + 2 * kC * 4 + 1024;  // + alignment
 
-static_assert(kThreads == kGroups * (kTileH / 2) * kPatchCols, "thread layout");
-static_assert(kW2Bytes % 16 == 0 && kY1Bytes % 16 == 0 && kXBytes % 16 == 0, "alignment");
-
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
-  return __uint_as_float(bits << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) { return __uint_as_float(bits << 16); }
 
 __global__ void __launch_bounds__(kThreads, 1)
 fused_vgg_block1_kernel(const uint16_t* __restrict__ x,    // [B, H, W, 3] bf16
                         const uint16_t* __restrict__ w1,   // [3, 3, 3, 64] bf16 (HWIO)
                         const float* __restrict__ b1,      // [64]
-                        const uint4* __restrict__ w2,      // [3, 3, 64, 64] bf16 (HWIO)
+                        const uint4* __restrict__ w2,      // [9, 64 co, 64 ci] bf16
                         const float* __restrict__ b2,      // [64]
-                        uint4* __restrict__ out,           // [B, H/2, W/2, 64] bf16
-                        int height, int width) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint4* w2s = reinterpret_cast<uint4*>(smem);
-  uint16_t* y1s = reinterpret_cast<uint16_t*>(smem + kW2Bytes);
-  float* xs = reinterpret_cast<float*>(smem + kW2Bytes + kY1Bytes);
+                        uint16_t* __restrict__ out,        // [B, H/2, W/2, 64] bf16
+                        int batch, int height, int width) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* ws = smem;                 // B operand, 1024-aligned
+  unsigned char* as = smem + kWBytes;       // A operand, then the pooled tile
+  float* xs = reinterpret_cast<float*>(as + kABytes);
   float* w1s = xs + kXH * kXW * kCin;
   float* b1s = w1s + 9 * kCin * kC;
   float* b2s = b1s + kC;
-
+  const uint32_t w_smem = smem_u32(ws), a_smem = smem_u32(as);
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const int b = blockIdx.z;
 
-  // ---- stage weights, biases and the input tile --------------------------
-  for (int i = tid; i < static_cast<int>(kW2Bytes / 16); i += kThreads) w2s[i] = w2[i];
+  // ---- once per block: conv1_2's weights (swizzled), conv1_1's, biases ---
+  for (int i = tid; i < 9 * kC * 8; i += kThreads) {
+    const int c = i & 7, co = (i >> 3) % kC, t = i / (kC * 8);
+    *reinterpret_cast<uint4*>(ws + w_offset(t, co, c)) = w2[i];
+  }
   for (int i = tid; i < 9 * kCin * kC; i += kThreads) w1s[i] = bf16_bits_to_float(w1[i]);
   if (tid < kC) {
     b1s[tid] = b1[tid];
     b2s[tid] = b2[tid];
   }
-  const uint16_t* ximg = x + static_cast<size_t>(b) * height * width * kCin;
-  for (int i = tid; i < kXH * kXW * kCin; i += kThreads) {
-    const int r = i / (kXW * kCin);
-    const int rem = i - r * (kXW * kCin);
-    const int c = rem / kCin;
-    const int ch = rem - c * kCin;
-    const int gy = y0 - 2 + r;
-    const int gx = x0 - 2 + c;
-    float v = 0.0f;
-    if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
-      v = bf16_bits_to_float(ximg[(static_cast<size_t>(gy) * width + gx) * kCin + ch]);
-    }
-    xs[i] = v;
-  }
-  __syncthreads();
 
-  // ---- conv1_1 + bias + ReLU on the haloed tile, rounded to bf16 ---------
-  for (int i = tid; i < kC * kY1H * kY1W; i += kThreads) {
-    const int co = i / (kY1H * kY1W);
-    const int rem = i - co * (kY1H * kY1W);
-    const int r = rem / kY1W;
-    const int c = rem - r * kY1W;
-    const int gy = y0 - 1 + r;
-    const int gx = x0 - 1 + c;
-    float y = 0.0f;  // SAME zero padding of conv1_2's input
-    if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
-      float acc = 0.0f;
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int tiles_y = (height + kTileH - 1) / kTileH;
+  const int tiles = tiles_x * tiles_y * batch;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y, b = tile / (tiles_x * tiles_y);
+    const int x0 = tx * kTileW, y0 = ty * kTileH;
+    __syncthreads();  // the weights are staged; the last tile's pooled values are stored
+
+    // ---- the input tile with a 2-pixel zero halo, f32 --------------------
+    const uint16_t* ximg = x + static_cast<size_t>(b) * height * width * kCin;
+    for (int i = tid_here(); i < kXH * kXW * kCin; i += kThreads) {
+      const int r = i / (kXW * kCin);
+      const int rem = i - r * (kXW * kCin);
+      const int c = rem / kCin;
+      const int ch = rem - c * kCin;
+      const int gy = y0 - 2 + r, gx = x0 - 2 + c;
+      float v = 0.0f;
+      if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
+        v = bf16_bits_to_float(ximg[(static_cast<size_t>(gy) * width + gx) * kCin + ch]);
+      }
+      xs[i] = v;
+    }
+    __syncthreads();
+
+    // ---- conv1_1 + bias + ReLU on the haloed tile, bf16, into A ----------
+    // A thread computes 8 channels (chunk c) of a vertical pixel pair; the 32
+    // lanes of a warp take 32 pairs and one chunk, so every weight read is a
+    // broadcast and the 3 x 4 x 3 inputs of a pair serve both its pixels.
+    for (int i = tid_here(); i < kPairGroups * 32 * 8; i += kThreads) {
+      const int c = (i >> 5) & 7;
+      const int q = (i >> 8) * 32 + (i & 31);  // pixel pair: rows 2 (q / kInW) + {0, 1}
+      if (q >= (kInH / 2) * kInW) continue;
+      const int r = 2 * (q / kInW), col = q % kInW;
+      float xv[4][3][kCin];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int ci = 0; ci < kCin; ++ci) xv[rr][dx][ci] = xs[((r + rr) * kXW + (col + dx)) * kCin + ci];
+      float acc[2][8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[h][k] = 0.0f;
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
 #pragma unroll
           for (int ci = 0; ci < kCin; ++ci) {
-            acc = fmaf(xs[((r + dy) * kXW + (c + dx)) * kCin + ci],
-                       w1s[((dy * 3 + dx) * kCin + ci) * kC + co], acc);
+            const float4* wv = reinterpret_cast<const float4*>(w1s + ((dy * 3 + dx) * kCin + ci) * kC + 8 * c);
+            const float4 wa = wv[0], wb = wv[1];
+            const float wk[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int k = 0; k < 8; ++k) acc[h][k] = fmaf(xv[dy + h][dx][ci], wk[k], acc[h][k]);
           }
         }
       }
-      y = fmaxf(acc + b1s[co], 0.0f);
-    }
-    y1s[i] = __bfloat16_as_ushort(__float2bfloat16_rn(y));
-  }
-  __syncthreads();
-
-  // ---- conv1_2 on a 2 x 4 patch x 8 channels per thread ------------------
-  const int cg = tid % kGroups;
-  const int patch = tid / kGroups;
-  const int pr = patch / kPatchCols;  // row pair 0..7
-  const int pc = patch % kPatchCols;  // column quad 0..7
-  float acc[2][4][kChanPerThread];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr)
+      for (int h = 0; h < 2; ++h) {
+        const int gy = y0 - 1 + r + h, gx = x0 - 1 + col;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);  // SAME zero padding of conv1_2's input
+        if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
+          float y[8];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int kk = 0; kk < kChanPerThread; ++kk) acc[rr][jj][kk] = 0.0f;
-
-#pragma unroll 1
-  for (int ci = 0; ci < kC; ++ci) {
-    const uint16_t* plane = y1s + ci * (kY1H * kY1W);
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      float v[2][6];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-        for (int jj = 0; jj < 6; ++jj)
-          v[rr][jj] = bf16_bits_to_float(plane[(2 * pr + rr + dy) * kY1W + 4 * pc + jj]);
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const uint4 wv = w2s[((dy * 3 + dx) * kC + ci) * kGroups + cg];
-        const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
-        float w[kChanPerThread];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          w[2 * q] = __uint_as_float(wp[q] << 16);
-          w[2 * q + 1] = __uint_as_float(wp[q] & 0xffff0000u);
+          for (int k = 0; k < 8; ++k) y[k] = fmaxf(acc[h][k] + b1s[8 * c + k], 0.0f);
+          v = make_uint4(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]), pack_bf16x2(y[4], y[5]),
+                         pack_bf16x2(y[6], y[7]));
         }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-            for (int kk = 0; kk < kChanPerThread; ++kk)
-              acc[rr][jj][kk] = fmaf(v[rr][jj + dx], w[kk], acc[rr][jj][kk]);
+        *reinterpret_cast<uint4*>(as + a_offset((r + h) * kInW + col, c)) = v;
       }
     }
-  }
+    __syncthreads();
 
-  // ---- bias + ReLU + 2x2 max-pool, one bf16 store per pool window --------
-  const int gy = y0 + 2 * pr;
-  if (gy >= height) return;
-  const int out_w = width / 2;
-  const int co0 = cg * kChanPerThread;
+    // ---- conv1_2 on the tensor cores, then bias + ReLU + pool -----------
+    float acc[2][32];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int gx = x0 + 4 * pc + 2 * q;
-    if (gx >= width) continue;
-    float m[kChanPerThread];
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int kk = 0; kk < kChanPerThread; ++kk) {
-      const float bias = b2s[co0 + kk];
-      float best = 0.0f;  // ReLU floor: max(relu(a_i)) == max(0, a_i...)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-        for (int jj = 2 * q; jj < 2 * q + 2; ++jj)
-          best = fmaxf(best, acc[rr][jj][kk] + bias);
-      m[kk] = best;
-    }
-    const size_t pixel = (static_cast<size_t>(b) * (height / 2) + gy / 2) * out_w + gx / 2;
-    out[pixel * kGroups + cg] = make_uint4(pack_bf16x2(m[0], m[1]), pack_bf16x2(m[2], m[3]),
-                                           pack_bf16x2(m[4], m[5]), pack_bf16x2(m[6], m[7]));
+      for (int k = 0; k < 32; ++k) acc[i][k] = 0.0f;
+    conv_tile_mma(acc, a_smem, w_smem);
+    __syncthreads();  // every warpgroup is done reading A
+    pool_tile_to_staging(acc, b2s, reinterpret_cast<uint32_t*>(as));
+    __syncthreads();
+    store_staging(reinterpret_cast<const uint4*>(as), out + static_cast<size_t>(b) * (height / 2) * (width / 2) * kC,
+                  y0 / 2, x0 / 2, height / 2, width / 2, 0, kC);
   }
 }
 
 }  // namespace
 
+extern "C" int fused_vgg_block1_smem_bytes() { return kSmemBytes; }
+
 extern "C" int fused_vgg_block1(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, void* out, int batch, int height, int width,
                                 cudaStream_t stream) {
   if (batch <= 0 || height <= 0 || width <= 0) return 0;
-  if (height % 2 != 0 || width % 2 != 0 || batch > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (height % 2 != 0 || width % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = static_cast<long long>(batch) * ((height + kTileH - 1) / kTileH) *
+                          ((width + kTileW - 1) / kTileW);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const cudaError_t attr = cudaFuncSetAttribute(
-      fused_vgg_block1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      fused_vgg_block1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, batch);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   fused_vgg_block1_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w1),
       static_cast<const float*>(b1), static_cast<const uint4*>(w2),
-      static_cast<const float*>(b2), static_cast<uint4*>(out), height, width);
+      static_cast<const float*>(b2), static_cast<uint16_t*>(out), batch, height, width);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@ All sources under `csrc/` are compiled by ONE plain `nvcc` call into a
 shared library with a C interface (no PyTorch headers, no CUTLASS), which
 is loaded with ctypes. The build runs at first use, on the GPU host,
 into `_build/` (listed in .gitignore); its name carries a hash of the
-sources and flags, so an edited source is rebuilt.
+sources, headers and flags, so an edited source is rebuilt. ptxas's
+report (registers, spills) of every kernel is kept beside the library
+(`build_log_path`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,9 +26,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("nms_fixpoint.cu", "nms_scan.cu", "fused_vgg_block1.cu", "conv3x3_relu_pool2.cu")
+HEADERS = ("conv3x3_mma.cuh",)  # the tensor-core conv mainloop of K-B and K-D
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 600
 
@@ -44,6 +48,9 @@ SIGNATURES = {
     "fused_stem_conv_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, b, out, batch, height, width, cin, cout, out_bf16, stream
     "fused_conv3x3_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the dynamic shared memory each tensor-core kernel asks for, in bytes
+    "fused_vgg_block1_smem_bytes": (),
+    "fused_stem_conv_relu_pool2_smem_bytes": (),
 }
 
 
@@ -59,9 +66,14 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libron_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build_log_path() -> Path:
+    """nvcc's output (ptxas's per-kernel report) of the library's build."""
+    return library_path().with_suffix(".log")
 
 
 def build() -> Path:
@@ -81,6 +93,7 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
+        build_log_path().write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -113,3 +126,21 @@ def check(name: str, err: int) -> None:
     if err != 0:
         what = library().ron_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err} ({what})")
+
+
+def ptxas_report() -> dict:
+    """{kernel's mangled name: {"registers", "spill_stores", "spill_loads"}}
+    from ptxas's report of the build (`-Xptxas -v`)."""
+    report, name = {}, None
+    for line in build_log_path().read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report.setdefault(name, {})["registers"] = int(m.group(1))
+    return report

@@ -10,43 +10,41 @@ Ports of `ron_tensorflow_tpu/kernels/fused_conv_pool.py`:
   differentiable as the JAX custom VJP is: the backward recomputes the
   unfused composition (`block1_reference`) and differentiates that; only
   the five inputs are saved.
-- `fused_stem_conv_relu_pool2` (C -> C) and `fused_conv3x3_relu_pool2`
-  (Ci -> Co): one kernel, `csrc/conv3x3_relu_pool2.cu`, for
-  maxpool2(relu(conv3x3_SAME(x, w) + b)) with x and w rounded to bf16 and
-  f32 sums. The stem rounds the pooled value to bf16 before the cast to
-  x.dtype, as its TPU kernel's identity-matmul pool does
-  (`fused_conv_pool.py:78-90`); the general one casts the f32 value to
-  x.dtype only (`:466`).
+- `fused_stem_conv_relu_pool2` (C -> C, `csrc/conv3x3_relu_pool2.cu`'s
+  stem launcher) and `fused_conv3x3_relu_pool2` (Ci -> Co, its general
+  launcher) for maxpool2(relu(conv3x3_SAME(x, w) + b)) with x and w
+  rounded to bf16 and f32 sums. The stem rounds the pooled value to bf16
+  before the cast to x.dtype, as its TPU kernel's identity-matmul pool
+  does (`fused_conv_pool.py:78-90`); the general one casts the f32 value
+  to x.dtype only (`:466`).
 
-Layouts: x NHWC, weights OIHW (the port's `Conv.weight`), biases [Co].
+Block 1's conv1_2 and the stem run on the tensor cores through one
+mainloop (`csrc/conv3x3_mma.cuh`), so on the same conv1_1 map they give
+the same bits. Layouts: x NHWC, weights OIHW (the port's `Conv.weight`),
+biases [Co]. The kernels take conv1_2's and the stem's weights as
+[tap][co][ci] (`_taps_co_ci`), the general kernel as HWIO.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 
+from .. import full_f32_convs
 from . import _build
 
 CIN, C = 3, 64  # VGG block 1; the kernel is built for these widths
 
 
-@contextlib.contextmanager
-def _full_f32_convs():
-    """cuDNN convolutions in full f32 (no TF32) inside the block."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _to_nchw_f32_bf16(x):
     """NHWC -> NCHW float32 holding bf16-rounded values."""
     return x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+
+
+def _taps_co_ci(w):
+    """OIHW -> [3, 3, Co, Ci] bf16, contiguous: the tensor-core kernels'
+    B operand, one [Co][Ci] matrix per tap."""
+    return w.permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
 
 
 def _check_cuda_args(name, x, *params):
@@ -72,7 +70,7 @@ def fused_vgg_block1_plain(x, w1, b1, w2, b2):
     x: [B, H, W, Ci] NHWC; w1: [C, Ci, 3, 3] and w2: [C, C, 3, 3] OIHW;
     b1, b2: [C] -> [B, H/2, W/2, C] in x.dtype (bf16-valued)."""
     bf16 = torch.bfloat16
-    with _full_f32_convs():
+    with full_f32_convs():
         y1 = F.relu(F.conv2d(_to_nchw_f32_bf16(x), w1.to(bf16).float(), b1.float(), padding=1))
         y1 = y1.to(bf16).float()
         z = F.relu(F.conv2d(y1, w2.to(bf16).float(), b2.float(), padding=1))
@@ -109,7 +107,7 @@ def _block1_forward(x, w1, b1, w2, b2):
         raise ValueError(f"fused block 1 needs even H and W, got {height}x{width}")
     xb = x.to(torch.bfloat16)
     w1h = w1.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
-    w2h = w2.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+    w2h = _taps_co_ci(w2)
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
     out = torch.empty(batch, height // 2, width // 2, C, dtype=torch.bfloat16, device=x.device)
@@ -168,7 +166,7 @@ fused_vgg_block1.launches = 0
 
 def _conv_relu_pool_f32(x, w, b):
     """maxpool2(relu(conv3x3_SAME(bf16(x), bf16(w)) + b)) in f32, NHWC."""
-    with _full_f32_convs():
+    with full_f32_convs():
         z = F.conv2d(_to_nchw_f32_bf16(x), w.to(torch.bfloat16).float(), padding=1)
     z = F.relu(z + b.float()[:, None, None])
     return F.max_pool2d(z, 2, 2).permute(0, 2, 3, 1).contiguous()
@@ -202,22 +200,23 @@ def fused_conv3x3_relu_pool2_plain(x, w, b):
 
 def _launch_conv_relu_pool(name, x, w, b, round_bf16):
     """Run `csrc/conv3x3_relu_pool2.cu`: bf16 NHWC in; bf16 out when the
-    value is rounded to bf16 anyway (the stem, or a bf16 x), else f32."""
+    value is rounded to bf16 anyway (the stem, or a bf16 x), else f32. The
+    stem (round_bf16) takes [tap][co][ci] weights, the general kernel HWIO."""
     _check_cuda_args(name, x, w, b)
     batch, height, width, cin = x.shape
     cout = w.shape[0]
     if cout % 8:
         raise ValueError(f"{name}: the kernel needs Co a multiple of 8, got {cout}")
     xb = x.to(torch.bfloat16).contiguous()
-    wh = w.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
+    wh = _taps_co_ci(w) if round_bf16 else w.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
     bf = b.float().contiguous()
     out_bf16 = round_bf16 or x.dtype == torch.bfloat16
     out = torch.empty(
         batch, height // 2, width // 2, cout,
         dtype=torch.bfloat16 if out_bf16 else torch.float32, device=x.device,
     )
-    if wh.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError(f"{name}: weights and output must be 16-byte aligned")
+    if (round_bf16 and xb.data_ptr() % 16) or wh.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{name}: weights and output (and the stem's x) must be 16-byte aligned")
     args = [xb.data_ptr(), wh.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, height, width, cin, cout]
     if not round_bf16:
         args.append(int(out_bf16))  # the general kernel stores bf16 only for a bf16 x

@@ -22,6 +22,8 @@ from ron_tensorflow_tpu_torch.kernels import (
     nms_scan_keep_mask_plain,
 )
 from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
+from ron_tensorflow_tpu_torch.models.ron import RON
+from ron_tensorflow_tpu_torch.models.spec import RON_TINY_SPEC
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +105,8 @@ CONV_CASES = [
     # (name, shape [B, H, W], Ci, Co)
     ("stem", (32, 320, 320), 64, 64),  # block-1 tail, full width
     ("stem", (2, 36, 52), 64, 64),  # ragged tiles
+    ("stem", (2, 36, 52), 8, 8),  # C below one K-step of 16
+    ("stem", (2, 36, 52), 96, 96),  # two 64-channel chunks of K and of N
     ("general", (32, 160, 160), 128, 128),  # block-2 tail
     ("general", (32, 80, 80), 256, 256),  # block-3 tail
     ("general", (3, 36, 52), 128, 256),  # ragged, Ci != Co
@@ -157,7 +161,9 @@ def test_block1_grads_match_recompute_composition(cuda, dtype, rel):
         assert float((got.float() - ref.float()).abs().max()) <= rel * scale
 
 
-@pytest.mark.parametrize("shape", [(1, 16, 32), (2, 36, 52), (1, 8, 12), (2, 320, 320)])
+@pytest.mark.parametrize(
+    "shape", [(1, 16, 32), (2, 36, 52), (1, 8, 12), (2, 320, 320), (1, 300, 300), (1, 512, 512)]
+)
 def test_block1_kernel_within_bf16_of_plain(cuda, shape):
     """Tolerance: both round conv1_1 to bf16 and the output to bf16; their
     f32 sums differ in order, so an output may land one bf16 ulp (at most
@@ -176,6 +182,65 @@ def test_block1_kernel_within_bf16_of_plain(cuda, shape):
     ref = fused_vgg_block1_plain(x, w1, b1, w2, b2)
     assert got.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64)
     torch.testing.assert_close(got.float(), ref.float(), rtol=8e-3, atol=0.1)
+
+
+def conv1_1_as_kernel(x, w1, b1):
+    """relu(conv1_1(x) + b1) rounded to bf16, summed as the block-1 kernel
+    sums it: one f32 accumulator per output, taps (dy, dx, ci) in that order,
+    each added as fmaf adds it (a bf16 x bf16 product is exact in f32, so
+    fmaf(x, w, acc) is acc + x * w rounded once). NHWC in and out."""
+    b, h, w, cin = x.shape
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wb = w1.to(torch.bfloat16).float()  # [C, Ci, 3, 3]
+    acc = torch.zeros(b, h, w, wb.shape[0], device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            for ci in range(cin):
+                acc = acc + xp[:, dy:dy + h, dx:dx + w, ci:ci + 1] * wb[:, ci, dy, dx]
+    return torch.relu(acc + b1.float()).to(torch.bfloat16)
+
+
+def test_stem_on_conv1_1_equals_block1_kernel(cuda):
+    """K-D on block 1's own conv1_1 map gives K-B's output: both run conv1_2
+    through one tensor-core mainloop (`csrc/conv3x3_mma.cuh`), so the sums
+    come in one order. Held within one bf16 ulp, as `chip_smoke.py` holds
+    them on the main path's batch; a random batch with ragged tiles here."""
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randn(3, 52, 84, 3, generator=g) * 60).to(torch.bfloat16).to(cuda)
+    w1 = (torch.randn(64, 3, 3, 3, generator=g) * 0.1).to(cuda)
+    b1 = torch.randn(64, generator=g).to(cuda)
+    w2 = (torch.randn(64, 64, 3, 3, generator=g) * 0.05).to(cuda)
+    b2 = torch.randn(64, generator=g).to(cuda)
+    kernels.reset_launch_counts()
+    block1 = fused_vgg_block1(x, w1, b1, w2, b2)
+    stem = fused_stem_conv_relu_pool2(conv1_1_as_kernel(x, w1, b1), w2, b2)
+    torch.cuda.synchronize()
+    assert fused_vgg_block1.launches == 1 and fused_stem_conv_relu_pool2.launches == 1
+    g_, r = stem.double(), block1.double()
+    assert stem.shape == block1.shape == (3, 26, 42, 64)
+    bad = (g_ - r).abs() > bf16_ulp(r)
+    assert not bad.any(), f"{int(bad.sum())} of {bad.numel()} outputs more than one bf16 ulp apart"
+
+
+def test_f32_model_ignores_the_tf32_flag(cuda):
+    """An f32 RON gives the same bits under torch's default cuDNN TF32 flag
+    (True) as with it off: its forward pins full f32 convolutions and
+    restores the caller's flag. Without the pin, TF32 moves the f32
+    detections of the trained RON-320 out of the 2e-3 gate (PERF.md)."""
+    torch.manual_seed(0)
+    model = RON(RON_TINY_SPEC).to(cuda).eval()
+    images = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1)).to(cuda) * 50
+    outs = {}
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            with torch.inference_mode():
+                outs[flag] = model(images)
+            assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for name, a, b in zip(outs[True]._fields, outs[True], outs[False]):
+        assert torch.equal(a, b), name
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
