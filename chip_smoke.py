@@ -5,8 +5,10 @@
 Phases, each ending with a line that gives its elapsed seconds:
   1. device   the card's name and power limit (nvidia-smi);
   2. build    the port's five CUDA kernels, one nvcc call; ptxas's registers
-              and spills and the HGMMA count in the SASS of the two
-              tensor-core kernels (K-B, K-D);
+              and spills and the HGMMA count in the SASS of each
+              instantiation of the tensor-core kernels (K-B; K-D and K-E,
+              which share one kernel: bf16 or f32 store, weights resident
+              or streamed);
   3. kernels  each kernel against its plain PyTorch version on the card, at
               edge shapes (random, exact-threshold and K = 1024 NMS rows,
               ragged conv tiles, f32 and bf16 inputs);
@@ -29,8 +31,9 @@ Phases, each ending with a line that gives its elapsed seconds:
               autograd through the unfused composition, bf16, batch 32;
   7. timing   the bf16 batch-32 Detector's images/s and stage split, each
               kernel's time beside its plain version's, its bound and a
-              library yardstick, and one torch.profiler pass over a
-              Detector batch (top device kernels, device busy share).
+              library yardstick (K-E also tail by tail), and one
+              torch.profiler pass over a Detector batch (top device kernels,
+              device busy share).
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -88,9 +91,20 @@ CONV_F32_TOL = 1e-4
 # in another order on each run, a few bf16 ulps (2^-8 each).
 GRAD_REL_TOL = 2e-2
 SCAN_KEEP_TOP_K = [16, 100, 200]  # K-C's cap in the edge-shape checks
-# The kernels that run on the tensor cores: wrapper name -> CUDA kernel name.
-TENSOR_CORE_KERNELS = {"fused_vgg_block1": "fused_vgg_block1_kernel",
-                       "fused_stem_conv_relu_pool2": "stem_conv_mma_kernel"}
+# The kernels that run on the tensor cores: wrapper name -> {instantiation:
+# a part of its mangled name}. K-D and K-E launch one kernel templated on the
+# store type (uint16_t, "t", holds bf16; "f" f32) and on whether its weights
+# stream (Lb1: Ci or Co above 64) or stay resident (Lb0).
+CONV_MMA = "conv3x3_relu_pool2_mma_kernel"
+CONV_MMA_INSTANTIATIONS = {"bf16 out, resident weights": CONV_MMA + "ItLb0E",
+                           "bf16 out, streamed weights": CONV_MMA + "ItLb1E",
+                           "f32 out, resident weights": CONV_MMA + "IfLb0E",
+                           "f32 out, streamed weights": CONV_MMA + "IfLb1E"}
+TENSOR_CORE_KERNELS = {
+    "fused_vgg_block1": {"bf16 out": "fused_vgg_block1_kernel"},
+    "fused_stem_conv_relu_pool2": {k: v for k, v in CONV_MMA_INSTANTIATIONS.items() if k.startswith("bf16")},
+    "fused_conv3x3_relu_pool2": CONV_MMA_INSTANTIATIONS,
+}
 
 
 @contextlib.contextmanager
@@ -135,10 +149,10 @@ def torch_default_flags():
 
 
 def tensor_core_report():
-    """For each tensor-core kernel: ptxas's registers and spills, its dynamic
-    shared memory and the HGMMA instructions in its SASS (`cuobjdump -sass`
-    on the built library, where the toolkit has it). Fails if a kernel was
-    built without HGMMA."""
+    """For each instantiation of each tensor-core kernel: ptxas's registers
+    and spills, its dynamic shared memory and the HGMMA instructions in its
+    SASS (`cuobjdump -sass` on the built library, where the toolkit has it).
+    Fails if an instantiation was built without HGMMA."""
     ptxas = _build.ptxas_report()
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     hgmma = None
@@ -154,16 +168,18 @@ def tensor_core_report():
                 hgmma[fn] += 1
     lib = _build.library()
     report = {}
-    for name, kernel in TENSOR_CORE_KERNELS.items():
-        (mangled,) = [n for n in ptxas if kernel in n]
-        info = {**ptxas[mangled], "smem_bytes": getattr(lib, f"{name}_smem_bytes")(),
-                "hgmma": None if hgmma is None else sum(v for f, v in hgmma.items() if kernel in f)}
-        print(f"  {name} ({kernel}): {info['registers']} registers, {info['spill_stores']} bytes spill stores, "
-              f"{info['spill_loads']} bytes spill loads, {info['smem_bytes']} bytes dynamic shared memory, "
-              f"HGMMA in SASS: {info['hgmma'] if hgmma is not None else 'not measured (no cuobjdump)'}")
-        if info["hgmma"] == 0:
-            raise AssertionError(f"{kernel} holds no HGMMA instruction")
-        report[name] = info
+    for name, instantiations in TENSOR_CORE_KERNELS.items():
+        smem = getattr(lib, f"{name}_smem_bytes")()
+        report[name] = {"tensor_cores": {}}
+        for label, kernel in instantiations.items():
+            (mangled,) = [n for n in ptxas if kernel in n]
+            info = {**ptxas[mangled], "smem_bytes": smem, "hgmma": None if hgmma is None else hgmma[mangled]}
+            print(f"  {name} {label} ({mangled}): {info['registers']} registers, {info['spill_stores']} bytes "
+                  f"spill stores, {info['spill_loads']} bytes spill loads, {smem} bytes dynamic shared memory, "
+                  f"HGMMA in SASS: {info['hgmma'] if hgmma is not None else 'not measured (no cuobjdump)'}")
+            if info["hgmma"] == 0:
+                raise AssertionError(f"{mangled} holds no HGMMA instruction")
+            report[name]["tensor_cores"][label] = info
     return report
 
 
@@ -280,7 +296,7 @@ def check_kernels(block1_weights):
     for name, shape, cin, cout in (
         ("fused_stem_conv_relu_pool2", (2, 36, 52), 64, 64),  # ragged tiles
         ("fused_conv3x3_relu_pool2", (3, 36, 52), 128, 256),  # ragged, Ci != Co
-        ("fused_conv3x3_relu_pool2", (2, 20, 26), 512, 512),  # 16 input-channel chunks
+        ("fused_conv3x3_relu_pool2", (2, 20, 26), 512, 512),  # 8 64-channel chunks of K and of N
     ):
         kernel, plain = CONV_KERNELS[name]
         for dtype in (torch.float32, torch.bfloat16):
@@ -474,24 +490,34 @@ def block1_grads(x, block1):
 
 def conv_row(name, calls, max_err, launches, replaces):
     """One kernels-line row for K-D or K-E: times summed over the calls
-    [(x, weight, bias)] of its path."""
+    {label: (x, weight, bias)} of its path, and each call's own under
+    "parts"."""
     kernel, plain = CONV_KERNELS[name]
-    ms = plain_ms = library_ms = nbytes = flops = 0.0
-    for x, w, b in calls:
+    parts = {}
+    for label, (x, w, b) in calls.items():
         bsz, h, wd, cin = x.shape
         cout = w.shape[0]
-        flops += 2 * bsz * h * wd * cin * cout * 9
-        nbytes += x.numel() * 2 + bsz * (h // 2) * (wd // 2) * cout * 2 + w.numel() * 2 + cout * 4
+        flops = 2 * bsz * h * wd * cin * cout * 9
+        nbytes = x.numel() * 2 + bsz * (h // 2) * (wd // 2) * cout * 2 + w.numel() * 2 + cout * 4
         xn, wl, bl = x.permute(0, 3, 1, 2), w.to(torch.bfloat16), b.to(torch.bfloat16)
-        ms += cuda_ms(lambda: kernel(x, w, b), reps=20)
-        plain_ms += cuda_ms(lambda: plain(x, w, b), reps=2)
-        library_ms += cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xn, wl, bl, padding=1)), 2, 2), reps=20)
-    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    return with_rates({
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        parts[label] = with_rates({
+            "ms": cuda_ms(lambda: kernel(x, w, b), reps=20),
+            "plain_ms": cuda_ms(lambda: plain(x, w, b), reps=2),
+            "library_ms": cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xn, wl, bl, padding=1)), 2, 2), reps=20),
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        }, flops)
+    total = {k: sum(p[k] for p in parts.values()) for k in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
+    bound_ms, bound_by = bound(total["bytes"], total["flops"], PEAK_BF16_FLOPS)
+    row = with_rates({
         "name": name, "route": "cuda", "source": "ron_tensorflow_tpu_torch/csrc/conv3x3_relu_pool2.cu",
         "replaces": replaces, "path": "kernels API", "launches": launches[name], "max_abs_err": max_err[name],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-    }, flops)
+        "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": total["library_ms"],
+    }, total["flops"])
+    if len(parts) > 1:
+        row["parts"] = parts
+    return row
 
 
 def with_rates(row, flops):
@@ -639,6 +665,10 @@ def main() -> int:
                      f"{res['library_ratio']:.3f}x the library" if "tflops" in res else "")
             print(f"  {res['name']}: {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.4f} "
                   f"by {res['bound_by']}, library {res['library_ms']}{rates})")
+            for label, p in res.get("parts", {}).items():
+                print(f"    {label} tail: {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}, bound {p['bound_ms']:.4f} "
+                      f"by {p['bound_by']}, library {p['library_ms']:.4f}), {p['tflops']:.1f} TFLOP/s, "
+                      f"{p['bound_share']:.3f} of bound, {p['library_ratio']:.3f}x the library")
         print(f"  card after timing: {smi_sample()}")
 
     with phase("profile"):
@@ -726,9 +756,9 @@ def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, fla
     })
     print(f"  scan rows [{r},{k}], keep_top_k {cap}: {int(scan_keep.sum())} kept, {pairs} overlaps evaluated")
 
-    results.append(conv_row("fused_stem_conv_relu_pool2", [(y1, w2, b2)], max_err, api_launches,
+    results.append(conv_row("fused_stem_conv_relu_pool2", {"block1": (y1, w2, b2)}, max_err, api_launches,
                             "ron_tensorflow_tpu/kernels/fused_conv_pool.py:116"))
-    results.append(conv_row("fused_conv3x3_relu_pool2", [(a, c.weight, c.bias) for a, c in tails.values()],
+    results.append(conv_row("fused_conv3x3_relu_pool2", {k: (a, c.weight, c.bias) for k, (a, c) in tails.items()},
                             max_err, api_launches, "ron_tensorflow_tpu/kernels/fused_conv_pool.py:470"))
     return results
 

@@ -1,11 +1,12 @@
 // Tensor-core mainloop shared by the fused block-1 kernel (fused_vgg_block1.cu)
-// and the stem conv kernel (conv3x3_relu_pool2.cu): an implicit GEMM for a
-// 3x3 SAME conv + bias + ReLU + 2x2/s2 max-pool over one 16 x 32 tile of conv
-// outputs of one image, 64 output channels, 64 input channels, NHWC, bf16
-// operands, f32 accumulation. The two kernels differ only in how the input
-// tile reaches shared memory (conv1_1 computed in place, or loaded); both
-// then call `conv_tile_mma` and `pool_tile_to_staging`, so they sum in the
-// same order and give the same bits for the same input tile.
+// and the conv kernel of conv3x3_relu_pool2.cu (K-D stem and K-E general): an
+// implicit GEMM for a 3x3 SAME conv + bias + ReLU + 2x2/s2 max-pool over one
+// 16 x 32 tile of conv outputs of one image, 64 output channels, one chunk of
+// 64 input channels, NHWC, bf16 operands, f32 accumulation. The kernels differ
+// only in how the input tile and the weights reach shared memory (conv1_1
+// computed in place, or loaded; weights resident, or streamed by tap rows);
+// all call `conv_tile_mma` and `pool_tile_to_staging`, so they sum in the same
+// order and give the same bits for the same input tile.
 //
 // GEMM view of one tile: M = 512 conv output pixels, N = 64 output channels,
 // K = 9 taps x 64 input channels, in 36 steps of K = 16 (tap-major).
@@ -16,10 +17,14 @@
 //      row touches 32 distinct banks. For tap (dy, dx) the A rows are the
 //      output pixels shifted by (dy, dx); each lane hands ldmatrix its own
 //      row address, so the shift costs nothing.
-//   B  the weights [9 taps][64 co][64 ci] bf16 (72 KB), resident in shared
-//      memory in the 128-byte swizzle that a wgmma descriptor reads
-//      (`w_offset`): K-major, one 128-byte row per output channel, 8-row
-//      groups 1024 bytes apart.
+//   B  the weights [9 taps][64 co][64 ci] bf16 (72 KB) in shared memory, in
+//      the 128-byte swizzle that a wgmma descriptor reads (`w_offset`):
+//      K-major, one 128-byte row per output channel, 8-row groups 1024 bytes
+//      apart. Tap row dy (taps 3dy..3dy+2, 24 KB, `kSlabBytes`) is read only
+//      by K-steps 12dy..12dy+11, so a caller may refill it once those have
+//      retired: `conv_tile_mma` calls its `rows` hook before the first step
+//      of tap rows 1 and 2 is issued (`before_row<dy>`) and just after
+//      (`after_row<dy>`).
 //   D  wgmma.m64n64k16 (A from registers, B by descriptor) into f32
 //      registers. 4 warpgroups x 2 M-tiles of 64 pixels = 64 accumulators a
 //      thread. M-tile mt holds tile rows 2mt and 2mt+1; warp w of a
@@ -46,11 +51,15 @@ constexpr int kInW = kTileW + 2;
 constexpr int kC = 64;      // channels of one K or N chunk
 constexpr int kThreads = 512;  // 4 warpgroups
 constexpr int kSteps = 9 * kC / 16;
+constexpr int kRowSteps = kSteps / 3;  // K-steps of one tap row
 
-constexpr int kWBytes = 9 * kC * kC * 2;           // 73 728, B operand
+constexpr int kSlabBytes = 3 * kC * kC * 2;        // 24 576, one tap row of B
+
+constexpr int kWBytes = 3 * kSlabBytes;           // 73 728, B operand
 constexpr int kABytes = kInH * kInW * kC * 2;      // 78 336, A operand
-constexpr int kStagingBytes = (kTileH / 2) * (kTileW / 2) * kC * 2;  // 16 384
+constexpr int kStagingBytes = (kTileH / 2) * (kTileW / 2) * kC * 4;  // 32 768 as f32
 static_assert(kStagingBytes <= kABytes, "the pooled tile is staged in the A buffer");
+static_assert(kSlabBytes % 1024 == 0, "each tap row of B keeps the swizzle's 1024-byte alignment");
 
 // Byte offset of 16-byte chunk c (channels 8c..8c+7) of haloed pixel p in A.
 __device__ __forceinline__ uint32_t a_offset(int p, int c) {
@@ -150,28 +159,43 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[2][4], uint32_t a_smem, int
   ldmatrix_x4(a[1], a_smem + a_offset(p1 + shift, c));
 }
 
-template <int S>
+// The B buffer stays as it is for the whole mainloop (K-B; K-D and K-E at
+// Ci, Co <= 64).
+struct ResidentWeights {
+  template <int Row>
+  __device__ __forceinline__ void before_row() const {}
+  template <int Row>
+  __device__ __forceinline__ void after_row() const {}
+};
+
+template <int S, class Rows>
 __device__ __forceinline__ void mma_steps(float (&acc)[2][32], uint32_t (&a)[2][2][4], uint32_t a_smem,
-                                          uint32_t w_smem, int p0, int p1, int khalf) {
+                                          uint32_t w_smem, int p0, int p1, int khalf, const Rows& rows) {
   if constexpr (S < kSteps) {
     constexpr int buf = S & 1;
+    constexpr bool row_start = S > 0 && S % kRowSteps == 0;
+    if constexpr (row_start) rows.template before_row<S / kRowSteps>();
     wgmma_fence();
     const uint64_t desc = b_desc(w_smem, S / 4, S % 4);
     wgmma_m64n64k16(acc[0], a[buf][0], desc);
     wgmma_m64n64k16(acc[1], a[buf][1], desc);
     wgmma_commit();
+    if constexpr (row_start) rows.template after_row<S / kRowSteps>();
     if constexpr (S + 1 < kSteps) {
       wgmma_wait<1>();  // step S-1 is done: its A registers may be refilled
       load_a<S + 1>(a[buf ^ 1], a_smem, p0, p1, khalf);
     }
-    mma_steps<S + 1>(acc, a, a_smem, w_smem, p0, p1, khalf);
+    mma_steps<S + 1>(acc, a, a_smem, w_smem, p0, p1, khalf, rows);
   }
 }
 
 // acc[i] += the tile's conv for M-tiles 2g and 2g+1 of warpgroup g, over one
-// 64-channel chunk: A at a_smem, B at w_smem (1024-byte aligned). Returns
+// 64-channel chunk: A at a_smem, B at w_smem (1024-byte aligned). `rows` is
+// called around the first step of tap rows 1 and 2 (see B above). Returns
 // with every wgmma of this warpgroup complete; the caller zeroes acc first.
-__device__ __forceinline__ void conv_tile_mma(float (&acc)[2][32], uint32_t a_smem, uint32_t w_smem) {
+template <class Rows = ResidentWeights>
+__device__ __forceinline__ void conv_tile_mma(float (&acc)[2][32], uint32_t a_smem, uint32_t w_smem,
+                                              const Rows& rows = Rows()) {
   const int tid = tid_here(), warp = tid >> 5, lane = tid & 31;
   const int group = warp >> 2, wig = warp & 3;
   const int p0 = lane_pixel(2 * group, wig, lane);
@@ -181,18 +205,27 @@ __device__ __forceinline__ void conv_tile_mma(float (&acc)[2][32], uint32_t a_sm
   load_a<0>(a[0], a_smem, p0, p1, khalf);
   fence_acc(acc[0]);
   fence_acc(acc[1]);
-  mma_steps<0>(acc, a, a_smem, w_smem, p0, p1, khalf);
+  mma_steps<0>(acc, a, a_smem, w_smem, p0, p1, khalf, rows);
   wgmma_wait<0>();
   fence_acc(acc[0]);
   fence_acc(acc[1]);
 }
 
-// Bias, ReLU (the 0 floor), the 2x2 max and one bf16 rounding in registers;
-// writes the pooled tile [8 rows][16 cols][64 ch] bf16 to `staging`.
-// bias: 64 floats (shared memory). max(relu(a_i + b)) = max(0, max(a_i) + b)
-// exactly, as rounding is monotonic.
+// Two neighbouring channels of the staged pooled tile, at even element `at`.
+__device__ __forceinline__ void put_pair(uint16_t* staging, int at, float lo, float hi) {
+  reinterpret_cast<uint32_t*>(staging)[at >> 1] = pack_bf16x2(lo, hi);
+}
+__device__ __forceinline__ void put_pair(float* staging, int at, float lo, float hi) {
+  reinterpret_cast<float2*>(staging)[at >> 1] = make_float2(lo, hi);
+}
+
+// Bias, ReLU (the 0 floor) and the 2x2 max in registers; writes the pooled
+// tile [8 rows][16 cols][64 ch] to `staging` as Out: bf16 (uint16_t, one
+// rounding) or f32 (not rounded). bias: 64 floats (shared memory).
+// max(relu(a_i + b)) = max(0, max(a_i) + b) exactly, as rounding is monotonic.
+template <typename Out>
 __device__ __forceinline__ void pool_tile_to_staging(const float (&acc)[2][32], const float* bias,
-                                                     uint32_t* staging) {
+                                                     Out* staging) {
   const int tid = tid_here(), warp = tid >> 5, lane = tid & 31;
   const int group = warp >> 2, wig = warp & 3;
   const int r = lane >> 2, q = lane & 3;
@@ -210,25 +243,29 @@ __device__ __forceinline__ void pool_tile_to_staging(const float (&acc)[2][32], 
       }
       if ((r & 1) == 0) {
         const int co = 8 * j + 2 * q;
-        staging[((py * (kTileW / 2) + px) * kC + co) >> 1] =
-            pack_bf16x2(fmaxf(m[0] + bias[co], 0.0f), fmaxf(m[1] + bias[co + 1], 0.0f));
+        put_pair(staging, (py * (kTileW / 2) + px) * kC + co, fmaxf(m[0] + bias[co], 0.0f),
+                 fmaxf(m[1] + bias[co + 1], 0.0f));
       }
     }
   }
 }
 
 // Stores the staged pooled tile with 16-byte vectors: pooled rows from
-// py0, cols from px0, channels co0.. of a [.., out_h, out_w, cout] map; rows,
-// cols and channels past the map are dropped.
-__device__ __forceinline__ void store_staging(const uint4* staging, uint16_t* out_img, int py0, int px0,
+// py0, cols from px0, channels co0.. of a [.., out_h, out_w, cout] map of Out
+// (cout a multiple of 8); rows, cols and channels past the map are dropped.
+template <typename Out>
+__device__ __forceinline__ void store_staging(const Out* staging, Out* out_img, int py0, int px0,
                                               int out_h, int out_w, int co0, int cout) {
-  constexpr int kVecs = (kTileH / 2) * (kTileW / 2) * (kC / 8);
+  constexpr int kPerVec = 16 / sizeof(Out);  // channels of one vector
+  constexpr int kPixVecs = kC / kPerVec;
+  constexpr int kVecs = (kTileH / 2) * (kTileW / 2) * kPixVecs;
   for (int v = tid_here(); v < kVecs; v += kThreads) {
-    const int c = v & 7, pix = v >> 3;
+    const int c = v % kPixVecs, pix = v / kPixVecs;
     const int py = py0 + pix / (kTileW / 2), px = px0 + pix % (kTileW / 2);
-    const int co = co0 + 8 * c;
+    const int co = co0 + kPerVec * c;
     if (py < out_h && px < out_w && co < cout) {
-      *reinterpret_cast<uint4*>(out_img + (static_cast<size_t>(py) * out_w + px) * cout + co) = staging[v];
+      *reinterpret_cast<uint4*>(out_img + (static_cast<size_t>(py) * out_w + px) * cout + co) =
+          reinterpret_cast<const uint4*>(staging)[v];
     }
   }
 }

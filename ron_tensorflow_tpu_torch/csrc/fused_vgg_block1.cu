@@ -161,9 +161,9 @@ fused_vgg_block1_kernel(const uint16_t* __restrict__ x,    // [B, H, W, 3] bf16
       for (int k = 0; k < 32; ++k) acc[i][k] = 0.0f;
     conv_tile_mma(acc, a_smem, w_smem);
     __syncthreads();  // every warpgroup is done reading A
-    pool_tile_to_staging(acc, b2s, reinterpret_cast<uint32_t*>(as));
+    pool_tile_to_staging(acc, b2s, reinterpret_cast<uint16_t*>(as));
     __syncthreads();
-    store_staging(reinterpret_cast<const uint4*>(as), out + static_cast<size_t>(b) * (height / 2) * (width / 2) * kC,
+    store_staging(reinterpret_cast<const uint16_t*>(as), out + static_cast<size_t>(b) * (height / 2) * (width / 2) * kC,
                   y0 / 2, x0 / 2, height / 2, width / 2, 0, kC);
   }
 }

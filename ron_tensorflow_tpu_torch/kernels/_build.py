@@ -26,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("nms_fixpoint.cu", "nms_scan.cu", "fused_vgg_block1.cu", "conv3x3_relu_pool2.cu")
-HEADERS = ("conv3x3_mma.cuh",)  # the tensor-core conv mainloop of K-B and K-D
+HEADERS = ("conv3x3_mma.cuh",)  # the tensor-core conv mainloop of K-B, K-D and K-E
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +51,7 @@ SIGNATURES = {
     # the dynamic shared memory each tensor-core kernel asks for, in bytes
     "fused_vgg_block1_smem_bytes": (),
     "fused_stem_conv_relu_pool2_smem_bytes": (),
+    "fused_conv3x3_relu_pool2_smem_bytes": (),
 }
 
 

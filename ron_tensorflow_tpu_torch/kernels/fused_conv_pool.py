@@ -12,17 +12,18 @@ Ports of `ron_tensorflow_tpu/kernels/fused_conv_pool.py`:
   the five inputs are saved.
 - `fused_stem_conv_relu_pool2` (C -> C, `csrc/conv3x3_relu_pool2.cu`'s
   stem launcher) and `fused_conv3x3_relu_pool2` (Ci -> Co, its general
-  launcher) for maxpool2(relu(conv3x3_SAME(x, w) + b)) with x and w
+  launcher; one kernel behind both) for
+  maxpool2(relu(conv3x3_SAME(x, w) + b)) with x and w
   rounded to bf16 and f32 sums. The stem rounds the pooled value to bf16
   before the cast to x.dtype, as its TPU kernel's identity-matmul pool
   does (`fused_conv_pool.py:78-90`); the general one casts the f32 value
   to x.dtype only (`:466`).
 
-Block 1's conv1_2 and the stem run on the tensor cores through one
-mainloop (`csrc/conv3x3_mma.cuh`), so on the same conv1_1 map they give
-the same bits. Layouts: x NHWC, weights OIHW (the port's `Conv.weight`),
-biases [Co]. The kernels take conv1_2's and the stem's weights as
-[tap][co][ci] (`_taps_co_ci`), the general kernel as HWIO.
+Block 1's conv1_2, the stem and the general kernel run on the tensor
+cores through one mainloop (`csrc/conv3x3_mma.cuh`), so on the same
+conv1_1 map they give the same bits. Layouts: x NHWC, weights OIHW (the
+port's `Conv.weight`), biases [Co]. The kernels take the weights as
+[tap][co][ci] (`_taps_co_ci`).
 """
 
 from __future__ import annotations
@@ -198,28 +199,48 @@ def fused_conv3x3_relu_pool2_plain(x, w, b):
     return _conv_relu_pool_f32(x, w, b).to(x.dtype)
 
 
-def _launch_conv_relu_pool(name, x, w, b, round_bf16):
-    """Run `csrc/conv3x3_relu_pool2.cu`: bf16 NHWC in; bf16 out when the
-    value is rounded to bf16 anyway (the stem, or a bf16 x), else f32. The
-    stem (round_bf16) takes [tap][co][ci] weights, the general kernel HWIO."""
+def _pad_input_channels(x, w):
+    """x [B, H, W, Ci] and w [Co, Ci, 3, 3] with their input channels
+    zero-padded up to a multiple of 8, the kernel's 16-byte vector of bf16.
+    A copy, made only where Ci is not such a multiple; the zeros add nothing
+    to any sum, so the function is unchanged."""
+    pad = -x.shape[-1] % 8
+    if pad == 0:
+        return x, w
+    return F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, 0, 0, pad))
+
+
+def _conv_kernel_args(x, w, b):
+    """The kernel's operands, in plain PyTorch: x as contiguous bf16 NHWC
+    with Ci padded to a multiple of 8 and 16-byte aligned (a misaligned
+    view is copied: `.contiguous()` keeps its offset), the weights as
+    [9 taps, Co, Ci] bf16 (`_taps_co_ci`) and the bias as f32."""
+    x, w = _pad_input_channels(x, w)
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    return xb, _taps_co_ci(w).reshape(9, w.shape[0], w.shape[1]), b.float().contiguous()
+
+
+def _launch_conv_relu_pool(name, x, w, b, out_bf16):
+    """Run `csrc/conv3x3_relu_pool2.cu`'s tensor-core kernel: the stem's
+    launcher or the general one (`name`); bf16 out when out_bf16, else
+    f32. Returns the output in x.dtype."""
     _check_cuda_args(name, x, w, b)
-    batch, height, width, cin = x.shape
+    batch, height, width, _ = x.shape
     cout = w.shape[0]
     if cout % 8:
         raise ValueError(f"{name}: the kernel needs Co a multiple of 8, got {cout}")
-    xb = x.to(torch.bfloat16).contiguous()
-    wh = _taps_co_ci(w) if round_bf16 else w.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
-    bf = b.float().contiguous()
-    out_bf16 = round_bf16 or x.dtype == torch.bfloat16
+    xb, wt, bf = _conv_kernel_args(x, w, b)
     out = torch.empty(
         batch, height // 2, width // 2, cout,
         dtype=torch.bfloat16 if out_bf16 else torch.float32, device=x.device,
     )
-    if (round_bf16 and xb.data_ptr() % 16) or wh.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError(f"{name}: weights and output (and the stem's x) must be 16-byte aligned")
-    args = [xb.data_ptr(), wh.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, height, width, cin, cout]
-    if not round_bf16:
-        args.append(int(out_bf16))  # the general kernel stores bf16 only for a bf16 x
+    if wt.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{name}: weights and output must be 16-byte aligned")
+    args = [xb.data_ptr(), wt.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, height, width, xb.shape[-1], cout]
+    if name == "fused_conv3x3_relu_pool2":
+        args.append(int(out_bf16))  # the general launcher stores f32 for an f32 x
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), name)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(name, err)
@@ -234,7 +255,7 @@ def fused_stem_conv_relu_pool2(x, w, b):
     if x.device.type == "cpu":
         return fused_stem_conv_relu_pool2_plain(x, w, b)
     _check_conv_shapes("fused_stem_conv_relu_pool2", x, w, b, same_channels=True)
-    out = _launch_conv_relu_pool("fused_stem_conv_relu_pool2", x, w, b, round_bf16=True)
+    out = _launch_conv_relu_pool("fused_stem_conv_relu_pool2", x, w, b, out_bf16=True)
     fused_stem_conv_relu_pool2.launches += 1
     return out
 
@@ -243,11 +264,14 @@ def fused_conv3x3_relu_pool2(x, w, b):
     """K-E, `maxpool2(relu(conv3x3_SAME(x, w) + b))`, Ci -> Co: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor. Same
     arguments as `fused_conv3x3_relu_pool2_plain`; on CUDA, Co a multiple
-    of 8, x bf16 or f32. An f32 x gives an f32 result, not rounded to bf16."""
+    of 8, x bf16 or f32. An f32 x gives an f32 result, not rounded to bf16.
+    Where Ci is not a multiple of 8, x and w are first copied with zero
+    input channels appended (`_pad_input_channels`); the kernel runs all
+    the same."""
     if x.device.type == "cpu":
         return fused_conv3x3_relu_pool2_plain(x, w, b)
     _check_conv_shapes("fused_conv3x3_relu_pool2", x, w, b, same_channels=False)
-    out = _launch_conv_relu_pool("fused_conv3x3_relu_pool2", x, w, b, round_bf16=False)
+    out = _launch_conv_relu_pool("fused_conv3x3_relu_pool2", x, w, b, out_bf16=x.dtype == torch.bfloat16)
     fused_conv3x3_relu_pool2.launches += 1
     return out
 

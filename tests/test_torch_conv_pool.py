@@ -19,6 +19,7 @@ from ron_tensorflow_tpu.kernels import fused_conv3x3_relu_pool2 as jax_general
 from ron_tensorflow_tpu.kernels import fused_stem_conv_relu_pool2 as jax_stem
 
 from ron_tensorflow_tpu_torch import kernels
+from ron_tensorflow_tpu_torch.kernels import fused_conv_pool as fcp
 from ron_tensorflow_tpu_torch.kernels import (
     fused_conv3x3_relu_pool2,
     fused_conv3x3_relu_pool2_plain,
@@ -144,3 +145,45 @@ def test_stem_rejects_channel_change():
         fused_stem_conv_relu_pool2_plain(torch.as_tensor(x), oihw(w), torch.as_tensor(b))
     out = fused_conv3x3_relu_pool2_plain(torch.as_tensor(x), oihw(w), torch.as_tensor(b))
     assert out.shape == (1, 4, 4, 16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin", [4, 12])
+def test_channel_padding_leaves_the_function_unchanged(cin, dtype):
+    """The kernel's wrapper pads Ci up to a multiple of 8 with zeros; the
+    padded operands give the plain version's output bit for bit."""
+    x, w, b = conv_inputs(6, (2, 8, 12), cin, 16)
+    x, w, b = torch.as_tensor(x).to(dtype), oihw(w), torch.as_tensor(b)
+    xp, wp = fcp._pad_input_channels(x, w)
+    assert xp.shape[-1] == wp.shape[1] == 8 * -(-cin // 8)
+    assert not xp[..., cin:].any() and not wp[:, cin:].any()
+    torch.testing.assert_close(fused_conv3x3_relu_pool2_plain(xp, wp, b),
+                               fused_conv3x3_relu_pool2_plain(x, w, b), rtol=0, atol=0)
+
+
+def test_taps_co_ci_indexes_like_hwio():
+    """The kernels' [tap][co][ci] weights, here for Ci != Co (24 -> 40):
+    tap t = 3 dy + dx holds HWIO[dy, dx, ci, co] rounded to bf16."""
+    _, w_hwio, b = conv_inputs(7, (1, 2, 2), 24, 40)
+    packed = fcp._conv_kernel_args(torch.zeros(1, 2, 2, 24), oihw(w_hwio), torch.as_tensor(b))[1]
+    assert packed.shape == (9, 40, 24) and packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    ref = torch.as_tensor(w_hwio).to(torch.bfloat16)
+    for dy in range(3):
+        for dx in range(3):
+            assert torch.equal(packed[3 * dy + dx], ref[dy, dx].T)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_args_copy_a_misaligned_view(dtype):
+    """x that starts one element past a 16-byte boundary is copied to an
+    aligned bf16 tensor with the same values; an aligned bf16 x is passed
+    as it is."""
+    x, w, b = conv_inputs(8, (1, 4, 6), 8, 8)
+    base = torch.as_tensor(x).to(dtype).flatten()
+    view = torch.cat([base[:1], base])[1:].view(1, 4, 6, 8)  # contiguous, misaligned
+    assert view.is_contiguous() and view.data_ptr() % 16
+    xb, _, bf = fcp._conv_kernel_args(view, oihw(w), torch.as_tensor(b))
+    assert xb.data_ptr() % 16 == 0 and xb.dtype == torch.bfloat16 and bf.dtype == torch.float32
+    assert torch.equal(xb, view.to(torch.bfloat16))
+    aligned = view.to(torch.bfloat16).clone()
+    assert fcp._conv_kernel_args(aligned, oihw(w), torch.as_tensor(b))[0] is aligned

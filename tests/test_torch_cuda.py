@@ -110,8 +110,13 @@ CONV_CASES = [
     ("general", (32, 160, 160), 128, 128),  # block-2 tail
     ("general", (32, 80, 80), 256, 256),  # block-3 tail
     ("general", (3, 36, 52), 128, 256),  # ragged, Ci != Co
-    ("general", (2, 20, 26), 512, 512),  # 16 input-channel chunks
+    ("general", (2, 20, 26), 512, 512),  # 8 64-channel chunks of K and of N
     ("general", (1, 8, 12), 4, 16),  # Ci below one chunk
+    ("general", (1, 16, 32), 64, 64),  # one tile: one block of one stage
+    ("general", (2, 36, 52), 64, 128),  # one K chunk, two N chunks
+    ("general", (2, 36, 52), 192, 64),  # three K chunks: an odd number of stages a block
+    ("general", (2, 36, 52), 24, 40),  # channels that fill no chunk
+    ("general", (2, 80, 96), 64, 320),  # 150 units on 132 SMs: a second unit, other weights
 ]
 
 
@@ -220,6 +225,36 @@ def test_stem_on_conv1_1_equals_block1_kernel(cuda):
     assert stem.shape == block1.shape == (3, 26, 42, 64)
     bad = (g_ - r).abs() > bf16_ulp(r)
     assert not bad.any(), f"{int(bad.sum())} of {bad.numel()} outputs more than one bf16 ulp apart"
+
+
+def test_general_equals_stem_at_64_channels(cuda):
+    """K-E on a bf16 x at Ci = Co = 64 is K-D's function, through the same
+    kernel and sum order: equal bits."""
+    g = torch.Generator().manual_seed(12)
+    x = torch.relu(torch.randn(3, 52, 84, 64, generator=g) * 3).to(torch.bfloat16).to(cuda)
+    w = (torch.randn(64, 64, 3, 3, generator=g) * 0.06).to(cuda)
+    b = (torch.randn(64, generator=g) * 0.1).to(cuda)
+    kernels.reset_launch_counts()
+    general, stem = fused_conv3x3_relu_pool2(x, w, b), fused_stem_conv_relu_pool2(x, w, b)
+    torch.cuda.synchronize()
+    assert fused_conv3x3_relu_pool2.launches == 1 and fused_stem_conv_relu_pool2.launches == 1
+    assert torch.equal(general, stem)
+
+
+def test_general_takes_a_misaligned_view(cuda):
+    """A bf16 x that starts one element past a 16-byte boundary is copied
+    to an aligned tensor before the launch: the plain version's result."""
+    g = torch.Generator().manual_seed(13)
+    flat = torch.relu(torch.randn(2 * 36 * 52 * 64 + 1, generator=g) * 3).to(torch.bfloat16).to(cuda)
+    x = flat[1:].view(2, 36, 52, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = (torch.randn(128, 64, 3, 3, generator=g) * 0.06).to(cuda)
+    b = (torch.randn(128, generator=g) * 0.1).to(cuda)
+    kernels.reset_launch_counts()
+    got = fused_conv3x3_relu_pool2(x, w, b)
+    torch.cuda.synchronize()
+    assert fused_conv3x3_relu_pool2.launches == 1
+    assert_conv_pool_close(got, fused_conv3x3_relu_pool2_plain(x, w, b), rounded=True)
 
 
 def test_f32_model_ignores_the_tf32_flag(cuda):
