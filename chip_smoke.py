@@ -10,8 +10,11 @@ Phases, each ending with a line that gives its elapsed seconds:
               which share one kernel: bf16 or f32 store, weights resident
               or streamed);
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              edge shapes (random, exact-threshold and K = 1024 NMS rows,
-              ragged conv tiles, f32 and bf16 inputs);
+              edge shapes (NMS: random, exact-threshold, K = 1024, 2048 and
+              4096 rows, a NaN first score, keep_top_k 0, disjoint boxes
+              (all kept), identical ones (one kept) and overlaps within a
+              few ulps of the threshold; conv: ragged tiles, f32 and bf16
+              inputs);
   4. main     full-width RON-320 with the trained weights packed in
               tests/fixtures/e2e_parity_trained.npz, pixels to boxes:
               (a) float32, TF32 off, against the fixture's reference
@@ -31,9 +34,10 @@ Phases, each ending with a line that gives its elapsed seconds:
               autograd through the unfused composition, bf16, batch 32;
   7. timing   the bf16 batch-32 Detector's images/s and stage split, each
               kernel's time beside its plain version's, its bound and a
-              library yardstick (K-E also tail by tail), and one
-              torch.profiler pass over a Detector batch (top device kernels,
-              device busy share).
+              library yardstick (K-E also tail by tail; the NMS kernels by
+              their device time in a torch.profiler trace, with the
+              wrapper's per-call time beside it), and one torch.profiler pass
+              over a Detector batch (top device kernels, device busy share).
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -57,11 +61,18 @@ from ron_tensorflow_tpu_torch.data.preprocess import eval_preprocess
 from ron_tensorflow_tpu_torch.inference.detector import TOPK_CHUNKS, DetectionConfig, Detector
 from ron_tensorflow_tpu_torch.kernels import _build
 from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
-from ron_tensorflow_tpu_torch.kernels.nms import compact_keep, fixpoint_keep, nms_sorted_kernel, suppression_matrix
+from ron_tensorflow_tpu_torch.kernels.nms import (
+    MAX_K,
+    compact_keep,
+    fixpoint_keep,
+    nms_sorted_kernel,
+    suppression_matrix,
+)
 from ron_tensorflow_tpu_torch.models.layers import max_pool_2x2
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC
 from ron_tensorflow_tpu_torch.ops.math import exact_top_k_chunked
+from ron_tensorflow_tpu_torch.tools.time_nms import device_ms
 from ron_tensorflow_tpu_torch.weights import from_jax_params, load_trained_fixture
 
 REPO = Path(__file__).resolve().parent
@@ -91,6 +102,7 @@ CONV_F32_TOL = 1e-4
 # in another order on each run, a few bf16 ulps (2^-8 each).
 GRAD_REL_TOL = 2e-2
 SCAN_KEEP_TOP_K = [16, 100, 200]  # K-C's cap in the edge-shape checks
+NMS_SOURCE = "ron_tensorflow_tpu_torch/csrc/nms_greedy.cu"  # K-A and K-C: one greedy sweep
 # The kernels that run on the tensor cores: wrapper name -> {instantiation:
 # a part of its mangled name}. K-D and K-E launch one kernel templated on the
 # store type (uint16_t, "t", holds bf16; "f" f32) and on whether its weights
@@ -203,6 +215,62 @@ def sorted_rows(seed, r, k, grid=None):
     return scores.cuda().contiguous(), boxes.cuda().contiguous()
 
 
+def edge_rows(edge, r, k):
+    """NMS rows at the sweep's edges: 'nan first' (random rows whose first
+    score is NaN, as a descending sort puts it: the valid candidates are no
+    prefix), 'disjoint' (boxes in disjoint grid cells: all K kept, the
+    longest chain of steps), 'identical' (one box K times: one kept) and
+    'borderline' (box 0 against boxes shifted by float32 ulps so that their
+    overlap with it lies within a few ulps of 0.4, the threshold these rows
+    are run at, in 'min' mode for the even ones and in 'union' mode for the
+    odd ones: the pairs that K-C's kernel decides by dividing)."""
+    scores = torch.linspace(1.0, 0.01, k).repeat(r, 1).cuda()
+    if edge == "nan first":
+        scores, boxes = sorted_rows(k + 7, r, k)
+        scores[:, 0] = float("nan")
+    elif edge == "disjoint":
+        side = int(k ** 0.5 + 0.999999)
+        cell = torch.arange(k)
+        y0, x0 = (cell // side) / side, (cell % side) / side
+        boxes = torch.stack([y0, x0, y0 + 0.5 / side, x0 + 0.5 / side], -1).repeat(r, 1, 1)
+    elif edge == "borderline":
+        j = torch.arange(k)
+        x = torch.where(j % 2 == 0, 0.6, 3 / 7) + (j // 2 - k // 4) * 2.0 ** -24
+        x[0] = 0.0
+        boxes = torch.stack([torch.full((k,), 0.2), x, torch.full((k,), 0.7), x + 1], -1).repeat(r, 1, 1)
+    else:
+        boxes = torch.tensor([0.2, 0.3, 0.6, 0.5]).repeat(r, k, 1)
+    return scores.contiguous(), boxes.cuda().contiguous()
+
+
+def check_nms(label, scores, boxes, thr, mode, caps, errs):
+    """Both NMS kernels against their plain versions on one row set: K-A,
+    and K-C at each cap. Returns K-A's mask."""
+    got = kernels.nms_fixpoint_keep_mask(scores, boxes, thr, mode)
+    ref = kernels.nms_fixpoint_keep_mask_plain(scores, boxes, thr, mode)
+    torch.cuda.synchronize()
+    err, n_diff = mask_err(got, ref)
+    errs["nms_fixpoint_keep_mask"] = max(errs["nms_fixpoint_keep_mask"], err)
+    r, k = scores.shape
+    print(f"  nms_fixpoint_keep_mask {label} [{r},{k}] {mode}: {n_diff} mask differences, "
+          f"{int(ref.sum())} kept")
+    if n_diff:
+        raise AssertionError(f"NMS keep masks differ ({label}, {mode})")
+    kept = []
+    for cap in caps:
+        got_c = kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)
+        ref_c = kernels.nms_scan_keep_mask_plain(scores, boxes, thr, cap, mode)
+        torch.cuda.synchronize()
+        err, n_diff = mask_err(got_c, ref_c)
+        errs["nms_scan_keep_mask"] = max(errs["nms_scan_keep_mask"], err)
+        if n_diff:
+            raise AssertionError(f"scan NMS keep masks differ ({label}, {mode}, keep_top_k {cap}): {n_diff}")
+        kept.append(int(ref_c.sum()))
+    print(f"  nms_scan_keep_mask {label} [{r},{k}] {mode}, keep_top_k {list(caps)}: "
+          f"0 mask differences, {kept} kept")
+    return ref
+
+
 def mask_err(got, ref):
     """Largest |kernel - plain| over a keep mask (0 or 1), and the number
     of entries that differ."""
@@ -270,28 +338,21 @@ def check_kernels(block1_weights):
         "main-path shape": (BATCH * 20, NMS_CFG.top_k, None, NMS_CFG.nms_threshold),
         "exact-threshold grid": (64, NMS_CFG.top_k, 8, 0.5),
         "K=1024": (8, 1024, 4, 0.25),
+        "K=2048": (16, 2048, 4, 0.25),
+        f"K={MAX_K}": (8, MAX_K, 4, 0.25),
     }.items():
         for mode in ("min", "union"):
-            scores, boxes = sorted_rows(r + k, r, k, grid)
-            got = kernels.nms_fixpoint_keep_mask(scores, boxes, thr, mode)
-            ref = kernels.nms_fixpoint_keep_mask_plain(scores, boxes, thr, mode)
-            torch.cuda.synchronize()
-            err, n_diff = mask_err(got, ref)
-            errs["nms_fixpoint_keep_mask"] = max(errs["nms_fixpoint_keep_mask"], err)
-            print(f"  nms_fixpoint_keep_mask {label} [{r},{k}] {mode}: {n_diff} mask differences, "
-                  f"{int(ref.sum())} kept")
-            if n_diff:
-                raise AssertionError(f"NMS keep masks differ ({label}, {mode})")
-            for cap in SCAN_KEEP_TOP_K:
-                got = kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)
-                ref = kernels.nms_scan_keep_mask_plain(scores, boxes, thr, cap, mode)
-                torch.cuda.synchronize()
-                err, n_diff = mask_err(got, ref)
-                errs["nms_scan_keep_mask"] = max(errs["nms_scan_keep_mask"], err)
-                if n_diff:
-                    raise AssertionError(f"scan NMS keep masks differ ({label}, {mode}, keep_top_k {cap}): {n_diff}")
-            print(f"  nms_scan_keep_mask {label} [{r},{k}] {mode}, keep_top_k {SCAN_KEEP_TOP_K}: "
-                  f"0 mask differences")
+            check_nms(label, *sorted_rows(r + k, r, k, grid), thr, mode, SCAN_KEEP_TOP_K, errs)
+    for edge, want in (("nan first", None), ("disjoint", "all"), ("identical", 1), ("borderline", None)):
+        for k in (NMS_CFG.top_k, MAX_K):
+            for mode in ("min", "union"):
+                scores, boxes = edge_rows(edge, 4, k)
+                keep = check_nms(edge, scores, boxes, NMS_CFG.nms_threshold, mode, (0, 100, k), errs)
+                kept = keep.sum(-1)
+                if want is not None and not bool((kept == (k if want == "all" else want)).all()):
+                    raise AssertionError(f"{edge} rows at K={k}: kept {kept.tolist()}, expected {want} a row")
+                if edge == "nan first" and bool(keep[:, 0].any()):
+                    raise AssertionError("a NaN score was kept")
 
     for name, shape, cin, cout in (
         ("fused_stem_conv_relu_pool2", (2, 36, 52), 64, 64),  # ragged tiles
@@ -582,6 +643,10 @@ def main() -> int:
         seconds = _build.timed_build()
         print(f"  one nvcc call: {_build.library_path().name} in {seconds:.2f} s")
         tc_report = tensor_core_report()
+        for name, info in sorted(_build.ptxas_report().items()):
+            if "nms_sweep_kernel" in name:
+                print(f"  {name}: {info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
+                      f"stores, {info.get('spill_loads')} bytes spill loads")
 
     with phase("weights"):
         state = from_jax_params(*load_trained_fixture(str(TRAINED_FIXTURE)))
@@ -659,12 +724,15 @@ def main() -> int:
                   f"one stable sort {topk_ms['one_sort']:.4f} ms")
             results = timing_rows(launches, api_launches, max_err, block1, nhwc_batch,
                                   flat_s, flat_b, scan_keep, y1, tails)
+            nms_split = nms_stage_split(breakdown["nms"], results[0]["ms"], flat_s, flat_b)
         for res in results:
             res.update(tc_report.get(res["name"], {}))
             rates = (f", {res['tflops']:.1f} TFLOP/s, {res['bound_share']:.3f} of bound, "
                      f"{res['library_ratio']:.3f}x the library" if "tflops" in res else "")
+            nms = (f"; device time, {res['call_ms']:.4f} ms a wrapper call; kept per row mean "
+                   f"{res['kept_mean']:.2f}, max {res['kept_max']}" if "call_ms" in res else "")
             print(f"  {res['name']}: {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.4f} "
-                  f"by {res['bound_by']}, library {res['library_ms']}{rates})")
+                  f"by {res['bound_by']}, library {res['library_ms']}{rates}{nms})")
             for label, p in res.get("parts", {}).items():
                 print(f"    {label} tail: {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}, bound {p['bound_ms']:.4f} "
                       f"by {p['bound_by']}, library {p['library_ms']:.4f}), {p['tflops']:.1f} TFLOP/s, "
@@ -675,13 +743,51 @@ def main() -> int:
         profile = profile_detector(det, batch)
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
-                      "detector_stage_ms": breakdown, "topk_ms": topk_ms, "bf16_vs_f32": drift,
-                      "profile": profile}))
+                      "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
+                      "bf16_vs_f32": drift, "profile": profile}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def greedy_pairs(keep):
+    """Overlaps a greedy keep set needs: each kept i against every later j."""
+    k = keep.shape[-1]
+    return int((keep * torch.arange(k - 1, -1, -1, device=keep.device)).sum())
+
+
+def kept_stats(keep):
+    per_row = keep.sum(-1).float()
+    return {"kept_mean": float(per_row.mean()), "kept_max": int(per_row.max())}
+
+
+def nms_times(fn):
+    """An NMS kernel's device time (torch.profiler, the kernel's own device
+    events, per launch) as "ms", and the wrapper's per-call time (CUDA
+    events around back-to-back calls: host cost included) as "call_ms"."""
+    ms, seen = device_ms(fn)
+    return {"ms": ms, "call_ms": cuda_ms(fn, reps=50), "device_launches_traced": seen}
+
+
+def nms_stage_split(stage_ms, mask_device_ms, flat_s, flat_b):
+    """The Detector's NMS stage (`nms_sorted_kernel`: K-A's mask, then
+    `compact_keep`) split into K-A's device time, compact_keep's device
+    time and launches, and what is left: host time the device waits for."""
+    thr, mode, cap = NMS_CFG.nms_threshold, NMS_CFG.nms_mode, NMS_CFG.keep_top_k
+    keep = kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode)
+    compact = lambda: compact_keep(keep, flat_s, flat_b, cap)  # noqa: E731
+    reps = 50
+    compact_dev, compact_events = device_ms(compact, reps=reps, match="")
+    split = {"stage_ms": stage_ms, "keep_mask_device_ms": mask_device_ms,
+             "compact_device_ms": compact_dev, "compact_launches": compact_events / reps,
+             "compact_call_ms": cuda_ms(compact, reps=reps)}
+    split["rest_ms"] = stage_ms - mask_device_ms - compact_dev
+    print(f"  NMS stage {stage_ms:.4f} ms = K-A {mask_device_ms:.4f} ms (device) + compact_keep "
+          f"{compact_dev:.4f} ms (device, {split['compact_launches']:.0f} launches; "
+          f"{split['compact_call_ms']:.4f} ms a call) + {split['rest_ms']:.4f} ms of host time the card waits for")
+    return split
 
 
 def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, flat_b, scan_keep, y1, tails):
@@ -700,24 +806,28 @@ def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, fla
     max_err["fused_vgg_block1"] = max(max_err["fused_vgg_block1"], block1_err(
         "main path's batch", kernels.fused_vgg_block1(nhwc_batch, w1, b1, w2, b2),
         kernels.fused_vgg_block1_plain(nhwc_batch, w1, b1, w2, b2)))
-    # fixpoint steps on these rows: the data-dependent part of K-A's work
+    # K-A's bound counts the work these rows need, as K-C's does: each kept i
+    # against every later j. The fixpoint algorithm's all-pairs count is
+    # printed beside it, for the record.
     _, steps = fixpoint_keep(flat_s > 0, suppression_matrix(flat_b, thr, mode))
-    words = (k + 31) // 32
     nms_bytes = r * k * (4 + 16 + 1)
-    nms_ops = r * k * (k - 1) / 2 * 11 + steps * r * k * words * 2
-    nms_bound, nms_by = bound(nms_bytes, nms_ops, PEAK_F32_FLOPS)
+    nms_bound, nms_by = bound(nms_bytes, 12 * greedy_pairs(keep), PEAK_F32_FLOPS)
+    fixpoint_ops = r * k * (k - 1) / 2 * 11 + steps * r * k * ((k + 31) // 32) * 2
+    old_bound, old_by = bound(nms_bytes, fixpoint_ops, PEAK_F32_FLOPS)
+    fn = lambda: kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode)  # noqa: E731
     results.append({
-        "name": "nms_fixpoint_keep_mask", "route": "cuda",
-        "source": "ron_tensorflow_tpu_torch/csrc/nms_fixpoint.cu",
+        "name": "nms_fixpoint_keep_mask", "route": "cuda", "source": NMS_SOURCE,
         "replaces": "ron_tensorflow_tpu/kernels/nms_pallas.py:225", "path": "main",
         "launches": launches["nms_fixpoint_keep_mask"],
         "max_abs_err": max_err["nms_fixpoint_keep_mask"],
-        "ms": cuda_ms(lambda: kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode), reps=50),
+        **nms_times(fn),
         "plain_ms": cuda_ms(lambda: kernels.nms_fixpoint_keep_mask_plain(flat_s, flat_b, thr, mode), reps=3),
-        "bound_ms": nms_bound, "bound_by": nms_by, "library_ms": None,
+        "bound_ms": nms_bound, "bound_by": nms_by, "library_ms": None, **kept_stats(keep),
     })
-    print(f"  nms rows [{r},{k}]: {steps} fixpoint steps, {int(keep.sum())} kept; "
-          f"block 1 on the batch: max |kernel - plain| = {max_err['fused_vgg_block1']:.6g}")
+    print(f"  nms rows [{r},{k}]: {int(keep.sum())} kept, {greedy_pairs(keep)} overlaps needed; "
+          f"the fixpoint algorithm's count ({steps} steps, all pairs) would make the bound "
+          f"{old_bound:.4f} ms by {old_by}; block 1 on the batch: max |kernel - plain| = "
+          f"{max_err['fused_vgg_block1']:.6g}")
 
     bsz, h, w, _ = nhwc_batch.shape
     blk_flops = 2 * bsz * h * w * 64 * 9 * (3 + 64)
@@ -742,19 +852,19 @@ def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, fla
         "library_ms": cuda_ms(library_block1, reps=20),
     }, blk_flops))
 
-    # K-C: the pairs this run's scan evaluates, each kept i against every later j
-    later = torch.arange(k - 1, -1, -1, device=scan_keep.device)
-    pairs = int((scan_keep * later).sum())
+    # K-C: the pairs this run's keep set needs, each kept i against every later j
+    pairs = greedy_pairs(scan_keep)
     scan_bound, scan_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
+    fn = lambda: kernels.nms_scan_keep_mask(flat_s, flat_b, thr, cap, mode)  # noqa: E731
     results.append({
-        "name": "nms_scan_keep_mask", "route": "cuda", "source": "ron_tensorflow_tpu_torch/csrc/nms_scan.cu",
+        "name": "nms_scan_keep_mask", "route": "cuda", "source": NMS_SOURCE,
         "replaces": "ron_tensorflow_tpu/kernels/nms_pallas.py:93", "path": "kernels API",
         "launches": api_launches["nms_scan_keep_mask"], "max_abs_err": max_err["nms_scan_keep_mask"],
-        "ms": cuda_ms(lambda: kernels.nms_scan_keep_mask(flat_s, flat_b, thr, cap, mode), reps=50),
+        **nms_times(fn),
         "plain_ms": cuda_ms(lambda: kernels.nms_scan_keep_mask_plain(flat_s, flat_b, thr, cap, mode), reps=2),
-        "bound_ms": scan_bound, "bound_by": scan_by, "library_ms": None,
+        "bound_ms": scan_bound, "bound_by": scan_by, "library_ms": None, **kept_stats(scan_keep),
     })
-    print(f"  scan rows [{r},{k}], keep_top_k {cap}: {int(scan_keep.sum())} kept, {pairs} overlaps evaluated")
+    print(f"  scan rows [{r},{k}], keep_top_k {cap}: {int(scan_keep.sum())} kept, {pairs} overlaps needed")
 
     results.append(conv_row("fused_stem_conv_relu_pool2", {"block1": (y1, w2, b2)}, max_err, api_launches,
                             "ron_tensorflow_tpu/kernels/fused_conv_pool.py:116"))

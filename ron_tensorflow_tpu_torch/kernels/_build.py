@@ -25,7 +25,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("nms_fixpoint.cu", "nms_scan.cu", "fused_vgg_block1.cu", "conv3x3_relu_pool2.cu")
+SOURCES = ("nms_greedy.cu", "fused_vgg_block1.cu", "conv3x3_relu_pool2.cu")
 HEADERS = ("conv3x3_mma.cuh",)  # the tensor-core conv mainloop of K-B, K-D and K-E
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,19 +1,23 @@
-"""Greedy-NMS keep masks: two CUDA kernels, each beside its plain version.
+"""Greedy-NMS keep masks: two CUDA launchers of one kernel, each beside its
+plain version.
 
 Port of `ron_tensorflow_tpu/kernels/nms_pallas.py`:
 
-- fixpoint (`pallas_nms_fixpoint_keep_mask`, `csrc/nms_fixpoint.cu`): the
-  uncapped keep mask through the suppression fixpoint, with the TPU
-  kernel's division-free predicate `inter >= t * denom && denom > 0`
-  (`nms_pallas.py:179-181`). The Detector's NMS.
-- scan (`pallas_nms_keep_mask`, `csrc/nms_scan.cu`): the K-step sequential
-  scan with the `keep_top_k` cap inside, and the TPU scan kernel's
-  dividing predicate `ov = inter / denom if denom > 0 else 0; ov >= t`
-  (`nms_pallas.py:75`).
+- fixpoint (`pallas_nms_fixpoint_keep_mask`): the uncapped keep mask, with
+  the TPU kernel's division-free predicate `inter >= t * denom && denom > 0`
+  (`nms_pallas.py:179-181`). The Detector's NMS. Its plain version iterates
+  the suppression fixpoint, as the TPU kernel does.
+- scan (`pallas_nms_keep_mask`): the keep mask with the `keep_top_k` cap
+  inside, and the TPU scan kernel's dividing predicate
+  `ov = inter / denom if denom > 0 else 0; ov >= t` (`nms_pallas.py:75`).
+  Its plain version is the K-step sequential scan, as the TPU kernel's.
 
-Each kernel gives its plain version's mask bit for bit. The two predicates
-can disagree for a pair that sits on the threshold, as the two TPU kernels
-do; each is held to its own TPU kernel.
+On the card both run `csrc/nms_greedy.cu`: one greedy sweep, templated on
+the predicate and the cap, that takes the kept candidates one by one and
+skips the untaken ones in bulk; it takes K up to `MAX_K`. Each launcher
+gives its plain version's mask bit for bit. The two predicates can
+disagree for a pair that sits on the threshold, as the two TPU kernels do;
+each is held to its own TPU kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from . import _build
 
 MODES = ("min", "union")
+MAX_K = 4096  # candidates per row that the CUDA kernel takes (`csrc/nms_greedy.cu`, kMaxK)
 
 
 def _check_mode(mode: str) -> None:
@@ -31,7 +36,9 @@ def _check_mode(mode: str) -> None:
 
 
 def _check_cuda_rows(scores: torch.Tensor, boxes: torch.Tensor):
-    """Raise unless the rows are what the NMS kernels take; returns (R, K)."""
+    """Raise unless the rows are what the NMS kernel takes; returns
+    (R, K, boxes), boxes copied to a 16-byte-aligned tensor if the view
+    given is not (the kernel loads each box as one float4)."""
     if scores.device.type != "cuda" or boxes.device != scores.device:
         raise ValueError(f"tensors on {scores.device} and {boxes.device}: need one CUDA device")
     if scores.dtype != torch.float32 or boxes.dtype != torch.float32:
@@ -41,9 +48,11 @@ def _check_cuda_rows(scores: torch.Tensor, boxes: torch.Tensor):
     if not (scores.is_contiguous() and boxes.is_contiguous()):
         raise ValueError("scores and boxes must be contiguous")
     r, k = scores.shape
-    if k > 1024:
-        raise ValueError(f"K={k} > 1024 candidates per row")
-    return r, k
+    if k > MAX_K:
+        raise ValueError(f"K={k} > {MAX_K} candidates per row")
+    if boxes.data_ptr() % 16:
+        boxes = boxes.clone()
+    return r, k, boxes
 
 
 def suppression_matrix(boxes: torch.Tensor, nms_threshold: float, mode: str) -> torch.Tensor:
@@ -118,11 +127,11 @@ def nms_fixpoint_keep_mask(
 ) -> torch.Tensor:
     """Uncapped greedy-NMS keep mask: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. scores [R, K] float32 descending,
-    boxes [R, K, 4] float32 contiguous, K <= 1024 -> bool [R, K]."""
+    boxes [R, K, 4] float32 contiguous, K <= MAX_K -> bool [R, K]."""
     _check_mode(mode)
     if scores.device.type == "cpu":
         return nms_fixpoint_keep_mask_plain(scores, boxes, nms_threshold, mode)
-    r, k = _check_cuda_rows(scores, boxes)
+    r, k, boxes = _check_cuda_rows(scores, boxes)
     keep = torch.empty(r, k, dtype=torch.bool, device=scores.device)
     with torch.cuda.device(scores.device):
         err = _build.library().nms_fixpoint_keep_mask(
@@ -184,11 +193,11 @@ def nms_scan_keep_mask(
 ) -> torch.Tensor:
     """Capped greedy-NMS keep mask by the sequential scan: the CUDA kernel
     for a CUDA tensor, the plain version for a CPU tensor. scores [R, K]
-    float32, boxes [R, K, 4] float32 contiguous, K <= 1024 -> bool [R, K]."""
+    float32, boxes [R, K, 4] float32 contiguous, K <= MAX_K -> bool [R, K]."""
     _check_mode(mode)
     if scores.device.type == "cpu":
         return nms_scan_keep_mask_plain(scores, boxes, nms_threshold, keep_top_k, mode)
-    r, k = _check_cuda_rows(scores, boxes)
+    r, k, boxes = _check_cuda_rows(scores, boxes)
     keep = torch.empty(r, k, dtype=torch.bool, device=scores.device)
     with torch.cuda.device(scores.device):
         err = _build.library().nms_scan_keep_mask(

@@ -22,6 +22,7 @@ from ron_tensorflow_tpu_torch.kernels import (
     nms_scan_keep_mask_plain,
 )
 from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
+from ron_tensorflow_tpu_torch.kernels.nms import MAX_K
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_TINY_SPEC
 
@@ -50,7 +51,8 @@ def sorted_rows(seed, r, k, grid=None):
 
 
 @pytest.mark.parametrize("mode", ["min", "union"])
-@pytest.mark.parametrize("r,k,grid,thr", [(640, 200, None, 0.4), (33, 1024, 8, 0.5), (5, 31, 4, 0.25)])
+@pytest.mark.parametrize("r,k,grid,thr", [(640, 200, None, 0.4), (33, 1024, 8, 0.5), (5, 31, 4, 0.25),
+                                          (8, 2048, 4, 0.25), (4, 4096, 4, 0.25)])
 def test_nms_kernel_equals_plain(cuda, r, k, grid, thr, mode):
     scores, boxes = (t.to(cuda) for t in sorted_rows(r + k, r, k, grid))
     kernels.reset_launch_counts()
@@ -61,7 +63,7 @@ def test_nms_kernel_equals_plain(cuda, r, k, grid, thr, mode):
     assert torch.equal(got, ref)
 
 
-NMS_SHAPES = [(640, 200, None, 0.4), (33, 1024, 8, 0.5), (5, 31, 4, 0.25)]
+NMS_SHAPES = [(640, 200, None, 0.4), (33, 1024, 8, 0.5), (5, 31, 4, 0.25), (8, 2048, 4, 0.25), (4, 4096, 4, 0.25)]
 
 
 @pytest.mark.parametrize("mode", ["min", "union"])
@@ -76,6 +78,75 @@ def test_nms_scan_kernel_equals_plain(cuda, r, k, grid, thr, mode, keep_top_k):
     ref = nms_scan_keep_mask_plain(scores, boxes, thr, keep_top_k, mode)
     assert torch.equal(got, ref)
     assert int(got.sum(-1).max()) <= keep_top_k
+
+
+def edge_rows(edge, r, k):
+    """NMS rows at the sweep's edges: 'nan first' (random rows whose first
+    score is NaN, as a descending sort puts it: the valid candidates are no
+    prefix), 'disjoint' (boxes in disjoint grid cells: all K kept, the
+    longest chain of steps), 'identical' (one box K times: one kept) and
+    'borderline' (box 0 against boxes shifted by float32 ulps so that their
+    overlap with it lies within a few ulps of 0.4, the threshold these rows
+    are run at, in 'min' mode for the even ones and in 'union' mode for the
+    odd ones: the pairs that K-C's kernel decides by dividing)."""
+    scores = torch.linspace(1.0, 0.01, k).repeat(r, 1)
+    if edge == "nan first":
+        scores, boxes = sorted_rows(k + 7, r, k)
+        scores[:, 0] = float("nan")
+    elif edge == "disjoint":
+        side = int(k ** 0.5 + 0.999999)
+        cell = torch.arange(k)
+        y0, x0 = (cell // side) / side, (cell % side) / side
+        boxes = torch.stack([y0, x0, y0 + 0.5 / side, x0 + 0.5 / side], -1).repeat(r, 1, 1)
+    elif edge == "borderline":
+        j = torch.arange(k)
+        x = torch.where(j % 2 == 0, 0.6, 3 / 7) + (j // 2 - k // 4) * 2.0 ** -24
+        x[0] = 0.0
+        boxes = torch.stack([torch.full((k,), 0.2), x, torch.full((k,), 0.7), x + 1], -1).repeat(r, 1, 1)
+    else:
+        boxes = torch.tensor([0.2, 0.3, 0.6, 0.5]).repeat(r, k, 1)
+    return scores.contiguous(), boxes.contiguous()
+
+
+@pytest.mark.parametrize("mode", ["min", "union"])
+@pytest.mark.parametrize("k", [200, MAX_K])
+@pytest.mark.parametrize("edge", ["nan first", "disjoint", "identical", "borderline"])
+def test_nms_edge_rows_equal_plain(cuda, edge, k, mode):
+    """Both kernels against their plain versions on the edge rows, K-C also
+    with keep_top_k 0 (nothing kept) and K (no binding cap)."""
+    scores, boxes = (t.to(cuda) for t in edge_rows(edge, 2, k))
+    caps = (0, 100, k)
+    kernels.reset_launch_counts()
+    fix = nms_fixpoint_keep_mask(scores, boxes, 0.4, mode)
+    scan = [nms_scan_keep_mask(scores, boxes, 0.4, cap, mode) for cap in caps]
+    torch.cuda.synchronize()
+    assert nms_fixpoint_keep_mask.launches == 1 and nms_scan_keep_mask.launches == len(caps)
+    assert torch.equal(fix, nms_fixpoint_keep_mask_plain(scores, boxes, 0.4, mode))
+    for cap, got in zip(caps, scan):
+        assert torch.equal(got, nms_scan_keep_mask_plain(scores, boxes, 0.4, cap, mode)), cap
+    assert not scan[0].any()
+    kept = {"disjoint": k, "identical": 1}.get(edge)
+    if kept is not None:
+        assert fix.sum(-1).tolist() == [kept] * 2 and scan[2].sum(-1).tolist() == [kept] * 2
+    first_kept = edge != "nan first"
+    assert bool(fix[:, 0].all()) == first_kept and bool(scan[2][:, 0].all()) == first_kept
+
+
+def test_nms_takes_a_misaligned_view(cuda):
+    """Boxes that start 4 bytes past a 16-byte boundary are copied to an
+    aligned tensor before the launch: the plain version's masks."""
+    scores, boxes = (t.to(cuda) for t in sorted_rows(14, 6, 200))
+    flat = torch.empty(boxes.numel() + 1, device=cuda)
+    flat[1:] = boxes.reshape(-1)
+    view = flat[1:].view(6, 200, 4)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    kernels.reset_launch_counts()
+    fix = nms_fixpoint_keep_mask(scores, view, 0.4)
+    scan = nms_scan_keep_mask(scores, view, 0.4, 100)
+    torch.cuda.synchronize()
+    assert nms_fixpoint_keep_mask.launches == 1 and nms_scan_keep_mask.launches == 1
+    assert torch.equal(fix, nms_fixpoint_keep_mask_plain(scores, boxes, 0.4))
+    assert torch.equal(scan, nms_scan_keep_mask_plain(scores, boxes, 0.4, 100))
 
 
 def bf16_ulp(ref):
@@ -291,8 +362,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_vgg_block1(x, w1, b, w2, b)  # odd height
     with pytest.raises(ValueError):
         nms_scan_keep_mask(scores[:, ::2], boxes[:, ::2])
+    over = [t.to(cuda) for t in sorted_rows(1, 2, MAX_K + 1)]
     with pytest.raises(ValueError):
-        nms_scan_keep_mask(*(t.to(cuda) for t in sorted_rows(1, 2, 1025)))  # K > 1024
+        nms_scan_keep_mask(*over)  # K > MAX_K
+    with pytest.raises(ValueError):
+        nms_fixpoint_keep_mask(*over)
+    taken = [t.to(cuda) for t in sorted_rows(1, 2, 2048)]  # past the old limit of 1024
+    assert nms_scan_keep_mask(*taken).shape == nms_fixpoint_keep_mask(*taken).shape == (2, 2048)
     with pytest.raises(ValueError):
         nms_scan_keep_mask(scores, boxes.cpu())  # two devices
     xc = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
