@@ -32,12 +32,35 @@ Phases, each ending with a line that gives its elapsed seconds:
               version, and K-D against K-B on the same batch;
   6. grad     K-B's gradients (kernel forward, recompute backward) against
               autograd through the unfused composition, bf16, batch 32;
-  7. timing   the bf16 batch-32 Detector's images/s and stage split, each
+  7. realtime f32  the realtime head (`RealtimeDetector`, whole-image NMS
+              through K-C) on phase 4a's f32 forward of the four images, each
+              with its own min size: the published config (top_k 2048, then
+              the shipped 400: the same sets) and the dense "exercised" one
+              against the fixture's realtime reference detections; launch
+              counts read around it (K-C launched, K-A not); both modes
+              (whole-image and class-wise) against the same head with K-C's
+              plain version on the same CUDA tensors, bit for bit;
+  8. realtime bf16 the realtime head on the bf16 model with K-B, batch 1
+              and batch 32 (counts: K-B and K-C launched, K-A not);
+  9. eval     `StreamingEvaluator` (the Detector, K-A and K-B, then the
+              matcher on the card) over batch-32 batches with gts from the
+              fixture's realtime references, its TP/FP against the matcher
+              run on the CPU over the same detections; `RealtimeEvaluator`
+              on the four images at their original sizes, scored by
+              `PascalVocEvaluator` against those references written as VOC
+              XML: AP 1.0 for every class that has a gt;
+ 10. timing   the bf16 batch-32 Detector's images/s and stage split; the
+              realtime head's batch-1 latency (p50, p90, pipelined) and
+              device-idle share, its batch-32 images/s and stage split; the
+              streaming evaluator's images/s and the matcher's time; each
               kernel's time beside its plain version's, its bound and a
               library yardstick (K-E also tail by tail; the NMS kernels by
               their device time in a torch.profiler trace, with the
-              wrapper's per-call time beside it), and one torch.profiler pass
-              over a Detector batch (top device kernels, device busy share).
+              wrapper's per-call time beside it; K-C on the realtime head's
+              own rows); then torch.profiler passes (top device kernels,
+              device events, device busy share) over a Detector batch, the
+              realtime head's batch-1 call and batch-32 candidates, and
+              the streaming evaluator.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -49,17 +72,29 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ron_tensorflow_tpu_torch import kernels
-from ron_tensorflow_tpu_torch.data.preprocess import eval_preprocess
-from ron_tensorflow_tpu_torch.inference.detector import TOPK_CHUNKS, DetectionConfig, Detector
+from ron_tensorflow_tpu_torch.data.preprocess import eval_preprocess, whiten
+from ron_tensorflow_tpu_torch.data.resize import tf1_bilinear_resize
+from ron_tensorflow_tpu_torch.data.voc import VOC_CLASSES
+from ron_tensorflow_tpu_torch.eval import PascalVocEvaluator, RealtimeEvaluator, StreamingEvaluator
+from ron_tensorflow_tpu_torch.inference.detector import (
+    TOPK_CHUNKS,
+    DetectionConfig,
+    Detector,
+    RealtimeConfig,
+    RealtimeDetector,
+)
 from ron_tensorflow_tpu_torch.kernels import _build
+from ron_tensorflow_tpu_torch.kernels import nms as kernels_nms
 from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
 from ron_tensorflow_tpu_torch.kernels.nms import (
     MAX_K,
@@ -71,6 +106,9 @@ from ron_tensorflow_tpu_torch.kernels.nms import (
 from ron_tensorflow_tpu_torch.models.layers import max_pool_2x2
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC
+from ron_tensorflow_tpu_torch.ops import nms as ops_nms
+from ron_tensorflow_tpu_torch.ops.ap import StreamingTpFp
+from ron_tensorflow_tpu_torch.ops.matching import match_all_classes
 from ron_tensorflow_tpu_torch.ops.math import exact_top_k_chunked
 from ron_tensorflow_tpu_torch.tools.time_nms import device_ms
 from ron_tensorflow_tpu_torch.weights import from_jax_params, load_trained_fixture
@@ -80,6 +118,17 @@ TRAINED_FIXTURE = REPO / "tests" / "fixtures" / "e2e_parity_trained.npz"
 IMAGES = ("1", "2", "3", "4")
 BATCH = 32
 NMS_CFG = DetectionConfig()  # the streaming-eval defaults: thr 0.4, 'min', top_k 200
+# The realtime head: the published flags (select 0.6, objectness 0.95, union
+# NMS 0.4, keep 20) with the shipped top_k 400, and with
+# tests/test_e2e_parity.py's top_k 2048; its class-wise mode with the
+# streaming eval's thresholds, as RealtimeConfig.for_spec sets them, rows
+# [B*20, 400], 'min' NMS, 100 kept a class.
+RT_SHIPPED = RealtimeConfig()
+RT_PUBLISHED = RealtimeConfig(top_k=2048)
+RT_CLASS_WISE = RealtimeConfig(class_wise=True, select_threshold=0.01, objectness_threshold=0.03, nms_mode="min",
+                               keep_per_class=100, keep_top_k=200)
+LAT_ITERS = 50  # batch-1 latency samples, as the JAX bench.py takes them
+EVAL_BATCHES = 4  # batch-32 batches of the streaming evaluator
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -382,20 +431,22 @@ def check_kernels(block1_weights):
 def f32_parity(state, images, flags):
     """Phase 4a: float32 against the reference detections: the Detector as
     it runs (fixpoint NMS), then its candidates through the scan NMS.
-    Returns the Detector's detections."""
+    Returns the Detector's detections, the f32 model and its forward
+    outputs of the images."""
     model = RON(RON_320_SPEC, dtype=torch.float32)
     model.load_state_dict(state, strict=True)
     det = Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")
     dets = det(images)
     check_detections(f"{flags}, fixpoint NMS (the Detector's)", *dets)
     with torch.inference_mode():
-        flat_s, flat_b = det.candidates(det.model(images))
+        out = det.model(images)
+        flat_s, flat_b = det.candidates(out)
         scan_s, scan_b = nms_sorted_kernel(flat_s, flat_b, NMS_CFG.nms_threshold, NMS_CFG.keep_top_k,
                                            NMS_CFG.nms_mode, method="scan")
     c = RON_320_SPEC.num_classes - 1
     check_detections(f"{flags}, scan NMS", scan_s.reshape(len(images), c, -1),
                      scan_b.reshape(len(images), c, -1, 4))
-    return dets
+    return dets, model, out
 
 
 def bf16_drift(state, images, f32_dets):
@@ -455,8 +506,241 @@ def check_detections(label, scores, boxes):
           f"(keep counts, labels); max |diff| of scores and boxes {worst:.3g} <= {PARITY_ATOL}")
 
 
-MAIN_PATH = ("nms_fixpoint_keep_mask", "fused_vgg_block1")
+MAIN_PATH = ("nms_fixpoint_keep_mask", "fused_vgg_block1")  # the Detector, and the streaming evaluator
+REALTIME_PATH = ("nms_scan_keep_mask", "fused_vgg_block1")  # the realtime head on the bf16 model
 API_PATH = ("nms_scan_keep_mask", "fused_stem_conv_relu_pool2", "fused_conv3x3_relu_pool2")
+
+
+def frame_shapes(fx):
+    """(H0, W0) of the four images' original frames."""
+    return [fx[f"img_{i}_pixels"].shape[:2] for i in IMAGES]
+
+
+def frame_min_sizes(cfg, shapes):
+    """The realtime head's min size for each original frame, float32
+    (ref: ron_eval.py:369-375; `RealtimeEvaluator.min_size`)."""
+    net = RON_320_SPEC.img_shape[0] * RON_320_SPEC.img_shape[1]
+    sizes = [cfg.min_size * float(np.sqrt(h * w / net)) for h, w in shapes]
+    return torch.tensor(sizes, dtype=torch.float32, device="cuda")
+
+
+def rt_exercised(fx):
+    """tests/test_e2e_parity.py's dense 'exercised' realtime config."""
+    return RealtimeConfig(select_threshold=float(fx["rt_exercised_select"]),
+                          objectness_threshold=float(fx["rt_exercised_objectness"]),
+                          nms_threshold=0.3, keep_top_k=40, top_k=2048)
+
+
+def sorted_dets(scores, labels, boxes):
+    order = np.lexsort((boxes[:, 0], boxes[:, 1], labels, -scores))
+    return scores[order], labels[order], boxes[order]
+
+
+def check_realtime(label, dets, fx, ref_name):
+    """Realtime detections of the four images [4, keep_top_k(, 4)] against
+    the fixture's realtime reference: equal counts and labels, scores and
+    boxes within PARITY_ATOL (tests/test_e2e_parity.py:195-201)."""
+    scores, labels, boxes, valid = (t.cpu().numpy() for t in dets)
+    worst, n_kept = 0.0, []
+    for i, img in enumerate(IMAGES):
+        v = valid[i]
+        got_s, got_l, got_b = sorted_dets(scores[i][v], labels[i][v], boxes[i][v])
+        tag = f"img_{img}_rt_{ref_name}"
+        ref_s, ref_l, ref_b = sorted_dets(fx[f"{tag}_scores"], fx[f"{tag}_labels"], fx[f"{tag}_boxes"])
+        if len(got_l) != len(ref_l):
+            raise AssertionError(f"{label}, image {img}: kept {len(got_l)} vs reference {len(ref_l)}")
+        np.testing.assert_array_equal(got_l, ref_l.astype(got_l.dtype))
+        np.testing.assert_allclose(got_s, ref_s, atol=PARITY_ATOL, rtol=0)
+        np.testing.assert_allclose(got_b, ref_b, atol=PARITY_ATOL, rtol=0)
+        if len(ref_l):
+            worst = max(worst, float(np.abs(got_s - ref_s).max()), float(np.abs(got_b - ref_b).max()))
+        n_kept.append(len(ref_l))
+    print(f"  {label}: detections per image {n_kept} equal the reference's (counts, labels); max |diff| of "
+          f"scores and boxes {worst:.3g} <= {PARITY_ATOL}")
+    return worst
+
+
+@contextlib.contextmanager
+def plain_scan_nms():
+    """Inside the block the realtime head runs K-C's plain version where it
+    would launch the kernel, on the same CUDA tensors."""
+    plain = kernels_nms.nms_scan_keep_mask_plain
+    with mock.patch.object(kernels_nms, "nms_scan_keep_mask", plain), \
+            mock.patch.object(ops_nms, "nms_scan_keep_mask", plain):
+        yield
+
+
+def realtime_f32(model, out, fx):
+    """Phase 7: the realtime head on the f32 forward of the four images.
+    Returns the launch counts of the fixture-gated run and the largest
+    score or box difference from the reference."""
+    ms = frame_min_sizes(RT_SHIPPED, frame_shapes(fx))
+    cfgs = {"published": RT_PUBLISHED, "published, top_k 400": RT_SHIPPED, "exercised": rt_exercised(fx)}
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        dets = {name: RealtimeDetector(model, RON_320_SPEC, cfg, device="cuda").postprocess(out, ms)
+                for name, cfg in cfgs.items()}
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts("realtime head's NMS (f32, the four images, three configs)", launches, ("nms_scan_keep_mask",))
+    worst = max(check_realtime(f"f32 realtime, {name}", d, fx, name.split(",")[0]) for name, d in dets.items())
+    if not all(torch.equal(a, b) for a, b in zip(dets["published"], dets["published, top_k 400"])):
+        raise AssertionError("the published config gives other detections at top_k 400 than at 2048")
+    print("  published config: top_k 400 and 2048 give the same detections, bit for bit")
+    for name, cfg in (("whole-image", RT_SHIPPED), ("class-wise", RT_CLASS_WISE)):
+        det = RealtimeDetector(model, RON_320_SPEC, cfg, device="cuda")
+        with torch.inference_mode():
+            got = det.postprocess(out, ms)
+            kernels.reset_launch_counts()
+            with plain_scan_nms():
+                ref = det.postprocess(out, ms)
+            torch.cuda.synchronize()
+        if kernels.nms_scan_keep_mask.launches:
+            raise AssertionError("the plain run launched K-C")
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"realtime head, {name}: K-C's detections differ from its plain version's")
+        print(f"  realtime head, {name} mode, through K-C: {int(got[3].sum())} detections, bit-equal to the same "
+              f"head through K-C's plain version on the same CUDA tensors")
+    return launches, worst
+
+
+def realtime_bf16(model, images, batch, fx):
+    """Phase 8: the realtime head on the bf16 model with K-B, batch 1 and
+    batch 32. Returns the batch-32 run's launch counts."""
+    det = RealtimeDetector(model, RON_320_SPEC, RT_SHIPPED, device="cuda")
+    ms = frame_min_sizes(RT_SHIPPED, frame_shapes(fx))
+    for x, m in ((images[:1], ms[:1]), (batch, ms.repeat(BATCH // len(IMAGES)))):
+        b = x.shape[0]
+        kernels.reset_launch_counts()
+        scores, labels, boxes, valid = det(x, m)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check_counts(f"realtime head (bf16, batch {b})", launches, REALTIME_PATH)
+        k = RT_SHIPPED.keep_top_k
+        if scores.shape != (b, k) or labels.shape != (b, k) or boxes.shape != (b, k, 4) or valid.shape != (b, k):
+            raise AssertionError(f"bad realtime output shapes at batch {b}")
+        if labels.dtype != torch.int32 or not (torch.isfinite(scores).all() and torch.isfinite(boxes).all()):
+            raise AssertionError("realtime detections: labels not int32, or values not finite")
+        kept = valid.sum(-1)
+        print(f"  realtime bf16 batch {b}: detections per image {kept[:len(IMAGES)].tolist()} (first images)")
+        if int(kept.min()) < 1:
+            raise AssertionError("an image kept no realtime detection")
+    return launches
+
+
+class Recording:
+    """A detector that keeps what it returned, call by call."""
+
+    def __init__(self, det):
+        self.det, self.outputs = det, []
+
+    def __call__(self, images):
+        out = self.det(images)
+        self.outputs.append(out)
+        return out
+
+
+def reference_gts(fx):
+    """The fixture's published realtime references as padded gts of the four
+    images: labels [4, G] int32, boxes [4, G, 4], difficult [4, G]."""
+    refs = [(fx[f"img_{i}_rt_published_labels"], fx[f"img_{i}_rt_published_boxes"]) for i in IMAGES]
+    g = max(len(lab) for lab, _ in refs)
+    labels = np.zeros((len(IMAGES), g), np.int32)
+    boxes = np.zeros((len(IMAGES), g, 4), np.float32)
+    for i, (lab, bx) in enumerate(refs):
+        labels[i, :len(lab)], boxes[i, :len(lab)] = lab, bx
+    return labels, boxes, np.zeros_like(labels)
+
+
+def eval_batches(batch, fx):
+    reps = BATCH // len(IMAGES)
+    gl, gb, gd = (np.tile(a, (reps,) + (1,) * (a.ndim - 1)) for a in reference_gts(fx))
+    return [{"image": batch, "gt_labels": gl, "gt_boxes": gb, "gt_difficult": gd} for _ in range(EVAL_BATCHES)]
+
+
+def streaming_eval(model, batch, fx):
+    """Phase 9a: the streaming evaluator on the card; its TP/FP against the
+    matcher run on the CPU over the detections it saw."""
+    ev = StreamingEvaluator(model, RON_320_SPEC, NMS_CFG, device="cuda")
+    ev.detector = Recording(ev.detector)
+    batches = eval_batches(batch, fx)
+    kernels.reset_launch_counts()
+    map07, map12, _, stats = ev.run(iter(batches), log_every=0)
+    torch.cuda.synchronize()
+    check_counts("streaming evaluator", kernels.launch_counts(), MAIN_PATH)
+    c = RON_320_SPEC.num_classes
+    cpu = StreamingTpFp(c)
+    for (scores, boxes), b in zip(ev.detector.outputs, batches):
+        scores = scores.cpu()
+        res = match_all_classes(c, scores, boxes.cpu(), *(torch.as_tensor(b[k]) for k in
+                                                          ("gt_labels", "gt_boxes", "gt_difficult")))
+        for img in range(scores.shape[0]):
+            for cls in range(1, c):
+                cpu.add(cls, res.n_gt[img, cls - 1].numpy(), scores[img, cls - 1].numpy(),
+                        res.tp[img, cls - 1].numpy(), res.fp[img, cls - 1].numpy())
+    n_tp = n_fp = 0
+    for cls in range(1, c):
+        got, ref = ev.accumulator.class_arrays(cls), cpu.class_arrays(cls)
+        if ev.accumulator.n_gt[cls] != cpu.n_gt[cls] or not all(np.array_equal(a, r) for a, r in zip(got, ref)):
+            raise AssertionError(f"class {cls}: the evaluator's TP/FP differ from the CPU matcher's")
+        n_tp, n_fp = n_tp + int(got[1].sum()), n_fp + int(got[2].sum())
+    if stats["images"] != EVAL_BATCHES * BATCH or n_tp == 0:
+        raise AssertionError(f"streaming evaluator: {stats['images']} images, {n_tp} TP")
+    print(f"  streaming evaluator, {stats['images']} images: TP/FP of every class equal the CPU matcher's "
+          f"({n_tp} TP, {n_fp} FP, {int(cpu.n_gt.sum())} gts); mAP07 {map07:.4f}, mAP12 {map12:.4f}")
+    return ev, batches, {"map07": map07, "map12": map12, "tp": n_tp, "fp": n_fp}
+
+
+def write_voc_xml(path, shape, objects):
+    """A VOC annotation: objects [(class name, (x1, y1, x2, y2) 1-based pixels)]."""
+    h, w = shape
+    parts = [f"<annotation><size><width>{w}</width><height>{h}</height><depth>3</depth></size>"]
+    for name, (x1, y1, x2, y2) in objects:
+        parts.append(f"<object><name>{name}</name><difficult>0</difficult><truncated>0</truncated><bndbox>"
+                     f"<xmin>{x1!r}</xmin><ymin>{y1!r}</ymin><xmax>{x2!r}</xmax><ymax>{y2!r}</ymax></bndbox></object>")
+    parts.append("</annotation>")
+    Path(path).write_text("".join(parts))
+
+
+def realtime_eval(model, fx):
+    """Phase 9b: RealtimeEvaluator.detect_batch on the four images (f32)
+    at their original sizes, scored by PascalVocEvaluator against their
+    realtime references written as VOC XML: AP 1.0 on every class with a gt."""
+    rev = RealtimeEvaluator(model, RON_320_SPEC, RT_SHIPPED, device="cuda")
+    nh, nw = RON_320_SPEC.img_shape
+    shapes = frame_shapes(fx)
+    images01 = np.stack([tf1_bilinear_resize(fx[f"img_{i}_pixels"], (nh, nw)) / 255.0 for i in IMAGES])
+    kernels.reset_launch_counts()
+    per_image = rev.detect_batch(images01.astype(np.float32), shapes)
+    torch.cuda.synchronize()
+    check_counts("realtime evaluator (f32)", kernels.launch_counts(), ("nms_scan_keep_mask",))
+    all_boxes = [[np.zeros((0, 5), np.float32) for _ in IMAGES] for _ in range(RON_320_SPEC.num_classes)]
+    with tempfile.TemporaryDirectory() as root:
+        year = Path(root) / "VOC2007"
+        (year / "Annotations").mkdir(parents=True)
+        (year / "ImageSets" / "Main").mkdir(parents=True)
+        (year / "ImageSets" / "Main" / "test.txt").write_text("".join(f"{i}\n" for i in IMAGES))
+        with_gt = set()
+        for ii, (img, (h0, w0)) in enumerate(zip(IMAGES, shapes)):
+            objects = []
+            for lab, (y1, x1, y2, x2) in zip(fx[f"img_{img}_rt_published_labels"], fx[f"img_{img}_rt_published_boxes"]):
+                objects.append((VOC_CLASSES[int(lab) - 1],
+                                (float(x1) * w0 + 1, float(y1) * h0 + 1, float(x2) * w0 + 1, float(y2) * h0 + 1)))
+                with_gt.add(VOC_CLASSES[int(lab) - 1])
+            write_voc_xml(year / "Annotations" / f"{img}.xml", (h0, w0), objects)
+            for cls, rows in per_image[ii].items():
+                rows = rows.copy()  # net pixels -> the original frame's (`evaluate_voc`)
+                rows[:, [0, 2]] *= w0 / nw
+                rows[:, [1, 3]] *= h0 / nh
+                all_boxes[cls][ii] = rows
+        voc_map, aps = PascalVocEvaluator(root, "test").evaluate(all_boxes, use_07_metric=True)
+    short = {cls: aps[cls] for cls in sorted(with_gt) if abs(aps[cls] - 1.0) > 1e-9}
+    if short:
+        raise AssertionError(f"realtime evaluator: classes with a gt below AP 1.0: {short}")
+    n_det = sum(len(r) for d in per_image for r in d.values())
+    print(f"  realtime evaluator: {n_det} detections of the four images; VOC07 AP 1.0 on all {len(with_gt)} "
+          f"classes that have a gt; mAP07 {voc_map:.4f}")
+    return {"voc07_map": voc_map, "classes_with_gt": len(with_gt), "detections": n_det}
 
 
 def check_counts(label, launches, on_path):
@@ -590,18 +874,18 @@ def with_rates(row, flops):
     return row
 
 
-def profile_detector(det, batch):
-    """One torch.profiler pass over a bf16 batch-32 Detector call: the top
-    device kernels by time, and the share of the call's wall time in which
-    a kernel ran."""
+def profile_call(label, fn):
+    """One torch.profiler pass over fn() (after one warm-up call): the top
+    device kernels by time, the device's events in the trace (launches and
+    copies) and the share of the call's wall time in which a kernel ran."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        det(batch)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            det(batch)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -613,14 +897,15 @@ def profile_detector(det, batch):
     events = sorted((e for e in kernels_run if device_us(e) > 0), key=device_us, reverse=True)
     busy_us = sum(device_us(e) for e in events)
     if not events:
-        print("  the profiler trace holds no device time")
-        return {"device_us": 0.0, "wall_us": wall_us, "top": []}
+        print(f"  profiled {label}: the trace holds no device time")
+        return {"device_us": 0.0, "wall_us": wall_us, "device_events": 0, "top": []}
+    n_events = sum(e.count for e in events)
     top = [{"name": e.key[:120], "device_us": device_us(e), "count": e.count} for e in events[:12]]
-    print(f"  profiled Detector batch: {busy_us / 1e3:.3f} ms of kernels in {wall_us / 1e3:.3f} ms wall "
-          f"(device busy {busy_us / wall_us:.3f}, host clock, profiler on); top kernels:")
+    print(f"  profiled {label}: {busy_us / 1e3:.3f} ms of kernels ({n_events} device events) in "
+          f"{wall_us / 1e3:.3f} ms wall (device busy {busy_us / wall_us:.3f}, host clock, profiler on); top kernels:")
     for t in top:
         print(f"    {t['device_us'] / 1e3:8.3f} ms  x{t['count']:<4} {t['name']}")
-    return {"device_us": busy_us, "wall_us": wall_us, "top": top}
+    return {"device_us": busy_us, "wall_us": wall_us, "device_events": n_events, "top": top}
 
 
 def main() -> int:
@@ -659,7 +944,7 @@ def main() -> int:
         max_err = check_kernels(block1)
 
     with phase("main f32"):
-        f32_dets = f32_parity(state, images, "TF32 off")
+        f32_dets, f32_model, f32_out = f32_parity(state, images, "TF32 off")
         with torch_default_flags():
             f32_parity(state, images, "torch's default flags, cuDNN TF32 on")
 
@@ -687,10 +972,21 @@ def main() -> int:
             raise AssertionError("an image kept no detection")
 
     with phase("api"):
-        api_launches, (flat_s, flat_b, scan_keep), y1, tails = api_path(model, det, batch, block1, max_err)
+        api_launches, (flat_s, flat_b, _), y1, tails = api_path(model, det, batch, block1, max_err)
 
     with phase("grad"):
         block1_grads(batch.to(torch.bfloat16).contiguous(), block1)
+
+    with phase("realtime f32"):
+        _, rt_f32_worst = realtime_f32(f32_model, f32_out, fx)
+
+    with phase("realtime bf16"):
+        rt_launches = realtime_bf16(model, images, batch, fx)
+
+    with phase("eval"):
+        stream_ev, stream_batches, stream_eval = streaming_eval(model, batch, fx)
+        rt_eval = realtime_eval(f32_model, fx)
+        del f32_model, f32_out
 
     with phase("timing"):
         print(f"  card before timing: {smi_sample()} (SM clock, power, temperature)")
@@ -722,8 +1018,12 @@ def main() -> int:
                   f"stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()))
             print(f"  top-k of {list(cls_scores.shape)}, k={k_top}: {TOPK_CHUNKS} chunks {topk_ms['chunked']:.4f} ms, "
                   f"one stable sort {topk_ms['one_sort']:.4f} ms")
-            results = timing_rows(launches, api_launches, max_err, block1, nhwc_batch,
-                                  flat_s, flat_b, scan_keep, y1, tails)
+        realtime, rt_rows = realtime_timing(model, batch, fx)
+        evaluators = {"streaming": evaluator_timing(stream_ev, stream_batches), **stream_eval,
+                      "realtime_voc": rt_eval, "realtime_f32_max_abs_diff": rt_f32_worst}
+        with torch.inference_mode():
+            results = timing_rows(launches, api_launches, rt_launches, max_err, block1, nhwc_batch,
+                                  flat_s, flat_b, rt_rows, y1, tails)
             nms_split = nms_stage_split(breakdown["nms"], results[0]["ms"], flat_s, flat_b)
         for res in results:
             res.update(tc_report.get(res["name"], {}))
@@ -733,18 +1033,30 @@ def main() -> int:
                    f"{res['kept_mean']:.2f}, max {res['kept_max']}" if "call_ms" in res else "")
             print(f"  {res['name']}: {res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.4f} "
                   f"by {res['bound_by']}, library {res['library_ms']}{rates}{nms})")
-            for label, p in res.get("parts", {}).items():
+            for label, p in (res.get("parts", {}) if "tflops" in res else {}).items():
                 print(f"    {label} tail: {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}, bound {p['bound_ms']:.4f} "
                       f"by {p['bound_by']}, library {p['library_ms']:.4f}), {p['tflops']:.1f} TFLOP/s, "
                       f"{p['bound_share']:.3f} of bound, {p['library_ratio']:.3f}x the library")
         print(f"  card after timing: {smi_sample()}")
 
     with phase("profile"):
-        profile = profile_detector(det, batch)
+        profile = profile_call(f"Detector batch {BATCH}", lambda: det(batch))
+        rt_det = RealtimeDetector(model, RON_320_SPEC, RT_SHIPPED, device="cuda")
+        ms32 = frame_min_sizes(RT_SHIPPED, frame_shapes(fx)).repeat(BATCH // len(IMAGES))
+        with torch.inference_mode():
+            rt_out = rt_det.model(batch)
+        rt_profile = {
+            "b1": profile_call("realtime head batch 1", lambda: rt_det(batch[:1], ms32[:1])),
+            "b32_candidates": profile_call(f"realtime head's candidates, batch {BATCH}",
+                                           lambda: rt_det.candidates(rt_out, ms32)),
+            "streaming_evaluator": profile_call(f"streaming evaluator, {EVAL_BATCHES} batches of {BATCH}",
+                                                lambda: stream_ev.run(iter(stream_batches), log_every=0)),
+        }
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
-                      "bf16_vs_f32": drift, "profile": profile}))
+                      "bf16_vs_f32": drift, "profile": profile, "realtime_head_bf16": realtime,
+                      "evaluators": evaluators, "profile_realtime": rt_profile}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -771,6 +1083,140 @@ def nms_times(fn):
     return {"ms": ms, "call_ms": cuda_ms(fn, reps=50), "device_launches_traced": seen}
 
 
+def device_busy_ms(fn):
+    """Device time of one call of fn: the sum of the device's own events in
+    a torch.profiler trace of the call (one warm-up call first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3
+
+
+def realtime_timing(model, batch, fx):
+    """Phase 10, the realtime head on the bf16 model with K-B (trained
+    weights): batch-1 latency as the JAX bench.py:266-324 defines it, on
+    seeded whitened pixels: p50 and p90 of synchronous calls (host pixels
+    in, detections back on the host), and pipelined (LAT_ITERS calls on
+    pixels already on the card, back to back, one wait: total / LAT_ITERS);
+    the device's share of the pipelined time (profiler device time of one
+    call over it); batch-32 ms and its stage split. Returns the numbers and
+    the K-C rows of the runs: {label: (scores, boxes, keep_top_k, mode)}."""
+    det = RealtimeDetector(model, RON_320_SPEC, RT_SHIPPED, device="cuda")
+    rng = np.random.default_rng(0)
+    pixels = rng.integers(0, 256, (LAT_ITERS, 1, *RON_320_SPEC.img_shape, 3)).astype(np.float32)
+    host = [whiten(torch.from_numpy(p) / 255.0) for p in pixels]
+
+    def fetch(out):
+        return [t.cpu() for t in out]
+
+    for _ in range(3):
+        fetch(det(host[0]))
+    lat = []
+    for x in host:
+        t0 = time.perf_counter()
+        fetch(det(x))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    on_card = [x.cuda() for x in host]
+    fetch(det(on_card[0]))
+    t0 = time.perf_counter()
+    for x in on_card:
+        out = det(x)
+    fetch(out)
+    pipelined = (time.perf_counter() - t0) * 1e3 / LAT_ITERS
+    b1_device = device_busy_ms(lambda: det(on_card[0]))
+    res = {"b1_p50_ms": float(np.percentile(lat, 50)), "b1_p90_ms": float(np.percentile(lat, 90)),
+           "b1_pipelined_ms": pipelined, "b1_device_ms": b1_device, "b1_device_share": b1_device / pipelined}
+    ms1 = frame_min_sizes(RT_SHIPPED, frame_shapes(fx))
+    ms32 = ms1.repeat(BATCH // len(IMAGES))
+    with torch.inference_mode():
+        rows1 = det.candidates(det.model(batch[:1]), ms1[:1])
+        res["b32_ms"] = cuda_ms(lambda: det(batch, ms32), reps=5, warmup=2)
+        out32 = det.model(batch)
+        rows32 = det.candidates(out32, ms32)
+        res["b32_stage_ms"] = {
+            "forward": cuda_ms(lambda: det.model(batch), reps=5),
+            "candidates": cuda_ms(lambda: det.candidates(out32, ms32), reps=10),
+            "nms": cuda_ms(lambda: det.nms(rows32), reps=20),
+        }
+        cw = RealtimeDetector(model, RON_320_SPEC, RT_CLASS_WISE, device="cuda")
+        cw_rows = cw.candidates(out32, ms32)
+    res["b32_img_per_s"] = BATCH * 1e3 / res["b32_ms"]
+    print(f"  realtime head bf16 batch 1: p50 {res['b1_p50_ms']:.3f} ms, p90 {res['b1_p90_ms']:.3f} ms "
+          f"(synchronous, {LAT_ITERS} images), pipelined {pipelined:.3f} ms; device time of one call "
+          f"{b1_device:.3f} ms = {res['b1_device_share']:.3f} of the pipelined time (idle "
+          f"{1 - res['b1_device_share']:.3f})")
+    print(f"  realtime head bf16 batch {BATCH}: {res['b32_ms']:.3f} ms, {res['b32_img_per_s']:.1f} img/s; stages "
+          f"(ms): " + ", ".join(f"{k} {v:.3f}" for k, v in res["b32_stage_ms"].items()))
+    rows = {
+        "realtime [1, 400]": (rows1[3].to(torch.float32), rows1[2], RT_SHIPPED.keep_top_k, RT_SHIPPED.nms_mode),
+        "realtime [32, 400]": (rows32[3].to(torch.float32), rows32[2], RT_SHIPPED.keep_top_k, RT_SHIPPED.nms_mode),
+        "class-wise [640, 400]": (*cw_rows, RT_CLASS_WISE.keep_per_class, RT_CLASS_WISE.nms_mode),
+    }
+    return res, rows
+
+
+def evaluator_timing(ev, batches):
+    """Phase 10: the streaming evaluator's images/s over its batches (host
+    clock around `run`, which ends with every result on the host), and the
+    matcher's time a batch-32 call (CUDA events)."""
+    t0 = time.perf_counter()
+    _, _, _, stats = ev.run(iter(batches), log_every=0)
+    seconds = time.perf_counter() - t0
+    with torch.inference_mode():
+        scores, boxes = ev.detector(batches[0]["image"])
+        gts = [torch.as_tensor(batches[0][k]).cuda() for k in ("gt_labels", "gt_boxes", "gt_difficult")]
+        match_ms = cuda_ms(lambda: match_all_classes(RON_320_SPEC.num_classes, scores, boxes, *gts), reps=20)
+    res = {"img_per_s": stats["images"] / seconds, "images": stats["images"], "matcher_ms_per_batch": match_ms}
+    print(f"  streaming evaluator: {res['img_per_s']:.1f} img/s over {stats['images']} images "
+          f"(batches of {BATCH}); matcher {match_ms:.3f} ms a batch")
+    return res
+
+
+def scan_row(rt_rows, api_rows, api_launches, rt_launches, max_err):
+    """The kernels-line row of K-C: the realtime head's rows (the row's own
+    numbers: [32, 400] union, cap 20), each row set under "parts", the
+    streaming Detector's [640, 200] rows through the kernels API among them.
+    Each part: device time, the wrapper's per-call time, the plain version's
+    time, the pairs the keep set needs and the bound."""
+    parts = {}
+    for label, (scores, boxes, cap, mode) in {**rt_rows, **api_rows}.items():
+        scores, boxes = scores.contiguous(), boxes.contiguous()
+        thr = RT_SHIPPED.nms_threshold if label in rt_rows else NMS_CFG.nms_threshold
+        keep = kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)
+        keep_plain = kernels.nms_scan_keep_mask_plain(scores, boxes, thr, cap, mode)
+        err, n_diff = mask_err(keep, keep_plain)
+        if n_diff:
+            raise AssertionError(f"K-C on {label}: {n_diff} mask differences")
+        max_err["nms_scan_keep_mask"] = max(max_err["nms_scan_keep_mask"], err)
+        r, k = scores.shape
+        pairs = greedy_pairs(keep)
+        bound_ms, bound_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
+        fn = lambda: kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)  # noqa: E731
+        parts[label] = {"rows": [r, k], "mode": mode, "keep_top_k": cap, **nms_times(fn),
+                        "plain_ms": cuda_ms(lambda: kernels.nms_scan_keep_mask_plain(scores, boxes, thr, cap, mode),
+                                            reps=2),
+                        "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by, **kept_stats(keep)}
+        p = parts[label]
+        print(f"  nms_scan_keep_mask {label} {mode} cap {cap}: {p['ms']:.4f} ms device, {p['call_ms']:.4f} ms a "
+              f"wrapper call, plain {p['plain_ms']:.4f}; {pairs} overlaps needed, bound {bound_ms:.5f} by "
+              f"{bound_by}; kept per row mean {p['kept_mean']:.2f}, max {p['kept_max']}; 0 mask differences")
+    main = parts["realtime [32, 400]"]
+    return {
+        "name": "nms_scan_keep_mask", "route": "cuda", "source": NMS_SOURCE,
+        "replaces": "ron_tensorflow_tpu/kernels/nms_pallas.py:93", "path": "realtime head",
+        "launches": rt_launches["nms_scan_keep_mask"], "max_abs_err": max_err["nms_scan_keep_mask"],
+        **{k: main[k] for k in ("ms", "call_ms", "device_launches_traced", "plain_ms", "bound_ms", "bound_by",
+                                "kept_mean", "kept_max")},
+        "library_ms": None, "kernels_api_launches": api_launches["nms_scan_keep_mask"], "parts": parts,
+    }
+
+
 def nms_stage_split(stage_ms, mask_device_ms, flat_s, flat_b):
     """The Detector's NMS stage (`nms_sorted_kernel`: K-A's mask, then
     `compact_keep`) split into K-A's device time, compact_keep's device
@@ -790,8 +1236,8 @@ def nms_stage_split(stage_ms, mask_device_ms, flat_s, flat_b):
     return split
 
 
-def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, flat_b, scan_keep, y1, tails):
-    """Phase 7: one row per kernel, each timed on its path's own inputs."""
+def timing_rows(launches, api_launches, rt_launches, max_err, block1, nhwc_batch, flat_s, flat_b, rt_rows, y1, tails):
+    """Phase 10: one row per kernel, each timed on its path's own inputs."""
     results = []
     thr, mode, cap = NMS_CFG.nms_threshold, NMS_CFG.nms_mode, NMS_CFG.keep_top_k
     r, k = flat_s.shape
@@ -852,19 +1298,10 @@ def timing_rows(launches, api_launches, max_err, block1, nhwc_batch, flat_s, fla
         "library_ms": cuda_ms(library_block1, reps=20),
     }, blk_flops))
 
-    # K-C: the pairs this run's keep set needs, each kept i against every later j
-    pairs = greedy_pairs(scan_keep)
-    scan_bound, scan_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
-    fn = lambda: kernels.nms_scan_keep_mask(flat_s, flat_b, thr, cap, mode)  # noqa: E731
-    results.append({
-        "name": "nms_scan_keep_mask", "route": "cuda", "source": NMS_SOURCE,
-        "replaces": "ron_tensorflow_tpu/kernels/nms_pallas.py:93", "path": "kernels API",
-        "launches": api_launches["nms_scan_keep_mask"], "max_abs_err": max_err["nms_scan_keep_mask"],
-        **nms_times(fn),
-        "plain_ms": cuda_ms(lambda: kernels.nms_scan_keep_mask_plain(flat_s, flat_b, thr, cap, mode), reps=2),
-        "bound_ms": scan_bound, "bound_by": scan_by, "library_ms": None, **kept_stats(scan_keep),
-    })
-    print(f"  scan rows [{r},{k}], keep_top_k {cap}: {int(scan_keep.sum())} kept, {pairs} overlaps needed")
+    # K-C on the realtime head's rows, and on the Detector's through the
+    # kernels API: the pairs each keep set needs, each kept i against every later j
+    results.append(scan_row(rt_rows, {"streaming [640, 200] (kernels API)": (flat_s, flat_b, cap, mode)},
+                            api_launches, rt_launches, max_err))
 
     results.append(conv_row("fused_stem_conv_relu_pool2", {"block1": (y1, w2, b2)}, max_err, api_launches,
                             "ron_tensorflow_tpu/kernels/fused_conv_pool.py:116"))

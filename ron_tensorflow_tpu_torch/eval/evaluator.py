@@ -1,0 +1,161 @@
+"""Streaming mAP evaluator, the `eval_ron_network` equivalent.
+
+Port of `ron_tensorflow_tpu/eval/evaluator.py::StreamingEvaluator`
+(ref: eval_ron_network.py:137-366). Per batch, on the device: the
+`Detector` (forward, decode, gate, class-wise NMS through K-A) and the
+per-class TP/FP matching; the small score and TP/FP arrays then go to the
+host accumulator `StreamingTpFp`. Per-class AP (VOC07 and VOC12) and mAP at
+the end. Not ported yet: the JAX evaluator's `mesh` (multi-device eval) and
+`loss_config` (eval losses, which need the training slice).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..data.preprocess import VGG_MEANS, whiten
+from ..inference.detector import DetectionConfig, Detector
+from ..ops.ap import StreamingTpFp
+from ..ops.matching import match_all_classes
+
+
+def copy_to_host(*tensors: torch.Tensor):
+    """Start copying device tensors to the host behind the work queued so
+    far, without waiting; `wait_host` waits and returns them as numpy."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    host = tuple(t.to("cpu", non_blocking=True) for t in tensors)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def wait_host(copied):
+    host, done = copied
+    if done is not None:
+        done.synchronize()
+    return [t.numpy() for t in host]
+
+
+class StreamingEvaluator:
+    def __init__(
+        self,
+        model,
+        spec,
+        config: DetectionConfig = DetectionConfig(),
+        matching_threshold: float = 0.5,
+        device="cuda",
+    ):
+        self.detector = Detector(model, spec, config, device=device)
+        self.device = self.detector.device
+        self.spec = spec
+        self.matching_threshold = matching_threshold
+        self.accumulator: Optional[StreamingTpFp] = None  # the last run's
+
+    @torch.inference_mode()
+    def run(
+        self,
+        batches: Iterator[Dict[str, np.ndarray]],
+        max_batches: Optional[int] = None,
+        log_every: int = 50,
+        debug_dir: Optional[str] = None,
+        debug_max_images: int = 64,
+        debug_score_threshold: float = 0.5,
+    ):
+        """batches yield "image" (whitened float [B, H, W, 3], or uint8
+        pixels, whitened on the device), padded GT "gt_labels" [B, G],
+        "gt_boxes" [B, G, 4], "gt_difficult" [B, G], and optionally
+        "sample_valid" [B] (False on the padding rows of a short batch).
+
+        debug_dir: dump boxed JPEGs of the post-NMS detections of the first
+        `debug_max_images` images (ref: eval_ron_network.py:240-247).
+
+        Returns (map07, map12, {class: ap07}, stats); `self.accumulator`
+        keeps the run's per-class scores and TP/FP marks."""
+        acc = StreamingTpFp(self.spec.num_classes)
+        self.accumulator = acc
+        n_images = 0
+        n_debugged = 0
+        t_start = time.time()
+
+        def debug_dump(image_np, scores_np, boxes_np):
+            """Boxed-JPEG dump of one batch's detections (host side)."""
+            nonlocal n_debugged
+            from ..utils.visualization import save_image_with_boxes
+
+            for img in range(image_np.shape[0]):
+                if n_debugged >= debug_max_images:
+                    return
+                if image_np.dtype == np.uint8:
+                    img01 = image_np[img].astype(np.float32) / 255.0
+                else:  # whitened floats -> [0, 1]
+                    img01 = (image_np[img].astype(np.float32) + np.asarray(VGG_MEANS, np.float32)) / 255.0
+                keep = scores_np[img] >= debug_score_threshold  # [C-1, K]
+                cls_idx, det_idx = np.nonzero(keep)
+                save_image_with_boxes(
+                    img01,
+                    boxes_np[img][cls_idx, det_idx],
+                    cls_idx + 1,  # the class axis has no background
+                    scores_np[img][cls_idx, det_idx],
+                    directory=debug_dir,
+                    index=n_debugged,
+                )
+                n_debugged += 1
+
+        def dispatch(bi, batch):
+            """Queue one batch on the device, and the copies of its results
+            to the host behind it; returns without waiting, so the device
+            runs this batch while the host harvests the one before."""
+            image = torch.as_tensor(batch["image"]).to(self.device)
+            if image.dtype == torch.uint8:
+                # uint8 transport (4x less host -> device traffic): scale and
+                # whiten on the device
+                image = whiten(image.to(torch.float32) / 255.0)
+            gt = [torch.as_tensor(batch[k]).to(self.device) for k in ("gt_labels", "gt_boxes", "gt_difficult")]
+            scores, boxes = self.detector(image)
+            res = match_all_classes(self.spec.num_classes, scores, boxes, *gt, self.matching_threshold)
+            debug = debug_dir is not None and n_debugged < debug_max_images
+            copied = copy_to_host(scores, res.n_gt, res.tp, res.fp, *((boxes,) if debug else ()))
+            sample_valid = batch.get("sample_valid")
+            debug_image = np.asarray(batch["image"]) if debug else None
+            return bi, copied, sample_valid, debug_image
+
+        def harvest(pending):
+            """Take one dispatched batch's results and accumulate TP/FP."""
+            nonlocal n_images
+            bi, copied, sample_valid, debug_image = pending
+            scores, n_gt, tp, fp, *boxes = wait_host(copied)
+            if debug_image is not None:
+                debug_dump(debug_image, scores, boxes[0])
+            b = scores.shape[0]
+            sample_valid = np.ones((b,), bool) if sample_valid is None else np.asarray(sample_valid)
+            for img in range(b):
+                if not sample_valid[img]:
+                    continue  # padding row of a final short batch
+                for c in range(1, self.spec.num_classes):
+                    acc.add(c, n_gt[img, c - 1], scores[img, c - 1], tp[img, c - 1], fp[img, c - 1])
+            n_images += int(sample_valid.sum())
+            if log_every and (bi + 1) % log_every == 0:
+                dt = time.time() - t_start
+                print(f"[eval] {n_images} images, {dt / n_images:.3f} sec/image")
+
+        # one-deep software pipeline: dispatch batch i, then harvest batch i-1
+        pending = None
+        for bi, batch in enumerate(batches):
+            if max_batches is not None and bi >= max_batches:
+                break
+            current = dispatch(bi, batch)
+            if pending is not None:
+                harvest(pending)
+            pending = current
+        if pending is not None:
+            harvest(pending)
+
+        map07, aps07 = acc.mean_average_precision("voc07")
+        map12, _ = acc.mean_average_precision("voc12")
+        stats = {"images": n_images, "sec_per_image": (time.time() - t_start) / max(n_images, 1)}
+        return map07, map12, aps07, stats

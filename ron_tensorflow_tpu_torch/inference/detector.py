@@ -1,10 +1,18 @@
-"""Streaming detection head, pixels to boxes.
+"""Detection heads, pixels to boxes.
 
-Port of `ron_tensorflow_tpu/inference/detector.py::Detector` (the
-reference's eval_ron_network.py:224-236 + nets/ron_vgg_320.py:234-256
-`detected_bboxes`): binary objectness gate -> per-class select -> clip ->
-min-size filter -> exact per-class top-k -> class-wise 'min'-mode NMS ->
-[B, C-1, keep_top_k].
+Port of `ron_tensorflow_tpu/inference/detector.py`:
+
+- `Detector`, the streaming-eval head (the reference's
+  eval_ron_network.py:224-236 + nets/ron_vgg_320.py:234-256
+  `detected_bboxes`): binary objectness gate -> per-class select -> clip ->
+  min-size filter -> exact per-class top-k -> class-wise 'min'-mode NMS
+  (K-A) -> [B, C-1, keep_top_k].
+- `RealtimeDetector`, the realtime head that produced the published mAP
+  (ref: ron_eval.py:428-594): score = objectness x class probability,
+  argmax label, objectness gate 0.95 -> clip -> min-size and centre
+  filters -> whole-image union-mode NMS (K-C) -> [B, keep_top_k] detections
+  with labels. Its class-wise mode runs per-class top-k and per-class NMS
+  (K-C) instead, then one whole-image top-k.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from ..models.ron import RON, DetectorOutputs
 from ..models.spec import DetectorSpec
 from ..ops import boxes as boxops
 from ..ops.decode import decode_boxes
-from ..ops.math import exact_top_k_chunked
+from ..ops.math import exact_top_k_chunked, flush_subnormal
+from ..ops.nms import nms_per_class, nms_sorted_with_labels, top_k_with_labels
 from ..ops.select import masked_class_scores
 
 # Chunks of the per-class top-k: exact for any value. 16 chunks of ~1330
@@ -103,3 +112,150 @@ class Detector:
         flat_s, flat_b = self.candidates(out)
         s, bx = nms_sorted_kernel(flat_s, flat_b, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode)
         return s.reshape(b, c, -1), bx.reshape(b, c, -1, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class RealtimeConfig:
+    """Realtime-eval defaults: the reference's published flag values
+    (ref: ron_eval.py:83-91: select 0.6, NMS 0.4, objectness 0.95, nms_topk
+    20). Both modes run the capped scan NMS (K-C) with its dividing
+    predicate, for CUDA tensors the kernel and for CPU tensors its plain
+    version."""
+
+    select_threshold: float = 0.6
+    objectness_threshold: float = 0.95
+    # static cap on the candidates that reach NMS (the reference sorts every
+    # gated candidate; the 0.95 objectness gate keeps far fewer than 400)
+    top_k: int = 400
+    keep_top_k: int = 20
+    nms_threshold: float = 0.4
+    nms_mode: str = "union"
+    # min-size ratio relative to the net input; at detection time the caller
+    # scales it by sqrt(H0*W0 / (320*320)) of the original frame
+    # (ref: ron_eval.py:369-375 filter_boxes)
+    min_size: float = 0.03
+    # Class-wise mode: per-class top-k and per-class NMS (the streaming
+    # `detected_bboxes` semantics), then one whole-image top-k, instead of
+    # ron_eval.py's argmax-class flatten and class-blind whole-image NMS,
+    # which suits only detectors with a sharp objectness gate.
+    # `for_spec` picks it for detectors without an objectness branch.
+    class_wise: bool = False
+    keep_per_class: int = 100  # per-class NMS survivors before the flatten
+
+    @classmethod
+    def for_spec(cls, spec, **overrides):
+        """The published ron_eval.py flags for objectness models; for
+        detectors without an objectness prior, class-wise settings with the
+        streaming eval's select, top-k and NMS values."""
+        if getattr(spec, "has_objectness", True):
+            return dataclasses.replace(cls(), **overrides)
+        base = cls(
+            class_wise=True,
+            select_threshold=0.01,
+            objectness_threshold=0.0,
+            top_k=200,
+            keep_per_class=100,
+            keep_top_k=200,
+            nms_mode="min",
+        )
+        overrides.pop("objectness_threshold", None)  # objectness is 1 for these
+        return dataclasses.replace(base, **overrides)
+
+
+class RealtimeDetector:
+    """Whole-image NMS detection head over a RON model on one device."""
+
+    def __init__(
+        self,
+        model: RON,
+        spec: DetectorSpec,
+        config: RealtimeConfig = RealtimeConfig(),
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.spec = spec
+        self.config = config
+        self.anchors = torch.as_tensor(spec.anchor_layout().cyxhw, device=self.device)
+
+    @torch.inference_mode()
+    def __call__(self, images, min_size=None):
+        """images [B, H, W, 3] whitened (numpy or tensor) -> (scores,
+        labels int32, boxes, valid) each [B, keep_top_k(, 4)], score sorted,
+        zero-filled past the valid ones.
+
+        min_size: None (config.min_size), a scalar or a per-image [B]
+        vector. The caller passes `config.min_size * sqrt(H0*W0 / (Hnet*Wnet))`
+        so that the filter scales with each original frame
+        (ref: ron_eval.py:369-375)."""
+        images = torch.as_tensor(images, device=self.device)
+        return self.postprocess(self.model(images), min_size)
+
+    def postprocess(self, out: DetectorOutputs, min_size=None):
+        return self.nms(self.candidates(out, min_size))
+
+    def min_sizes(self, min_size, batch: int) -> torch.Tensor:
+        """max(float32(min_size), 1e-4) broadcast to [B] (`detector.py:328-331`)."""
+        if min_size is None:
+            min_size = self.config.min_size
+        ms = torch.as_tensor(min_size, dtype=torch.float32, device=self.device)
+        floor = torch.tensor(1e-4, dtype=torch.float32, device=self.device)
+        return torch.maximum(ms, floor).broadcast_to((batch,))
+
+    def candidates(self, out: DetectorOutputs, min_size=None):
+        """Decode, score, gate and select: the score-sorted NMS rows.
+
+        Whole-image mode: (scores, labels int32, boxes, valid) [B, top_k(, 4)],
+        the top_k valid candidates of each image. Class-wise mode: per-class
+        rows (scores [B*(C-1), top_k], boxes [B*(C-1), top_k, 4])."""
+        cfg = self.config
+        b = out.predictions.shape[0]
+        ms = self.min_sizes(min_size, b)[:, None]
+        boxes = boxops.clip_to_ref(decode_boxes(out.locations, self.anchors, self.spec.prior_scaling))
+        # Subnormal probabilities and scores are 0 in the JAX package: they
+        # must not pass a threshold of 0 or decide an argmax here either.
+        if cfg.class_wise:
+            objness = flush_subnormal(out.objness_pred)
+            base = (objness > cfg.objectness_threshold) & boxops.min_size_mask(boxes, ms)
+            scores = masked_class_scores(flush_subnormal(out.predictions), base, cfg.select_threshold)  # [B, C-1, N]
+            _, c, n = scores.shape
+            k = min(cfg.top_k, n)
+            top_scores, top_idx = exact_top_k_chunked(scores, k, TOPK_CHUNKS)
+            top_boxes = torch.gather(
+                boxes[:, None].expand(b, c, n, 4), 2, top_idx[..., None].expand(b, c, k, 4)
+            )
+            return top_scores.reshape(b * c, k), top_boxes.reshape(b * c, k, 4)
+        # score = objectness x class probability; the label is the argmax
+        # class, the first of equal maxima (ref: ron_eval.py:111-144
+        # flaten_predict). Both factors are probabilities (<= 1), so a
+        # subnormal factor gives a product that is flushed too: an anchor
+        # whose products are all 0 takes label 0 and is invalid.
+        scores_nc = flush_subnormal(out.objness_pred[..., None] * out.predictions)
+        labels = torch.argmax(scores_nc, dim=-1).to(torch.int32)
+        max_scores = torch.amax(scores_nc, dim=-1)
+        valid = (labels > 0) & (out.objness_pred > cfg.objectness_threshold)
+        valid &= max_scores > cfg.select_threshold  # ref: ron_eval.py:151-153
+        # min-size and centre-inside filters on the clipped boxes
+        # (ref: ron_eval.py:369-392)
+        valid &= boxops.min_size_mask(boxes, ms)
+        cy = (boxes[..., 0] + boxes[..., 2]) / 2.0
+        cx = (boxes[..., 1] + boxes[..., 3]) / 2.0
+        valid &= (cy > 0.0) & (cy < 1.0) & (cx > 0.0) & (cx < 1.0)
+        return top_k_with_labels(max_scores, labels, boxes, valid, cfg.top_k)
+
+    def nms(self, rows):
+        """NMS of `candidates`' rows through K-C -> (scores, labels int32,
+        boxes, valid) [B, keep_top_k(, 4)]."""
+        cfg = self.config
+        if not cfg.class_wise:
+            return nms_sorted_with_labels(*rows, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode)
+        top_scores, top_boxes = rows
+        c = self.spec.num_classes - 1
+        b = top_scores.shape[0] // c
+        s, bx = nms_per_class(top_scores, top_boxes, cfg.nms_threshold, cfg.keep_per_class, cfg.nms_mode)
+        flat_s, flat_b = s.reshape(b, -1), bx.reshape(b, -1, 4)
+        labels = torch.arange(1, c + 1, dtype=torch.int32, device=s.device).repeat_interleave(cfg.keep_per_class)
+        kk = min(cfg.keep_top_k, flat_s.shape[-1])
+        vals, idx = exact_top_k_chunked(flat_s, kk, TOPK_CHUNKS)
+        boxes = torch.gather(flat_b, 1, idx[..., None].expand(-1, -1, 4))
+        return vals, labels[idx], boxes, vals > 0

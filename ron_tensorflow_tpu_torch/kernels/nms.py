@@ -97,18 +97,33 @@ def fixpoint_keep(valid: torch.Tensor, sup: torch.Tensor):
     return keep, valid.shape[-1]
 
 
-def compact_keep(keep, scores, boxes, keep_top_k: int):
-    """Cap the keep mask at keep_top_k (cumsum) and scatter the kept rows,
-    already in score order, into zero-padded [R, keep_top_k(, 4)]."""
+def _compact(keep, keep_top_k: int, *rows):
+    """Cap the keep mask [R, K] at keep_top_k (cumsum) and scatter each of
+    the rows [R, K, ...] at the kept slots, already in score order, into a
+    zero-filled [R, keep_top_k, ...]."""
     pos = torch.cumsum(keep, dim=-1) - 1
     keep = keep & (pos < keep_top_k)
     dst = torch.where(keep, pos, keep_top_k)  # column keep_top_k is dropped
-    r = scores.shape[0]
-    out_s = scores.new_zeros(r, keep_top_k + 1).scatter_(1, dst, scores)
-    out_b = boxes.new_zeros(r, keep_top_k + 1, 4).scatter_(
-        1, dst[..., None].expand(-1, -1, 4), boxes
-    )
-    return out_s[:, :keep_top_k], out_b[:, :keep_top_k]
+    out = []
+    for row in rows:
+        idx = dst.reshape(*dst.shape, *([1] * (row.dim() - 2))).expand_as(row)
+        full = row.new_zeros(row.shape[0], keep_top_k + 1, *row.shape[2:]).scatter_(1, idx, row)
+        out.append(full[:, :keep_top_k])
+    return out
+
+
+def compact_keep(keep, scores, boxes, keep_top_k: int):
+    """Cap the keep mask at keep_top_k (cumsum) and scatter the kept rows,
+    already in score order, into zero-padded [R, keep_top_k(, 4)]."""
+    return tuple(_compact(keep, keep_top_k, scores, boxes))
+
+
+def compact_keep_labelled(keep, scores, labels, boxes, keep_top_k: int):
+    """`compact_keep` for rows that carry labels: -> (scores, labels, boxes,
+    valid) [R, keep_top_k(, 4)], zero-filled past the kept ones; valid is
+    True exactly on the kept slots. The compaction of JAX `nms_with_labels`
+    (`ops/nms.py:219-225`)."""
+    return tuple(_compact(keep, keep_top_k, scores, labels, boxes, keep))
 
 
 def nms_fixpoint_keep_mask_plain(

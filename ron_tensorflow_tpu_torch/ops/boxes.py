@@ -1,12 +1,36 @@
 """Box geometry on normalized (ymin, xmin, ymax, xmax) boxes, [..., 4].
 
 Port of the parts of `ron_tensorflow_tpu/ops/boxes.py` that the detection
-head uses.
+heads and the matcher use.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def areas(boxes: torch.Tensor) -> torch.Tensor:
+    """Box areas, [..., 4] -> [...] (ref: nets/ssd_common.py:25-27)."""
+    h = boxes[..., 2] - boxes[..., 0]
+    w = boxes[..., 3] - boxes[..., 1]
+    return h * w
+
+
+def jaccard_one_to_many(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """IoU of box [..., 4] against boxes [..., N, 4] -> [..., N] (leading
+    axes broadcast), 0 where the union is 0: the guarded divide of
+    `bboxes_jaccard` (ref: tf_extended/bboxes.py:511-533)."""
+    box = box[..., None, :]
+    ymin = torch.maximum(boxes[..., 0], box[..., 0])
+    xmin = torch.maximum(boxes[..., 1], box[..., 1])
+    ymax = torch.minimum(boxes[..., 2], box[..., 2])
+    xmax = torch.minimum(boxes[..., 3], box[..., 3])
+    h = torch.clamp(ymax - ymin, min=0.0)
+    w = torch.clamp(xmax - xmin, min=0.0)
+    inter = h * w
+    union = areas(boxes) + areas(box) - inter
+    empty = union == 0.0
+    return torch.where(empty, 0.0, inter / torch.where(empty, 1.0, union))
 
 
 def clip_to_ref(boxes: torch.Tensor) -> torch.Tensor:

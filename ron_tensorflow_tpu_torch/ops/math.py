@@ -1,4 +1,4 @@
-"""Exact top-k with `lax.top_k`'s tie order.
+"""Exact top-k with `lax.top_k`'s tie order, and subnormal flushing.
 
 Port of `ron_tensorflow_tpu/ops/math.py::exact_top_k_chunked`. Ties go to
 the smallest index, as `lax.top_k` does (`math.py:60-67`). `torch.topk`
@@ -37,3 +37,12 @@ def exact_top_k_chunked(x: torch.Tensor, k: int, num_chunks: int = 16):
     pool_vals = chunk_vals.reshape(*lead, num_chunks * k)
     vals, pos = _stable_top_k(pool_vals, k)
     return vals, torch.gather(pool_idx, -1, pos)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """x with its subnormal values set to 0. The JAX package computes on the
+    TPU, which has no subnormal floats, and on the CPU under XLA's
+    flush-to-zero, as the reference's TensorFlow did: there a score below
+    the smallest normal float is 0. torch keeps subnormals on the CPU and
+    the card, so a head whose gate is `score > 0` flushes its scores first."""
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, torch.zeros((), dtype=x.dtype, device=x.device), x)

@@ -22,9 +22,11 @@ from ron_tensorflow_tpu_torch.kernels import (
     nms_scan_keep_mask_plain,
 )
 from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
+from ron_tensorflow_tpu_torch.inference.detector import RealtimeConfig, RealtimeDetector
 from ron_tensorflow_tpu_torch.kernels.nms import MAX_K
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_TINY_SPEC
+from ron_tensorflow_tpu_torch.ops.matching import match_all_classes
 
 pytestmark = pytest.mark.cuda
 
@@ -386,3 +388,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_stem_conv_relu_pool2(xc, torch.zeros(128, 64, 3, 3, device=cuda), torch.zeros(128, device=cuda))
     assert fused_conv3x3_relu_pool2(xc, torch.zeros(128, 64, 3, 3, device=cuda),
                                     torch.zeros(128, device=cuda)).shape == (1, 4, 4, 128)
+
+
+@pytest.mark.parametrize("flags", [False, True])
+@pytest.mark.parametrize("r", [1, 32])
+def test_nms_scan_kernel_equals_plain_on_realtime_rows(cuda, r, flags):
+    """K-C at the realtime head's rows, [B, 400], union, cap 20 (the
+    block-per-row path, K > 256). flags: the rows the head gives it, valid
+    flags 1.0 / 0.0 as scores."""
+    scores, boxes = (t.to(cuda) for t in sorted_rows(r + 400, r, 400, 8 if flags else None))
+    if flags:
+        scores = (scores > 0).float()
+    kernels.reset_launch_counts()
+    got = nms_scan_keep_mask(scores, boxes, 0.4, 20, "union")
+    torch.cuda.synchronize()
+    assert nms_scan_keep_mask.launches == 1
+    assert torch.equal(got, nms_scan_keep_mask_plain(scores, boxes, 0.4, 20, "union"))
+    assert int(got.sum(-1).max()) == 20
+
+
+@pytest.mark.parametrize("class_wise", [False, True])
+def test_tiny_realtime_head_on_card_equals_cpu(cuda, class_wise):
+    """The realtime head's postprocess on the card (through K-C, never K-A)
+    against the same call on the CPU, on one tiny RON's outputs: equal
+    labels and valid flags, scores and boxes within 1e-5 (the card's exp in
+    the box decode may differ from the CPU's by an ulp)."""
+    torch.manual_seed(0)
+    model = RON(RON_TINY_SPEC).eval()
+    images = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(2)) * 50
+    cfg = RealtimeConfig(objectness_threshold=0.0, select_threshold=0.01, top_k=64, keep_top_k=16,
+                         class_wise=class_wise, keep_per_class=10)
+    min_size = torch.tensor([0.03, 0.05, 0.02])
+    with torch.inference_mode():
+        out = model(images)
+        ref = RealtimeDetector(model, RON_TINY_SPEC, cfg, device="cpu").postprocess(out, min_size)
+        det = RealtimeDetector(model, RON_TINY_SPEC, cfg, device="cuda")
+        kernels.reset_launch_counts()
+        got = det.postprocess(type(out)(*(t.to(cuda) for t in out)), min_size.to(cuda))
+        torch.cuda.synchronize()
+    assert nms_scan_keep_mask.launches >= 1 and nms_fixpoint_keep_mask.launches == 0
+    got = [t.cpu() for t in got]
+    assert torch.equal(got[3], ref[3]) and torch.equal(got[1], ref[1]) and bool(ref[3].any())
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+
+
+def test_matcher_on_card_equals_cpu(cuda):
+    """match_all_classes on [B, C-1, K] stacks on the card: the CPU's marks."""
+    g = torch.Generator().manual_seed(5)
+    b, c, k, n_gt = 4, 21, 100, 12
+    gboxes = torch.sort(torch.rand(b, n_gt, 2, 2, generator=g), dim=2).values.transpose(2, 3).reshape(b, n_gt, 4)
+    glabels = torch.randint(0, c, (b, n_gt), generator=g, dtype=torch.int32)
+    gdiff = torch.rand(b, n_gt, generator=g) < 0.2
+    src = torch.randint(0, n_gt, (b, c - 1, k), generator=g)
+    boxes = torch.gather(gboxes[:, None].expand(b, c - 1, n_gt, 4), 2, src[..., None].expand(-1, -1, -1, 4))
+    boxes = boxes + torch.randn(b, c - 1, k, 4, generator=g) * 0.03
+    scores = torch.sort(torch.rand(b, c - 1, k, generator=g), dim=-1, descending=True).values
+    ref = match_all_classes(c, scores, boxes, glabels, gboxes, gdiff)
+    got = match_all_classes(c, *(t.to(cuda) for t in (scores, boxes, glabels, gboxes, gdiff)))
+    assert bool(ref.tp.any()) and bool(ref.fp.any())
+    for name, a, r in zip(got._fields, got, ref):
+        assert torch.equal(a.cpu(), r), name

@@ -21,8 +21,10 @@ def port_modules():
 
 def test_port_modules_found():
     mods = port_modules()
-    for name in ("kernels.nms", "kernels.fused_conv_pool", "kernels._build", "inference.detector", "weights"):
+    for name in ("kernels.nms", "kernels.fused_conv_pool", "kernels._build", "inference.detector", "weights",
+                 "eval.evaluator", "eval.realtime", "ops.matching", "ops.nms"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
+    from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
 
 
 def test_port_and_chip_smoke_import_without_jax():
