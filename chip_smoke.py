@@ -49,7 +49,27 @@ Phases, each ending with a line that gives its elapsed seconds:
               on the four images at their original sizes, scored by
               `PascalVocEvaluator` against those references written as VOC
               XML: AP 1.0 for every class that has a gt;
- 10. timing   the bf16 batch-32 Detector's images/s and stage split; the
+ 10. train    RON-320 training with the trained weights, on host batches
+              of the four images at the 512x512 working canvas (uint8) with
+              gts from their realtime references: (a) one f32 step at batch
+              2 on the card under torch's default flags (cuDNN TF32 on)
+              against the same step on the CPU (same weights, batch,
+              augmentation and loss draws): loss and parts within 1e-4
+              relative, updated parameters and BN statistics within 1e-4;
+              its gradients against the step in float64 on the CPU (median
+              error within 1e-3, each within 5e-2), and the same step with
+              the f32 pin taken out (TF32) must fail that median;
+              (b) `Trainer.train` bf16 with K-B, batch 14: 20 steps from a
+              step-0 checkpoint of the trained weights, K-B launched once a
+              step and no other kernel, every loss finite, a checkpoint at
+              step 20 that a second Trainer resumes to step 24, and the
+              train-mode loss of one fixed batch (fixed draws) lower after
+              than before (its eval-step loss recorded); (c) K-B inside a
+              bf16 step: its conv1_* gradients against autograd through the
+              unfused composition on the same block-1 input and output
+              gradient, within phase 6's tolerance, and against the whole
+              fuse_block1=False step (recorded);
+ 11. timing   the bf16 batch-32 Detector's images/s and stage split; the
               realtime head's batch-1 latency (p50, p90, pipelined) and
               device-idle share, its batch-32 images/s and stage split; the
               streaming evaluator's images/s and the matcher's time; each
@@ -60,7 +80,12 @@ Phases, each ending with a line that gives its elapsed seconds:
               own rows); then torch.profiler passes (top device kernels,
               device events, device busy share) over a Detector batch, the
               realtime head's batch-1 call and batch-32 candidates, and
-              the streaming evaluator.
+              the streaming evaluator; the bf16 train step (K-B) at batch 14
+              and 32: ms, images/s, its stage split (augment, encode,
+              forward, backward, optimizer) by CUDA events, peak memory, a
+              profiler pass over three steps, and K-B's training cost
+              (kernel forward + recompute backward against autograd through
+              the unfused cuDNN composition).
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -69,7 +94,11 @@ no result line. Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
+import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -82,7 +111,9 @@ import torch
 import torch.nn.functional as F
 
 from ron_tensorflow_tpu_torch import kernels
-from ron_tensorflow_tpu_torch.data.preprocess import eval_preprocess, whiten
+from ron_tensorflow_tpu_torch.config import TrainConfig
+from ron_tensorflow_tpu_torch.data.pipeline import to_device
+from ron_tensorflow_tpu_torch.data.preprocess import PreprocessConfig, apply_augment, draw_augment, eval_preprocess, whiten
 from ron_tensorflow_tpu_torch.data.resize import tf1_bilinear_resize
 from ron_tensorflow_tpu_torch.data.voc import VOC_CLASSES
 from ron_tensorflow_tpu_torch.eval import PascalVocEvaluator, RealtimeEvaluator, StreamingEvaluator
@@ -109,8 +140,13 @@ from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC
 from ron_tensorflow_tpu_torch.ops import nms as ops_nms
 from ron_tensorflow_tpu_torch.ops.ap import StreamingTpFp
 from ron_tensorflow_tpu_torch.ops.matching import match_all_classes
+from ron_tensorflow_tpu_torch.ops.encode import TargetEncoder
 from ron_tensorflow_tpu_torch.ops.math import exact_top_k_chunked
 from ron_tensorflow_tpu_torch.tools.time_nms import device_ms
+from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
+from ron_tensorflow_tpu_torch.train.optimizer import global_norm, make_optimizer
+from ron_tensorflow_tpu_torch.train.state import create_train_state, detection_loss_fn, make_train_step
+from ron_tensorflow_tpu_torch.train.trainer import Trainer
 from ron_tensorflow_tpu_torch.weights import from_jax_params, load_trained_fixture
 
 REPO = Path(__file__).resolve().parent
@@ -874,13 +910,14 @@ def with_rates(row, flops):
     return row
 
 
-def profile_call(label, fn):
+def profile_call(label, fn, grad=False):
     """One torch.profiler pass over fn() (after one warm-up call): the top
     device kernels by time, the device's events in the trace (launches and
-    copies) and the share of the call's wall time in which a kernel ran."""
+    copies) and the share of the call's wall time in which a kernel ran.
+    Under inference_mode unless `grad` (a train step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with contextlib.nullcontext() if grad else torch.inference_mode():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -906,6 +943,406 @@ def profile_call(label, fn):
     for t in top:
         print(f"    {t['device_us'] / 1e3:8.3f} ms  x{t['count']:<4} {t['name']}")
     return {"device_us": busy_us, "wall_us": wall_us, "device_events": n_events, "top": top}
+
+
+# --------------------------------------------------------------------------- #
+# Training (phase "train" and its timing)
+
+TRAIN_CFG = TrainConfig(fuse_block1=True, log_every_steps=1, save_every_steps=10 ** 9, max_to_keep=2)
+TRAIN_BATCH = TRAIN_CFG.data.batch_size  # 14, ref: ron_net.py:152-153
+TRAIN_STEPS, RESUME_STEPS = 20, 4
+F32_STEP_BATCH = 2
+# (a) the f32 step on the card (torch's default flags) against the CPU's: the
+# loss and its parts within 1e-4 relative, the updated parameters and
+# BatchNorm statistics within 1e-4 of each tensor's largest magnitude. The
+# gradients, against the same step in float64 on the CPU: the median over
+# the tensors of max |card - float64| / max |float64| within 1e-3, each
+# tensor within 5e-2. A step is not continuous at its ReLUs, and a
+# train-mode BatchNorm amplifies a flip there: the CPU's own float32 step
+# lies 3.2% (of the largest magnitude) from float64 in
+# block5_reverse.conv_left's kernel, the card 1.8% in block4's deconv, while
+# the medians are 2.8e-6 and 6.9e-5. TF32 in the convolutions shifts every
+# gradient: the same step with the pin taken out is run and must fail the
+# median gate. The conv biases right before a train-mode BatchNorm (the
+# class heads' inception convs) have the exact gradient 0, the batch mean
+# taking them out: theirs is roundoff, held to 1e-3 of their conv kernel's
+# largest gradient.
+TRAIN_LOSS_RTOL, TRAIN_STATE_RTOL = 1e-4, 1e-4
+GRAD_MEDIAN_TOL, GRAD_MAX_TOL, ROUNDOFF_TOL = 1e-3, 5e-2, 1e-3
+PRE_BN_BIAS = re.compile(r"_cls\.inception\d_(3x3|1x1)\.conv\.bias$")
+TRAIN_STAGES = ("augment", "encode", "forward", "backward", "optimizer")
+
+
+def train_host_batch(fx, batch):
+    """The fixture's four images resized to the working canvas as uint8 and
+    their realtime references as gts, tiled to `batch`: a host batch as the
+    trainer takes it."""
+    canvas = TRAIN_CFG.data.working_shape
+    images = np.stack([np.clip(np.round(tf1_bilinear_resize(fx[f"img_{i}_pixels"], canvas)), 0, 255).astype(np.uint8)
+                       for i in IMAGES])
+    labels, boxes, _ = reference_gts(fx)
+    reps = -(-batch // len(IMAGES))
+    tile = lambda a: np.concatenate([a] * reps)[:batch]  # noqa: E731
+    return {"image01": tile(images), "gt_boxes": tile(boxes), "gt_labels": tile(labels), "gt_valid": tile(labels > 0)}
+
+
+def train_inputs(host, batch, seed):
+    """A host batch cut to `batch`, one augmentation's draws and the loss's
+    draws, on the CPU: the same step's inputs for any device."""
+    g = torch.Generator().manual_seed(seed)
+    pcfg = PreprocessConfig(out_shape=RON_320_SPEC.img_shape)
+    n = RON_320_SPEC.anchor_layout().num_anchors
+    host = {k: torch.as_tensor(v[:batch]) for k, v in host.items()}
+    return host, draw_augment(g, batch, pcfg), torch.rand(2, batch, n, generator=g), pcfg
+
+
+def augmented(host, aug_draws, pcfg, device):
+    b = {k: v.to(device) for k, v in host.items()}
+    image, boxes, labels, valid = apply_augment(aug_draws, b["image01"].float() / 255.0, b["gt_boxes"],
+                                                b["gt_labels"], b["gt_valid"], pcfg)
+    return {"image": image, "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
+
+
+def train_model(state, device, dtype=torch.float32, fuse_block1=False):
+    """RON-320 with the trained weights, its encoder, optimizer (the
+    TrainConfig defaults), train state and train step, on `device`."""
+    model = RON(RON_320_SPEC, dtype=dtype, fuse_block1=fuse_block1)
+    model.load_state_dict(state, strict=True)
+    model.to(device)
+    enc = TargetEncoder(RON_320_SPEC.anchor_layout(), RON_320_SPEC.img_shape, TRAIN_CFG.match.positive_threshold,
+                        TRAIN_CFG.match.ignore_threshold, RON_320_SPEC.prior_scaling)
+    tx = make_optimizer(TRAIN_CFG.optimizer, model)
+    return model, enc, tx, create_train_state(model, tx), make_train_step(model, enc, tx, TRAIN_CFG.loss)
+
+
+def record_into(store, key, transform=lambda g: g.detach()):
+    """A tensor hook that keeps the first gradient it sees under `key`
+    (returning None, so the gradient itself is left alone)."""
+    def hook(grad):
+        store.setdefault(key, transform(grad))
+    return hook
+
+
+def grad_recorder(model, names=None):
+    """{parameter name: its gradient in the next backward}, through hooks."""
+    grads = {}
+    for name, p in model.named_parameters():
+        if names is None or name in names:
+            p.register_hook(record_into(grads, name, lambda g: g.detach().float().cpu()))
+    return grads
+
+
+@contextlib.contextmanager
+def tf32_unpinned():
+    """Inside the block the f32 model's forward and the train step run
+    their convolutions under the caller's cuDNN TF32 flag: the pin taken
+    out, to show what the gate of phase "train" (a) would see."""
+    with mock.patch("ron_tensorflow_tpu_torch.models.ron.full_f32_convs", contextlib.nullcontext), \
+            mock.patch("ron_tensorflow_tpu_torch.train.state.full_f32_convs", contextlib.nullcontext):
+        yield
+
+
+def grad_errors(grads, ref):
+    """{name: max |g - ref| / max |ref|} over the tensors with a nonzero
+    float64 gradient that is not roundoff."""
+    return {n: float((grads[n] - r).abs().max()) / float(r.abs().max()) for n, r in ref.items()
+            if float(r.abs().max()) > 0 and not PRE_BN_BIAS.search(n)}
+
+
+def f32_train_parity(state, host):
+    """Phase "train" (a): one f32 step of RON-320 at batch 2 on the card,
+    under torch's default flags (cuDNN TF32 on), against the same step on
+    the CPU, in float32 and in float64: the same weights, batch,
+    augmentation draws and loss draws. Then the card's step once more with
+    the f32 pin taken out, which the gradient gate must catch."""
+    host2, aug_draws, loss_draws, pcfg = train_inputs(host, F32_STEP_BATCH, seed=0)
+    runs = {}
+    for device, dtype, pinned in (("cuda", torch.float32, True), ("cpu", torch.float32, True),
+                                  ("cpu", torch.float64, True), ("cuda", torch.float32, False)):
+        model, _, _, st, step = train_model(state, device, dtype)
+        grads = grad_recorder(model)
+        batch = augmented(host2, aug_draws, pcfg, device)
+        with torch_default_flags() if device == "cuda" else contextlib.nullcontext(), \
+                contextlib.nullcontext() if pinned else tf32_unpinned():
+            _, metrics = step(st, batch, draws=loss_draws.to(device))
+            if device == "cuda" and not torch.backends.cudnn.allow_tf32:
+                raise AssertionError("the f32 step did not restore the caller's TF32 flag")
+        after = {n: t.detach().cpu() for n, t in itertools.chain(model.named_parameters(), model.named_buffers())}
+        runs[device, dtype, pinned] = ({k: float(v) for k, v in metrics.items()}, grads, after)
+    n_params = len(list(model.parameters()))
+    (m_gpu, g_gpu, s_gpu) = runs["cuda", torch.float32, True]
+    (m_cpu, g_cpu, s_cpu) = runs["cpu", torch.float32, True]
+    g_64, g_tf32 = runs["cpu", torch.float64, True][1], runs["cuda", torch.float32, False][1]
+    worst = {}
+    for k in ("loss/total", "loss/objectness", "loss/classification", "loss/localization"):
+        worst[k] = abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+        if worst[k] > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"f32 step, {k}: card {m_gpu[k]!r} vs CPU {m_cpu[k]!r}")
+    for k in ("counts/positives", "counts/cls_positives"):
+        if m_gpu[k] != m_cpu[k]:
+            raise AssertionError(f"f32 step, {k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
+    if not g_gpu.keys() == g_cpu.keys() == g_64.keys() or len(g_cpu) != n_params:
+        raise AssertionError("f32 step: not every parameter got a gradient on every device")
+    zero_heads = [n for n, r in g_64.items() if float(r.abs().max()) == 0]
+    for n in zero_heads:  # no positive reaches these heads: exactly 0 everywhere
+        if float(g_gpu[n].abs().max()) != 0 or float(g_cpu[n].abs().max()) != 0:
+            raise AssertionError(f"f32 step, d{n}: 0 in float64, not on the card or the CPU")
+    roundoff = max(max(float(g_gpu[n].abs().max()), float(g_cpu[n].abs().max()))
+                   / float(g_64[n[:-len("bias")] + "weight"].abs().max()) for n in g_64 if PRE_BN_BIAS.search(n))
+    errs = {label: grad_errors(g, g_64) for label, g in (("card", g_gpu), ("CPU f32", g_cpu), ("card, TF32", g_tf32))}
+    medians = {label: float(np.median(list(e.values()))) for label, e in errs.items()}
+    maxima = {label: max(e.items(), key=lambda kv: kv[1]) for label, e in errs.items()}
+    state_used = max(float((s_gpu[n] - ref).abs().max()) / (TRAIN_STATE_RTOL * max(float(ref.abs().max()), 1e-30))
+                     for n, ref in s_cpu.items())
+    tf32_loss = runs["cuda", torch.float32, False][0]["loss/total"]
+    print(f"  f32 step, batch {F32_STEP_BATCH}, card (cuDNN TF32 flag on) vs CPU: loss {m_cpu['loss/total']:.6f}, parts "
+          + ", ".join(f"{k.split('/')[1]} {v:.2e}" for k, v in worst.items()) + f" relative (tolerance {TRAIN_LOSS_RTOL}); "
+          f"positives {m_cpu['counts/positives']:.0f} equal; parameters and BN statistics after the update within "
+          f"{state_used:.3f} of {TRAIN_STATE_RTOL} relative")
+    print(f"  gradients against the float64 step ({len(errs['card'])} tensors): median / largest max|diff|/max|grad| "
+          + "; ".join(f"{label} {medians[label]:.2e} / {maxima[label][1]:.2e} ({maxima[label][0]})" for label in errs)
+          + f" (tolerances {GRAD_MEDIAN_TOL} / {GRAD_MAX_TOL}); loss with the pin out {tf32_loss:.6f} "
+          f"({abs(tf32_loss - m_cpu['loss/total']) / m_cpu['loss/total']:.2e} from the CPU's); {len(zero_heads)} "
+          f"exactly 0 on all (heads no positive reaches: {sorted({n.split('.')[0] for n in zero_heads})}); pre-BN "
+          f"conv biases' gradients (exactly 0) at {roundoff:.2e} of their kernel's (tolerance {ROUNDOFF_TOL})")
+    for ok, what in ((medians["card"] <= GRAD_MEDIAN_TOL, f"median gradient error {medians['card']:.3g}"),
+                     (maxima["card"][1] <= GRAD_MAX_TOL, f"gradient d{maxima['card'][0]} {maxima['card'][1]:.3g}"),
+                     (medians["card, TF32"] > GRAD_MEDIAN_TOL,
+                      f"the median gate would not catch TF32 ({medians['card, TF32']:.3g})"),
+                     (roundoff <= ROUNDOFF_TOL, f"roundoff gradients {roundoff:.3g}"),
+                     (state_used <= 1.0, f"updated parameters or BN statistics at {state_used:.3f} of the tolerance")):
+        if not ok:
+            raise AssertionError(f"f32 step: {what}")
+    return {"loss_rel_diff": worst, "grad_median_err": medians, "grad_max_err": maxima,
+            "roundoff_grad": roundoff, "state_tolerance_used": state_used, "tf32_unpinned_loss": tf32_loss,
+            "loss": m_cpu["loss/total"], "grad_norm": m_cpu["grad_norm"]}
+
+
+def quietly(fn):
+    """fn()'s result and the lines it printed, which are not shown."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def seeded_model_dir(model_dir, state):
+    """A checkpoint at step 0 holding the trained weights, from which a
+    Trainer in `model_dir` resumes (warm start is not ported)."""
+    model = RON(RON_320_SPEC)
+    model.load_state_dict(state, strict=True)
+    tx = make_optimizer(TRAIN_CFG.optimizer, model)
+    CheckpointManager(model_dir, TRAIN_CFG.max_to_keep).save(0, create_train_state(model, tx))
+
+
+def bf16_trainer_run(state, host, fx):
+    """Phase "train" (b): Trainer.train on the card, bf16 with K-B, from the
+    trained weights: 20 steps (K-B once a step, no other kernel), the loss
+    finite every step, a checkpoint at step 20 that a second Trainer resumes
+    to step 24, and the loss of one fixed batch (one augmentation of the
+    host batch, fixed draws) lower after the 20 steps than before, with
+    BatchNorm on the batch's statistics as in the step the trainer
+    optimizes. The eval step's loss of that batch (inference BatchNorm, the
+    running statistics) is recorded: 20 steps on the four images move the
+    weights towards their batch statistics, and on the CPU (f32, batch 4,
+    10 steps) it rose 0.768 -> 0.863 while the train-mode loss fell
+    0.802 -> 0.600, with the running statistics put back as they were or
+    not alike (0.8645 / 0.8631)."""
+    with tempfile.TemporaryDirectory() as model_dir:
+        cfg = dataclasses.replace(TRAIN_CFG, model_dir=model_dir)
+        seeded_model_dir(model_dir, state)
+        trainer = Trainer(cfg, device="cuda")
+        if not trainer.model.backbone.fuse_block1:
+            raise AssertionError("the bf16 trainer on the card did not take K-B")
+        host_t, aug_draws, loss_draws, pcfg = train_inputs(host, TRAIN_BATCH, seed=1)
+        fixed = augmented(host_t, aug_draws, pcfg, "cuda")
+
+        loss_fn = detection_loss_fn(cfg.loss)
+
+        def fixed_losses():
+            """(train-mode loss, eval-step loss) of the fixed batch; the
+            running statistics are left as they were."""
+            _, metrics = trainer.eval_step(trainer.state, fixed, draws=loss_draws.cuda())
+            saved = {k: v.clone() for k, v in trainer.model.named_buffers()}
+            with torch.no_grad():
+                out = trainer.model(fixed["image"], train=True)
+                targets = trainer.encoder.batched(fixed["gt_labels"], fixed["gt_boxes"], fixed["gt_valid"])
+                total, _ = loss_fn(out, targets, draws=loss_draws.cuda())
+                for k, v in trainer.model.named_buffers():
+                    v.copy_(saved[k])
+            return float(total), float(metrics["loss/total"])
+
+        trainer.init_state()
+        before, eval_before = fixed_losses()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, printed = quietly(lambda: trainer.train(max_steps=TRAIN_STEPS, batches=itertools.repeat(host)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        after, eval_after = fixed_losses()
+        check_counts(f"trainer ({TRAIN_STEPS} bf16 steps, batch {TRAIN_BATCH})", launches, ("fused_vgg_block1",))
+        if st.step != TRAIN_STEPS or launches["fused_vgg_block1"] != TRAIN_STEPS:
+            raise AssertionError(f"trainer: step {st.step}, K-B launched {launches['fused_vgg_block1']} times")
+        rows = [json.loads(line) for line in open(Path(model_dir) / "metrics.jsonl")]
+        losses = [r["loss/total"] for r in rows]
+        if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)) or not np.isfinite(losses).all():
+            raise AssertionError(f"trainer: logged steps {[r['step'] for r in rows]}, losses {losses}")
+        if trainer._ckpt.latest_step() != TRAIN_STEPS:
+            raise AssertionError(f"no checkpoint at step {TRAIN_STEPS}: {trainer._ckpt.all_steps()}")
+        if not after < before:
+            raise AssertionError(f"the fixed batch's train-mode loss did not fall: {before} -> {after}")
+        resumed = Trainer(cfg, device="cuda")
+        st2, printed2 = quietly(lambda: resumed.train(max_steps=TRAIN_STEPS + RESUME_STEPS,
+                                                      batches=itertools.repeat(host)))
+        rows2 = [json.loads(line) for line in open(Path(model_dir) / "metrics.jsonl")][len(rows):]
+        if st2.step != TRAIN_STEPS + RESUME_STEPS or [r["step"] for r in rows2] != list(range(21, 25)):
+            raise AssertionError(f"resume: step {st2.step}, logged {[r['step'] for r in rows2]}")
+    print(f"  trainer's own lines: {[x for x in printed if x.startswith('[trainer] step')][-1]!r}; "
+          f"{[x for x in printed2 if 'resumed' in x]!r}")
+    print(f"  trainer bf16 + K-B, batch {TRAIN_BATCH}: {TRAIN_STEPS} steps in {seconds:.2f} s (host clock, first steps "
+          f"and a checkpoint included), losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; K-B launched "
+          f"{launches['fused_vgg_block1']} times, no other kernel; resumed at step {TRAIN_STEPS} and ran to "
+          f"{st2.step}; the fixed batch's loss {before:.4f} -> {after:.4f} (train mode), eval step (inference "
+          f"BatchNorm) {eval_before:.4f} -> {eval_after:.4f}")
+    return {"steps": TRAIN_STEPS, "seconds": seconds, "losses": losses, "fixed_loss_before": before,
+            "fixed_loss_after": after, "eval_step_loss_before": eval_before, "eval_step_loss_after": eval_after,
+            "launches": launches, "resumed_to": st2.step}
+
+
+def kb_train_grads(state, host):
+    """Phase "train" (c): K-B inside a bf16 train step (batch 14). The fused
+    step's conv1_* gradients against autograd through the unfused
+    composition (cuDNN) of the step's own block-1 input and of the gradient
+    that reaches block 1's output, within phase 6's tolerance (gated); and
+    against the whole step with fuse_block1=False (recorded)."""
+    host_t, aug_draws, loss_draws, pcfg = train_inputs(host, TRAIN_BATCH, seed=2)
+    names = ("backbone.conv1_1.conv.weight", "backbone.conv1_1.conv.bias", "backbone.conv1_2.conv.weight",
+             "backbone.conv1_2.conv.bias")
+    steps = {}
+    for fuse in (True, False):
+        model, _, _, st, step = train_model(state, "cuda", torch.bfloat16, fuse_block1=fuse)
+        grads = grad_recorder(model, names)
+        seen, inner = {}, model.backbone._block1
+
+        def block1(x, inner=inner, seen=seen):
+            seen["x"] = x.detach()
+            out = inner(x)
+            out.register_hook(record_into(seen, "g_out"))
+            return out
+
+        model.backbone._block1 = block1
+        kernels.reset_launch_counts()
+        _, metrics = step(st, augmented(host_t, aug_draws, pcfg, "cuda"), draws=loss_draws.cuda())
+        torch.cuda.synchronize()
+        if kernels.fused_vgg_block1.launches != int(fuse):
+            raise AssertionError("the (c) step did not take the intended block 1")
+        steps[fuse] = (grads, seen, float(metrics["loss/total"]))
+    (g_fused, seen, loss_fused), (g_unfused, _, loss_unfused) = steps[True], steps[False]
+    model = RON(RON_320_SPEC, dtype=torch.bfloat16)
+    model.load_state_dict(state, strict=True)
+    model.cuda()
+    bb = model.backbone
+    weights = [dict(model.named_parameters())[n] for n in names]
+    ref = torch.autograd.grad(max_pool_2x2(bb.conv1_2(bb.conv1_1(seen["x"]))), weights, seen["g_out"])
+    res = {"same_output_gradient": {}, "whole_step": {}, "loss_fused": loss_fused, "loss_unfused": loss_unfused}
+    for name, r in zip(names, ref):
+        r = r.float().cpu()
+        scale = float(r.abs().max())
+        res["same_output_gradient"][name] = float((g_fused[name] - r).abs().max()) / scale
+        whole = g_unfused[name]
+        res["whole_step"][name] = float((g_fused[name] - whole).abs().max()) / float(whole.abs().max())
+        print(f"  d{name.split('.')[1]}.{name.split('.')[-1]}: K-B step vs the unfused composition on the same "
+              f"output gradient {res['same_output_gradient'][name]:.3g} of max |grad| {scale:.4g} (tolerance "
+              f"{GRAD_REL_TOL}); vs the whole fuse_block1=False step {res['whole_step'][name]:.3g} (recorded)")
+        if res["same_output_gradient"][name] > GRAD_REL_TOL:
+            raise AssertionError(f"K-B's gradient inside the train step: d{name}")
+    print(f"  bf16 step loss with K-B {loss_fused:.6f}, unfused {loss_unfused:.6f}")
+    return res
+
+
+def staged_step_ms(trainer, state, batch, reps):
+    """The train step cut at its stages by CUDA events (it does what
+    `train.state.make_train_step` does, in its order): augmentation,
+    encoding, forward + loss, backward, optimizer + EMA. Mean ms each."""
+    model, loss = trainer.model, detection_loss_fn(trainer.config.loss)
+    params = list(state.params.values())
+    sums = dict.fromkeys(TRAIN_STAGES, 0.0)
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(TRAIN_STAGES) + 1)]
+        gen = trainer.generator(state.step)
+        ev[0].record()
+        aug = trainer.augment(batch, gen)
+        ev[1].record()
+        targets = trainer.encoder.batched(aug["gt_labels"], aug["gt_boxes"], aug["gt_valid"])
+        ev[2].record()
+        for p in params:
+            p.grad = None
+        out = model(aug["image"], train=True)
+        total, _ = loss(out, targets, gen)
+        ev[3].record()
+        total.backward()
+        ev[4].record()
+        grads = [p.grad for p in params]
+        global_norm(grads)
+        trainer.tx.step(params, grads, state.opt_state)
+        ev[5].record()
+        state.step += 1
+        torch.cuda.synchronize()
+        if r:
+            for i, k in enumerate(TRAIN_STAGES):
+                sums[k] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return sums
+
+
+def train_timing(state, fx):
+    """Phase "timing", training: the bf16 step with K-B (the Trainer's step:
+    augmentation through the update) at batch 14 and 32, ms and images/s by
+    CUDA events, its stage split, peak memory; a torch.profiler pass over
+    three steps at batch 14 (device busy share, top kernels); K-B's training
+    cost, the kernel forward plus the recompute backward, against autograd
+    through the unfused cuDNN composition."""
+    res = {}
+    for b in (TRAIN_BATCH, BATCH):
+        with tempfile.TemporaryDirectory() as model_dir:
+            cfg = dataclasses.replace(TRAIN_CFG, model_dir=model_dir, data=dataclasses.replace(TRAIN_CFG.data, batch_size=b))
+            trainer = Trainer(cfg, device="cuda")
+            st = trainer.init_state()
+            trainer.model.load_state_dict(state, strict=True)
+            batch = to_device(train_host_batch(fx, b), "cuda")
+            ms = cuda_ms(lambda: trainer.step(st, batch), reps=10, warmup=3)
+            stages = staged_step_ms(trainer, st, batch, reps=5)
+            torch.cuda.reset_peak_memory_stats()
+            trainer.step(st, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            res[f"b{b}"] = {"ms": ms, "img_per_s": b * 1e3 / ms, "stage_ms": stages, "peak_bytes": peak}
+            print(f"  train step bf16 + K-B, batch {b}: {ms:.3f} ms, {b * 1e3 / ms:.1f} img/s; stages (ms): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                  + f" (sum {sum(stages.values()):.3f}); peak memory {peak / 2 ** 30:.2f} GiB")
+            if b == TRAIN_BATCH:
+                res["profile_b14"] = profile_call(f"3 train steps, batch {b}", lambda: [trainer.step(st, batch)
+                                                                                        for _ in range(3)], grad=True)
+                image = trainer.augment(batch, trainer.generator(0))["image"].to(torch.bfloat16).contiguous()
+    bb = RON(RON_320_SPEC, dtype=torch.bfloat16)
+    bb.load_state_dict(state, strict=True)
+    w = [t.cuda() for t in (bb.backbone.conv1_1.conv.weight, bb.backbone.conv1_1.conv.bias,
+                            bb.backbone.conv1_2.conv.weight, bb.backbone.conv1_2.conv.bias)]
+    go = torch.randn(TRAIN_BATCH, 160, 160, 64, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    go = go.to(torch.bfloat16)
+
+    def fwd_bwd(fn):
+        leaves = [image] + [t.detach().requires_grad_() for t in w]
+        return lambda: torch.autograd.grad(fn(*leaves), leaves[1:], go)
+
+    kb = {"kernel_fwd_recompute_bwd_ms": cuda_ms(fwd_bwd(kernels.fused_vgg_block1), reps=10, warmup=2),
+          "unfused_autograd_ms": cuda_ms(fwd_bwd(block1_reference), reps=10, warmup=2),
+          "kernel_fwd_ms": cuda_ms(lambda: kernels.fused_vgg_block1(image, *w), reps=10)}
+    res["kb_train"] = kb
+    print(f"  K-B in training, batch {TRAIN_BATCH} at 320x320: kernel forward + recompute backward "
+          f"{kb['kernel_fwd_recompute_bwd_ms']:.3f} ms (the forward alone {kb['kernel_fwd_ms']:.3f}), autograd "
+          f"through the unfused cuDNN composition {kb['unfused_autograd_ms']:.3f} ms")
+    return res
 
 
 def main() -> int:
@@ -988,6 +1425,12 @@ def main() -> int:
         rt_eval = realtime_eval(f32_model, fx)
         del f32_model, f32_out
 
+    with phase("train"):
+        host = train_host_batch(fx, TRAIN_BATCH)
+        train_f32 = f32_train_parity(state, host)
+        train_run = bf16_trainer_run(state, host, fx)
+        train_kb = kb_train_grads(state, host)
+
     with phase("timing"):
         print(f"  card before timing: {smi_sample()} (SM clock, power, temperature)")
         with torch.inference_mode():
@@ -1037,6 +1480,11 @@ def main() -> int:
                 print(f"    {label} tail: {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}, bound {p['bound_ms']:.4f} "
                       f"by {p['bound_by']}, library {p['library_ms']:.4f}), {p['tflops']:.1f} TFLOP/s, "
                       f"{p['bound_share']:.3f} of bound, {p['library_ratio']:.3f}x the library")
+        train_times = train_timing(state, fx)
+        kb_row = next(r for r in results if r["name"] == "fused_vgg_block1")
+        kb_row.update({"train_launches": train_run["launches"]["fused_vgg_block1"], "train_steps": TRAIN_STEPS,
+                       "train_path": "Trainer.train, bf16, batch 14: one kernel forward a step, backward by "
+                                     "recompute through block1_reference (cuDNN)", **train_times["kb_train"]})
         print(f"  card after timing: {smi_sample()}")
 
     with phase("profile"):
@@ -1056,7 +1504,9 @@ def main() -> int:
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
                       "bf16_vs_f32": drift, "profile": profile, "realtime_head_bf16": realtime,
-                      "evaluators": evaluators, "profile_realtime": rt_profile}))
+                      "evaluators": evaluators, "profile_realtime": rt_profile,
+                      "train": {"f32_card_vs_cpu": train_f32, "trainer_bf16": train_run, "kb_in_step": train_kb,
+                                "timing": train_times}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of `ron_tensorflow_tpu`.
 
 The layout mirrors the JAX package (`models/`, `ops/`, `kernels/`,
-`inference/`, `data/`), which stays as the reference the port is tested
-against. This package imports torch and numpy only, never JAX or the JAX
-package. Entry points take an explicit `device` that defaults to "cuda"
-and raise when no card is present; tests pass `device="cpu"`.
+`inference/`, `eval/`, `losses/`, `train/`, `data/`, `utils/`), which
+stays as the reference the port is tested against. This package imports
+torch and numpy only, never JAX or the JAX package. Entry points take an
+explicit `device` that defaults to "cuda" and raise when no card is
+present; tests pass `device="cpu"`.
 """
 
 from __future__ import annotations

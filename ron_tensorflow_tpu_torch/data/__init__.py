@@ -1,1 +1,2 @@
-"""Eval preprocessing: TF1 legacy bilinear resize and VGG whitening."""
+"""Preprocessing (eval resize, whitening, the train augmentation), JPEG
+decode, VOC annotations and the host-to-card batch pipeline."""

@@ -1,9 +1,14 @@
-"""Shared NN building blocks for inference, NCHW.
+"""Shared NN building blocks, NCHW.
 
 Port of `ron_tensorflow_tpu/models/layers.py`. Parameters stay float32
 and are cast to the activation dtype at each call, as the flax modules do
 (`param_dtype=float32`, `dtype=compute dtype`), so one module serves both
 the f32 and the bf16 model.
+
+Train mode is an explicit `train=False` argument of `forward`, passed down
+as the JAX modules' `train=` is, never `nn.Module.training`: a module is
+built with `training=True`, and every caller that never calls `.eval()`
+would otherwise normalize with batch statistics.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+BN_MOMENTUM = 0.997  # ref: nets/ron_vgg_320.py:618 (decay)
 BN_EPSILON = 1e-5  # ref: nets/ron_vgg_320.py:619
 
 
@@ -27,22 +33,48 @@ def _same_pads(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int,
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm folded to one scale/shift, as `layers.py:69-75`:
-    the scale and shift are computed in float32 and cast to the activation
-    dtype."""
+    """slim.batch_norm(decay=0.997, epsilon=1e-5, scale=True), `layers.py:40-100`.
 
-    def __init__(self, features: int, eps: float = BN_EPSILON):
+    Inference (`train=False`): one scale/shift computed in float32 from the
+    running statistics and cast to the activation dtype (`layers.py:69-75`).
+
+    Training: float32 (or wider) batch statistics `mean` and `mean2` over (B, H, W),
+    biased `var = max(mean2 - mean^2, 0)`; gradients flow through both. The
+    running statistics follow `ra = 0.997 ra + 0.003 stat`, in place, under
+    `no_grad` (not `F.batch_norm`, whose running variance is the unbiased
+    one and whose momentum is the complement). With `fast_normalize` and a
+    non-f32 activation, the normalize runs as one scale/shift in the
+    activation dtype (`_BN_FAST_NORMALIZE`, `layers.py:27-37`); f32 ignores
+    it."""
+
+    def __init__(self, features: int, eps: float = BN_EPSILON, momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.fast_normalize = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        s = self.weight / torch.sqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * s
-        return x * s.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+    def forward(self, x, train: bool = False):
+        if not train:
+            s = self.weight / torch.sqrt(self.running_var + self.eps)
+            b = self.bias - self.running_mean * s
+            return x * s.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x32.mean(dim=(0, 2, 3))
+        mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        if self.fast_normalize and x.dtype != torch.float32:
+            s = self.weight / torch.sqrt(var + self.eps)
+            b = self.bias - mean * s
+            return x * s.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+        y = (x32 - mean[:, None, None]) / torch.sqrt(var + self.eps)[:, None, None]
+        return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -68,7 +100,7 @@ class Conv(nn.Module):
         self.bn = BatchNorm(features) if norm else None
         self.relu = relu
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         c = self.conv
         (pt, pb), (pl, pr) = (
             _same_pads(x.shape[d], c.kernel_size[i], c.stride[i], c.dilation[i])
@@ -82,7 +114,7 @@ class Conv(nn.Module):
             x, c.weight.to(x.dtype), bias, c.stride, (pt, pl), c.dilation
         )
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, train)
         return F.relu(x) if self.relu else x
 
 
@@ -129,3 +161,38 @@ class L2Normalization(nn.Module):
 def pad2d(x, pad: Sequence[int] = (0, 0)):
     """Symmetric spatial zero pad of an NCHW tensor."""
     return F.pad(x, (pad[1], pad[1], pad[0], pad[0]))
+
+
+def _glorot_uniform_(weight, fan_in: int, fan_out: int, generator):
+    """Drawn on the generator's device, then copied: the same values
+    whatever device the weight lies on."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    device = generator.device if generator is not None else "cpu"
+    draw = torch.empty(weight.shape, device=device).uniform_(-limit, limit, generator=generator)
+    with torch.no_grad():
+        weight.copy_(draw)
+
+
+def init_like_flax_(module: nn.Module, generator: torch.Generator = None) -> nn.Module:
+    """Re-initialize `module`'s parameters as the flax modules do
+    (`layers.py:125-136, 170-179`): glorot-uniform conv kernels with fan in
+    kh*kw*in and fan out kh*kw*out, the 2x2 deconv's glorot on its
+    [2, 2, in, out] kernel, zero biases, BN scale 1 and bias 0 and running
+    statistics 0 and 1. Not `nn.Conv2d`'s default (kaiming) init. The
+    module may lie on any device."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            out_c, in_c, kh, kw = m.weight.shape
+            _glorot_uniform_(m.weight, kh * kw * in_c, kh * kw * out_c, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, ConvTranspose):
+            in_c, out_c, kh, kw = m.weight.shape
+            _glorot_uniform_(m.weight, kh * kw * in_c, kh * kw * out_c, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, BatchNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+    return module

@@ -56,12 +56,12 @@ class ClsHead(nn.Module):
         self.inception2_bn = BatchNorm(1024)
         self.pred = Conv(1024, num_anchors * num_classes, relu=False)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         for blk in ("inception1", "inception2"):
             x = torch.cat(
                 [getattr(self, f"{blk}_3x3")(x), getattr(self, f"{blk}_1x1")(x)], dim=1
             )
-            x = F.relu(getattr(self, f"{blk}_bn")(x))
+            x = F.relu(getattr(self, f"{blk}_bn")(x, train))
         return _flatten_head(self.pred(x), self.num_classes)
 
 
@@ -74,8 +74,8 @@ class BoxHead(nn.Module):
         self.conv = Conv(512, 512, norm=True)
         self.pred = Conv(512, 4 * num_anchors, relu=False)
 
-    def forward(self, x):
-        return _flatten_head(self.pred(self.conv(x)), 4)
+    def forward(self, x, train: bool = False):
+        return _flatten_head(self.pred(self.conv(x, train)), 4)
 
 
 class ObjectnessHead(nn.Module):
@@ -87,8 +87,8 @@ class ObjectnessHead(nn.Module):
         self.conv = Conv(512, 512, norm=True)
         self.score = Conv(512, 2 * num_anchors, relu=False)
 
-    def forward(self, x):
-        return _flatten_head(self.score(self.conv(x)), 2)
+    def forward(self, x, train: bool = False):
+        return _flatten_head(self.score(self.conv(x, train)), 2)
 
 
 class ReverseConnection(nn.Module):
@@ -108,23 +108,27 @@ class ReverseConnection(nn.Module):
             self.conv_left = Conv(in_features, 512, norm=True)
             self.deconv_right = ConvTranspose(512, 512)
 
-    def forward(self, left, right=None):
+    def forward(self, left, right=None, train: bool = False):
         if self.deconv_right is None:
-            return self.conv_left(left)
-        return F.relu(self.conv_left(left) + self.deconv_right(right))
+            return self.conv_left(left, train)
+        return F.relu(self.conv_left(left, train) + self.deconv_right(right))
 
 
 class RON(nn.Module):
     """The RON detector (ref: nets/ron_vgg_320.py:434-580 `ron_net_reducedfc`).
 
     dtype: compute dtype; parameters stay float32 and are cast per call.
-    fuse_block1: run VGG block 1 through the fused CUDA kernel."""
+    fuse_block1: run VGG block 1 through the fused CUDA kernel.
+    bn_fast_normalize: in train mode, normalize a bf16 activation with one
+    scale/shift in bf16 (`BatchNorm.fast_normalize`; `TrainConfig`'s
+    `bn_fast_normalize`)."""
 
     def __init__(
         self,
         spec: DetectorSpec = RON_320_SPEC,
         dtype: torch.dtype = torch.float32,
         fuse_block1: bool = False,
+        bn_fast_normalize: bool = False,
     ):
         super().__init__()
         self.spec = spec
@@ -138,26 +142,32 @@ class RON(nn.Module):
             self.add_module(f"{layer}_objectness", ObjectnessHead(a))
             self.add_module(f"{layer}_cls", ClsHead(a, spec.num_classes))
             self.add_module(f"{layer}_box", BoxHead(a))
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.fast_normalize = bn_fast_normalize
 
-    def forward(self, images) -> DetectorOutputs:
+    def forward(self, images, train: bool = False) -> DetectorOutputs:
         """images: [B, H, W, 3] whitened (VGG mean-subtracted) pixels.
+        train: BatchNorm on batch statistics, updating its running ones.
 
-        The convolutions run in full f32 for an f32 model, whatever the
-        caller's TF32 flag: under torch's default (cuDNN TF32 on) the f32
-        detections leave the reference's 2e-3 gate (PERF.md, Findings)."""
+        The forward's convolutions run in full f32 for an f32 model, whatever
+        the caller's TF32 flag: under torch's default (cuDNN TF32 on) the f32
+        detections leave the reference's 2e-3 gate (PERF.md, Findings). The
+        backward runs outside this block: `train.state.make_train_step` pins
+        it."""
         with full_f32_convs():
-            return self._forward(images)
+            return self._forward(images, train)
 
-    def _forward(self, images) -> DetectorOutputs:
+    def _forward(self, images, train: bool) -> DetectorOutputs:
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         end_points = self.backbone(x)
         logits_l, objl_l, locs_l = [], [], []
         ref_map = None
         for layer in self.spec.feat_layers:
-            ref_map = getattr(self, f"{layer}_reverse")(end_points[layer], ref_map)
-            objl_l.append(getattr(self, f"{layer}_objectness")(ref_map))
-            logits_l.append(getattr(self, f"{layer}_cls")(ref_map))
-            locs_l.append(getattr(self, f"{layer}_box")(ref_map))
+            ref_map = getattr(self, f"{layer}_reverse")(end_points[layer], ref_map, train)
+            objl_l.append(getattr(self, f"{layer}_objectness")(ref_map, train))
+            logits_l.append(getattr(self, f"{layer}_cls")(ref_map, train))
+            locs_l.append(getattr(self, f"{layer}_box")(ref_map, train))
         logits = torch.cat(logits_l, dim=1).float()
         objness_logits = torch.cat(objl_l, dim=1).float()
         locations = torch.cat(locs_l, dim=1).float()

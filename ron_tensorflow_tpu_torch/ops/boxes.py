@@ -1,7 +1,7 @@
 """Box geometry on normalized (ymin, xmin, ymax, xmax) boxes, [..., 4].
 
 Port of the parts of `ron_tensorflow_tpu/ops/boxes.py` that the detection
-heads and the matcher use.
+heads, the matcher and the target encoder use.
 """
 
 from __future__ import annotations
@@ -14,6 +14,31 @@ def areas(boxes: torch.Tensor) -> torch.Tensor:
     h = boxes[..., 2] - boxes[..., 0]
     w = boxes[..., 3] - boxes[..., 1]
     return h * w
+
+
+def intersection(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection areas, [..., A, 4] x [..., B, 4] -> [..., A, B]
+    (ref: nets/ssd_common.py:28-39)."""
+    a, b = boxes_a[..., :, None, :], boxes_b[..., None, :, :]
+    h = torch.clamp(torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0]), min=0.0)
+    w = torch.clamp(torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1]), min=0.0)
+    return h * w
+
+
+def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU, [..., A, 4] x [..., B, 4] -> [..., A, B], 0 where the
+    union is empty (ref: nets/ssd_common.py:40-46).
+
+    The union adds b's area to a's with one rounding, h_b * w_b + area_a as
+    a fused multiply-add (here exact in float64, then rounded), which is how
+    XLA computes the JAX encoder's fused IoU: with two roundings an IoU
+    within an ulp of a match threshold can fall on the other side of it."""
+    inter = intersection(boxes_a, boxes_b)
+    hb = (boxes_b[..., 2] - boxes_b[..., 0]).double()
+    wb = (boxes_b[..., 3] - boxes_b[..., 1]).double()
+    union = (areas(boxes_a).double()[..., :, None] + (hb * wb)[..., None, :]).to(inter.dtype) - inter
+    empty = union == 0.0
+    return torch.where(empty, 0.0, inter / torch.where(empty, 1.0, union))
 
 
 def jaccard_one_to_many(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:

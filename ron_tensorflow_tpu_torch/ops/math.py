@@ -1,7 +1,8 @@
-"""Exact top-k with `lax.top_k`'s tie order, and subnormal flushing.
+"""Small math utilities: the losses' elementwise terms, exact top-k with
+`lax.top_k`'s tie order, and subnormal flushing.
 
-Port of `ron_tensorflow_tpu/ops/math.py::exact_top_k_chunked`. Ties go to
-the smallest index, as `lax.top_k` does (`math.py:60-67`). `torch.topk`
+Port of `ron_tensorflow_tpu/ops/math.py`. In `exact_top_k_chunked` ties go
+to the smallest index, as `lax.top_k` does (`math.py:60-67`). `torch.topk`
 does not promise that order (on the CPU it returns tied indices out of
 order), so the selection is built on a stable descending sort.
 """
@@ -46,3 +47,36 @@ def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
     the smallest normal float is 0. torch keeps subnormals on the CPU and
     the card, so a head whose gate is `score > 0` flushes its scores first."""
     return torch.where(x.abs() < torch.finfo(x.dtype).tiny, torch.zeros((), dtype=x.dtype, device=x.device), x)
+
+
+def safe_divide(numerator, denominator):
+    """numerator / denominator where denominator > 0, else 0
+    (ref: tf_extended/math.py:24-38)."""
+    ok = denominator > 0
+    quotient = numerator / torch.where(ok, denominator, torch.ones_like(denominator))
+    return torch.where(ok, quotient, torch.zeros_like(quotient))
+
+
+def smooth_l1(diff, sigma: float = 1.0):
+    """Modified smooth-L1 of Fast R-CNN: 0.5 (sigma x)^2 where |x| < 1/sigma^2,
+    else |x| - 0.5/sigma^2 (ref: nets/custom_layers.py:31-49; RON uses
+    sigma = 3, ref: nets/ron_vgg_320.py:769)."""
+    sigma2 = sigma * sigma
+    absd = diff.abs()
+    return torch.where(absd < 1.0 / sigma2, 0.5 * sigma2 * diff * diff, absd - 0.5 / sigma2)
+
+
+def softmax_ce(logits, labels):
+    """Sparse softmax cross-entropy in float32: logsumexp(logits) minus the
+    logit of the label, picked by a one-hot product as `math.py:40-57` does
+    (so the backward is the same elementwise product, no scatter)."""
+    x = logits.float()
+    one_hot = torch.nn.functional.one_hot(labels.long(), x.shape[-1]).to(x.dtype)
+    return torch.logsumexp(x, dim=-1) - (x * one_hot).sum(-1)
+
+
+def abs_smooth(x):
+    """Smoothed L1 in the reference's differentiable min/abs form
+    (ref: nets/custom_layers.py:51-63)."""
+    absx = x.abs()
+    return 0.5 * ((absx - 1.0) * torch.clamp(absx, max=1.0) + absx)

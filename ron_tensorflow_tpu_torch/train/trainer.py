@@ -1,0 +1,210 @@
+"""The trainer: config in, trained checkpoints out.
+
+Port of `ron_tensorflow_tpu/train/trainer.py` for one device. Each step:
+host batch (uint8 or float [0, 1] images at the working canvas, padded gts)
+-> upload (`DevicePrefetcher`, one batch ahead) -> augmentation on the
+device -> `make_train_step` (encode, forward, loss, backward, update, EMA).
+Around it, as the JAX trainer does:
+
+- auto-resume from the newest checkpoint in `model_dir`;
+- a generator per step seeded from (seed, step), so that a resumed run
+  draws what an unbroken one would (the counterpart of
+  `fold_in(PRNGKey(seed), step)`, trainer.py:362); the step's augmentation
+  draws come first, then the loss's;
+- at each log step: the NaN guard (`FloatingPointError`), JSONL metrics
+  (`MetricsWriter`) and images/s;
+- step- and time-based checkpoints, and the host-RSS guard (save, then
+  `SystemExit(75)`);
+- debug images of the augmented batch with its gt boxes.
+
+K-B (the fused block-1 kernel, with its recompute backward) is on where the
+JAX trainer turns it on (trainer.py:84-100): `fuse_block1` asked for, a
+bf16 model, one device, a CUDA device and a shape `fused_block1_supported`
+takes. Not ported yet, and raising: reading TFRecord shards (`make_batches`,
+ROADMAP Queue 1 item 5), warm start (`checkpoint_path`, item 3), a mesh
+over several devices (item 4), `s2d_stem`, the SSD models and their loss
+(item 2). TensorBoard event files are not written: with `tensorboard=True`
+the trainer says so once.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import TrainConfig, print_config
+from ..data.pipeline import DevicePrefetcher
+from ..data.preprocess import PreprocessConfig, train_augment_batch, unwhiten
+from ..kernels import fused_block1_supported
+from ..models import get_network
+from ..ops.encode import TargetEncoder
+from ..utils.profiling import StepTimer
+from ..utils.summaries import MetricsWriter
+from .checkpoint import CheckpointManager
+from .optimizer import make_optimizer
+from .state import TrainState, create_train_state, make_eval_step, make_train_step
+
+
+def _host_rss_gb() -> float:
+    """This process's resident set size in GB (Linux)."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+    except (OSError, ValueError, IndexError):
+        return 0.0
+
+
+def step_seed(seed: int, step: int) -> int:
+    """A 63-bit seed for step `step` of a run seeded `seed`."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def _not_ported(config: TrainConfig) -> Optional[str]:
+    if config.model.startswith("ssd") or config.augment_variant == "ssd":
+        return "the SSD models, their loss and augmentation (ROADMAP Queue 1 item 2)"
+    if config.checkpoint_path:
+        return "warm start from checkpoint_path and the TF, Caffe and orbax importers (ROADMAP Queue 1 item 3)"
+    if config.mesh_shape and config.mesh_shape[0] * config.mesh_shape[1] > 1:
+        return "a mesh over several devices (ROADMAP Queue 1 item 4)"
+    if config.s2d_stem:
+        return "s2d_stem (measured slower on the TPU; to port only after a measurement on the card)"
+    if config.data.use_grain:
+        return "the Grain input pipeline (ROADMAP Queue 1 item 5)"
+    return None
+
+
+class Trainer:
+    """`Trainer(config, device="cuda")`: raises without a card unless the
+    caller asks for `device="cpu"`."""
+
+    def __init__(self, config: TrainConfig, device="cuda"):
+        missing = _not_ported(config)
+        if missing:
+            raise NotImplementedError(f"not ported yet: {missing}")
+        self.config = config
+        self.device = resolve_device(device)
+        dtype = torch.bfloat16 if config.bfloat16 else torch.float32
+        _, spec = get_network(config.model)
+        fuse = (config.fuse_block1 and config.bfloat16 and self.device.type == "cuda"
+                and fused_block1_supported(*spec.img_shape))
+        self.model, self.spec = get_network(config.model, dtype=dtype, fuse_block1=fuse,
+                                            bn_fast_normalize=config.bn_fast_normalize)
+        self.encoder = TargetEncoder(spec.anchor_layout(), spec.img_shape, config.match.positive_threshold,
+                                     config.match.ignore_threshold, spec.prior_scaling)
+        self.tx = make_optimizer(config.optimizer, self.model)
+        self.preprocess_config = PreprocessConfig(out_shape=spec.img_shape, variant="ron")
+        self._train_step = make_train_step(self.model, self.encoder, self.tx, config.loss, config.ema_decay)
+        self.eval_step = make_eval_step(self.model, self.encoder, config.loss)
+        self._ckpt = CheckpointManager(config.model_dir, max_to_keep=config.max_to_keep)
+        self.state: Optional[TrainState] = None
+
+    # ------------------------------------------------------------------ #
+
+    def init_state(self) -> TrainState:
+        """Parameters initialized as flax does from `config.seed` (drawn on
+        the CPU), or the newest checkpoint in `model_dir`."""
+        self.model.to(self.device)
+        state = create_train_state(self.model, self.tx, torch.Generator().manual_seed(self.config.seed),
+                                   ema=self.config.ema_decay is not None)
+        if self._ckpt.has_checkpoint():  # auto-resume (ref: tf_utils.py:198-203)
+            self._ckpt.restore(state)
+            print(f"[trainer] resumed from step {state.step}")
+        self.state = state
+        return state
+
+    def make_batches(self, epochs=None) -> Iterator[Dict[str, np.ndarray]]:
+        raise NotImplementedError("reading TFRecord shards is not ported yet (ROADMAP Queue 1 item 5); "
+                                  "pass host batches to Trainer.train(batches=...)")
+
+    def generator(self, step: int) -> torch.Generator:
+        """The step's generator: augmentation draws first, then the loss's."""
+        return torch.Generator(device=self.device).manual_seed(step_seed(self.config.seed, step))
+
+    def augment(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """A device batch of the working canvas -> the train step's batch."""
+        image01 = batch["image01"]
+        if image01.dtype == torch.uint8:  # uint8 transport: 4x less to upload
+            image01 = image01.float() / 255.0
+        image, boxes, labels, valid = train_augment_batch(
+            generator, image01.float(), batch["gt_boxes"].float(), batch["gt_labels"], batch["gt_valid"],
+            self.preprocess_config)
+        return {"image": image, "gt_labels": labels, "gt_boxes": boxes, "gt_valid": valid}
+
+    def step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        """One step on a device batch of the working canvas, with the
+        generator of `state.step`."""
+        gen = self.generator(state.step)
+        return self._train_step(state, self.augment(batch, gen), gen)
+
+    def train(self, max_steps: Optional[int] = None, batches=None) -> TrainState:
+        cfg = self.config
+        max_steps = max_steps or cfg.max_steps
+        print_config(cfg)
+        state = self.init_state()
+        writer = MetricsWriter(cfg.model_dir)
+        if cfg.tensorboard:
+            print("[trainer] tensorboard=True: no TensorBoard event files are written yet; "
+                  "scalars go to metrics.jsonl only")
+        timer = StepTimer()
+        last_save_time = time.time()
+        it = DevicePrefetcher(batches if batches is not None else self.make_batches(), self.device)
+        try:
+            while state.step < max_steps:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    print("[trainer] input exhausted")
+                    break
+                state, metrics = self.step(state, batch)
+                timer.tick()
+                step = state.step
+
+                if cfg.log_every_steps and step % cfg.log_every_steps == 0:
+                    loss = float(metrics["loss/total"])
+                    if not np.isfinite(loss):
+                        raise FloatingPointError(f"non-finite loss at step {step}: {loss}")
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                    scalars["images_per_sec"] = timer.images_per_sec(cfg.data.batch_size)
+                    writer.write(step, scalars)
+                    print(f"[trainer] step {step} loss {loss:.4f} ({scalars['images_per_sec']:.1f} img/s)")
+
+                if cfg.dump_debug_images_every and step % cfg.dump_debug_images_every == 0:
+                    self._dump_debug_image(batch, step)
+
+                if cfg.max_host_rss_gb and _host_rss_gb() > cfg.max_host_rss_gb:
+                    # a controlled restart point: save THIS step, exit 75 for a supervisor
+                    self._ckpt.save(step, state)
+                    self._ckpt.wait()
+                    print(f"[trainer] host RSS {_host_rss_gb():.1f} GB > {cfg.max_host_rss_gb} GB limit: "
+                          f"saved step {step}, exiting 75 (EX_TEMPFAIL) for supervisor restart")
+                    raise SystemExit(75)
+
+                time_due = time.time() - last_save_time > cfg.save_interval_secs
+                if step % cfg.save_every_steps == 0 or time_due or step >= max_steps:
+                    self._ckpt.save(step, state)
+                    last_save_time = time.time()
+        finally:
+            self._ckpt.wait()
+            writer.close()
+        return state
+
+    def _dump_debug_image(self, batch: Dict[str, torch.Tensor], step: int) -> None:
+        """Sample 0 of the augmented batch that step `step` trained on, with
+        its gt boxes (ref: eval_ron_network.py:240-247, draw_toolbox.py:48-101):
+        the augmentation re-run with that step's generator (the one of
+        state step `step - 1`), so the image is what the step saw."""
+        from ..utils.visualization import draw_boxes
+
+        aug = self.augment(batch, self.generator(step - 1))
+        img01 = np.clip(unwhiten(aug["image"][0].float()).cpu().numpy(), 0.0, 1.0)
+        labels = torch.where(aug["gt_valid"][0], aug["gt_labels"][0], 0).cpu().numpy()
+        debug_dir = os.path.join(self.config.model_dir, "debug")
+        os.makedirs(debug_dir, exist_ok=True)
+        draw_boxes(img01, aug["gt_boxes"][0].cpu().numpy(), labels).save(
+            os.path.join(debug_dir, f"step_{step:06d}.jpg"))

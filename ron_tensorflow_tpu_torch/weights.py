@@ -1,4 +1,5 @@
-"""Carry flax RON weights into the port's modules.
+"""Carry flax RON weights into the port's modules, and name the port's
+tensors by their flax paths.
 
 The JAX package names every variable by its flax path, joined with '/'
 (`ron_tensorflow_tpu/train/checkpoint.py::flatten_params`), e.g.
@@ -14,7 +15,7 @@ modules use the same path with '.', and torch's leaf names:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -71,3 +72,47 @@ def load_trained_fixture(path: str):
     if not params:
         raise ValueError(f"{path} holds no packed 'wp::' weights")
     return params, stats
+
+
+_TORCH_TO_FLAX_LEAF = {
+    # module type name -> {torch leaf: flax leaf}
+    "Conv2d": {"weight": "kernel", "bias": "bias"},
+    "ConvTranspose": {"weight": "deconv_kernel", "bias": "deconv_bias"},
+    "BatchNorm": {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"},
+}
+
+
+def jax_names(model: torch.nn.Module) -> Dict[str, str]:
+    """{torch name: flax path} of every parameter and buffer of `model`,
+    the inverse of `from_jax_params`'s renaming. The leaf follows the module
+    that owns the tensor: a conv's `weight` is flax's `kernel`, the 2x2
+    deconv's `deconv_kernel`, a BatchNorm's `scale`."""
+    names = {}
+    for name, _ in list(model.named_parameters()) + list(model.named_buffers()):
+        scope, _, leaf = name.rpartition(".")
+        owner = type(model.get_submodule(scope)).__name__
+        if owner not in _TORCH_TO_FLAX_LEAF or leaf not in _TORCH_TO_FLAX_LEAF[owner]:
+            raise KeyError(f"no flax counterpart for {name!r} ({owner})")
+        parts = scope.split(".")
+        if owner == "Conv2d":  # the port's Conv holds its nn.Conv2d as `.conv`, as flax does
+            parts = parts[:-1] + ["conv"]
+        names[name] = "/".join(parts + [_TORCH_TO_FLAX_LEAF[owner][leaf]])
+    return names
+
+
+def to_jax_layout(path: str, value: torch.Tensor) -> np.ndarray:
+    """A port tensor in its flax variable's layout (the inverse of `_convert`)."""
+    value = value.detach().float().cpu()
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf == "kernel":
+        value = value.permute(2, 3, 1, 0)
+    elif leaf == "deconv_kernel":
+        value = value.permute(2, 3, 0, 1).flip(0, 1)
+    return value.contiguous().numpy()
+
+
+def to_jax_params(model: torch.nn.Module, tensors: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """(torch name, tensor) pairs of `model` (parameters, their gradients,
+    buffers) -> {flax path: array in the flax layout}."""
+    names = jax_names(model)
+    return {names[n]: to_jax_layout(names[n], t) for n, t in tensors}

@@ -5,6 +5,8 @@ imports torch and the port only, so it runs on a GPU host without JAX:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -27,6 +29,10 @@ from ron_tensorflow_tpu_torch.kernels.nms import MAX_K
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_TINY_SPEC
 from ron_tensorflow_tpu_torch.ops.matching import match_all_classes
+from ron_tensorflow_tpu_torch.models.layers import init_like_flax_
+from ron_tensorflow_tpu_torch.ops.encode import TargetEncoder
+from ron_tensorflow_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
+from ron_tensorflow_tpu_torch.train.state import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -449,3 +455,83 @@ def test_matcher_on_card_equals_cpu(cuda):
     assert bool(ref.tp.any()) and bool(ref.fp.any())
     for name, a, r in zip(got._fields, got, ref):
         assert torch.equal(a.cpu(), r), name
+
+
+def tiny_train_setup(device, dtype=torch.float32, fuse_block1=False):
+    """A tiny RON initialized as flax does (seed 0), its encoder, optimizer,
+    state and train step, on `device`."""
+    model = RON(RON_TINY_SPEC, dtype=dtype, fuse_block1=fuse_block1)
+    init_like_flax_(model, torch.Generator().manual_seed(0))
+    model.to(device)
+    enc = TargetEncoder(RON_TINY_SPEC.anchor_layout(), RON_TINY_SPEC.img_shape, 0.5, 0.3)
+    tx = make_optimizer(OptimizerConfig(learning_rate=1e-3, learning_rate_decay_type="fixed"), model)
+    state = create_train_state(model, tx)
+    return model, state, make_train_step(model, enc, tx)
+
+
+def tiny_train_batch(device):
+    g = torch.Generator().manual_seed(3)
+    boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.5], [0.4, 0.3, 0.9, 0.8]]]).repeat(4, 1, 1)
+    batch = {"image": (torch.rand(4, 64, 64, 3, generator=g) * 255 - 120) * torch.rand(4, 1, 1, 1, generator=g),
+             "gt_labels": torch.tensor([[3, 9]] * 4, dtype=torch.int32), "gt_boxes": boxes,
+             "gt_valid": torch.tensor([[True, True], [True, False]] * 2)}
+    draws = torch.rand(2, 4, RON_TINY_SPEC.anchor_layout().num_anchors, generator=g)
+    return {k: v.to(device) for k, v in batch.items()}, draws.to(device)
+
+
+def keep_first(store, key, grad):
+    """A tensor hook: keeps the first gradient under `key`, changes nothing."""
+    store.setdefault(key, grad.clone())
+
+
+def test_f32_train_step_gradients_ignore_the_tf32_flag(cuda):
+    """The f32 train step's gradients are the same bits under torch's default
+    cuDNN TF32 flag (True) as with it off: forward and backward run inside
+    full_f32_convs, and the caller's flag comes back. cuDNN is asked for
+    deterministic algorithms, so that two runs can be equal at all."""
+    batch, draws = tiny_train_batch(cuda)
+    grads, losses = {}, {}
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for flag in (True, False):
+            model, state, step = tiny_train_setup(cuda)
+            seen = {}
+            for name, p in model.named_parameters():
+                p.register_hook(functools.partial(keep_first, seen, name))
+            torch.backends.cudnn.allow_tf32 = flag
+            _, metrics = step(state, batch, draws=draws)
+            torch.cuda.synchronize()
+            assert torch.backends.cudnn.allow_tf32 is flag
+            grads[flag], losses[flag] = seen, float(metrics["loss/total"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    assert losses[True] == losses[False]
+    assert grads[True].keys() == grads[False].keys() and len(grads[True]) == len(list(model.parameters()))
+    for name in grads[True]:
+        assert torch.equal(grads[True][name], grads[False][name]), name
+
+
+def test_tiny_bf16_train_step_on_card_launches_kb_and_matches_cpu(cuda):
+    """One bf16 train step with block 1 fused: on the card K-B is launched
+    once (its recompute backward is cuDNN), on the CPU its plain version
+    runs. The positives are equal, the loss and gradient norm within 5e-2
+    (bf16 rounds at other places on the two devices, and train-mode
+    BatchNorm and the ReLUs amplify it)."""
+    batch, draws = tiny_train_batch("cpu")
+    ref = make_and_step("cpu", batch, draws)
+    kernels.reset_launch_counts()
+    got = make_and_step(cuda, {k: v.to(cuda) for k, v in batch.items()}, draws.to(cuda))
+    torch.cuda.synchronize()
+    assert fused_vgg_block1.launches == 1
+    assert sum(kernels.launch_counts().values()) == 1
+    assert float(got["counts/positives"]) == float(ref["counts/positives"]) > 0
+    for k in ("loss/total", "loss/objectness", "loss/classification", "grad_norm"):
+        assert abs(float(got[k]) - float(ref[k])) <= 5e-2 * abs(float(ref[k])), k
+
+
+def make_and_step(device, batch, draws):
+    model, state, step = tiny_train_setup(device, torch.bfloat16, fuse_block1=True)
+    _, metrics = step(state, batch, draws=draws)
+    return metrics

@@ -1,5 +1,5 @@
-"""The port and chip_smoke.py import neither JAX, flax, ml_dtypes nor the
-JAX package: a GPU host running the port need not have any of them."""
+"""The port and chip_smoke.py import neither JAX, flax, optax, ml_dtypes
+nor the JAX package: a GPU host running the port need not have any of them."""
 
 import pkgutil
 import subprocess
@@ -9,7 +9,7 @@ from pathlib import Path
 import ron_tensorflow_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "ml_dtypes", "ron_tensorflow_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "ron_tensorflow_tpu")
 
 
 def port_modules():
@@ -22,9 +22,12 @@ def port_modules():
 def test_port_modules_found():
     mods = port_modules()
     for name in ("kernels.nms", "kernels.fused_conv_pool", "kernels._build", "inference.detector", "weights",
-                 "eval.evaluator", "eval.realtime", "ops.matching", "ops.nms"):
+                 "eval.evaluator", "eval.realtime", "ops.matching", "ops.nms", "ops.encode", "losses.ron",
+                 "train.optimizer", "train.state", "train.checkpoint", "train.trainer", "config",
+                 "data.pipeline", "utils.summaries", "utils.profiling"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
+    from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401
 
 
 def test_port_and_chip_smoke_import_without_jax():
