@@ -69,7 +69,36 @@ Phases, each ending with a line that gives its elapsed seconds:
               unfused composition on the same block-1 input and output
               gradient, within phase 6's tolerance, and against the whole
               fuse_block1=False step (recorded);
- 11. timing   the bf16 batch-32 Detector's images/s and stage split; the
+ 11. ssd f32  SSD-300 and SSD-512 with weights drawn from a numpy seed (He
+              scaled, each multibox head scaled to a logit std of 2.5 on the
+              four images; the class probabilities' spread printed and
+              gated), in f32 at batch 2 on the card against the CPU's forward
+              of the same weights and the four demo images (TF1-resized to
+              300 and 512): logits, locations and probabilities within 1e-4
+              of each one's largest magnitude; the Detector with the SSD eval
+              preset (K-A) and the realtime head in class-wise mode (K-C) on
+              the card's outputs against the CPU's on the same outputs: equal
+              keep counts, scores and boxes within 1e-5; launches read around
+              the phase (K-A and K-C);
+ 12. ssd bf16 SSD-300 at batch 32 and SSD-512 at batch 8, bf16, fused block 1,
+              through the Detector (K-B and K-A once each); K-B's output on
+              the batch against its plain version (at 300 its tiles are
+              ragged); the bf16 detections against the f32 ones (recorded);
+ 13. ssd train (a) one f32 SSD-300 step at batch 2, dropout 0, card vs CPU
+              (the SSD augmentation with the same draws): losses within 1e-4
+              relative, updated parameters within 1e-4; (b) `Trainer.train`
+              with ssd_300_vgg, bf16, K-B, the ssd_300 preset's matching and
+              the repo's from-scratch SSD optimizer recipe, batch 32: 10
+              steps, K-B once a step and no other kernel, every loss finite,
+              the train-mode loss of a fixed batch lower after than before;
+ 14. heavy    ron_320_vgg_heavy (fc6 7x7 with 4096 channels, fc7 1x1 with
+              4096) from seeded weights: f32 batch 2, card vs CPU within
+              1e-4; bf16 batch 32 through the Detector with K-B and K-A;
+ 15. eval losses  `StreamingEvaluator(loss_config=...)` on SSD-300 (bf16,
+              `SsdLossConfig`) and on the trained RON-320 (bf16,
+              `RonLossConfig`, fixed draws): each batch's loss/* metrics
+              against the CPU loss on the same outputs within 1e-5 relative;
+ 16. timing   the bf16 batch-32 Detector's images/s and stage split; the
               realtime head's batch-1 latency (p50, p90, pipelined) and
               device-idle share, its batch-32 images/s and stage split; the
               streaming evaluator's images/s and the matcher's time; each
@@ -85,7 +114,13 @@ Phases, each ending with a line that gives its elapsed seconds:
               forward, backward, optimizer) by CUDA events, peak memory, a
               profiler pass over three steps, and K-B's training cost
               (kernel forward + recompute backward against autograd through
-              the unfused cuDNN composition).
+              the unfused cuDNN composition); the SSD-300 (batch 32), SSD-512
+              (batch 8 and 32) and heavy RON-320 (batch 32) Detectors' images/s
+              and stage splits, the SSD-300 bf16 train step at batch 32 (ms,
+              images/s, stage split, peak memory); K-B at [32, 300, 300, 3],
+              [8, 512, 512, 3] and [32, 512, 512, 3] beside its bound, plain
+              version and cuDNN; K-A on the SSD Detectors' rows and K-C on
+              SSD-300's class-wise realtime rows.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -111,7 +146,7 @@ import torch
 import torch.nn.functional as F
 
 from ron_tensorflow_tpu_torch import kernels
-from ron_tensorflow_tpu_torch.config import TrainConfig
+from ron_tensorflow_tpu_torch.config import MatchConfig, TrainConfig
 from ron_tensorflow_tpu_torch.data.pipeline import to_device
 from ron_tensorflow_tpu_torch.data.preprocess import PreprocessConfig, apply_augment, draw_augment, eval_preprocess, whiten
 from ron_tensorflow_tpu_torch.data.resize import tf1_bilinear_resize
@@ -134,9 +169,12 @@ from ron_tensorflow_tpu_torch.kernels.nms import (
     nms_sorted_kernel,
     suppression_matrix,
 )
+from ron_tensorflow_tpu_torch.losses.ssd import SsdLossConfig
+from ron_tensorflow_tpu_torch.models import get_network
 from ron_tensorflow_tpu_torch.models.layers import max_pool_2x2
 from ron_tensorflow_tpu_torch.models.ron import RON
-from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC
+from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC, SSD_300_SPEC
+from ron_tensorflow_tpu_torch.models.testing import scale_ssd_heads, seeded_flax_params
 from ron_tensorflow_tpu_torch.ops import nms as ops_nms
 from ron_tensorflow_tpu_torch.ops.ap import StreamingTpFp
 from ron_tensorflow_tpu_torch.ops.matching import match_all_classes
@@ -145,7 +183,7 @@ from ron_tensorflow_tpu_torch.ops.math import exact_top_k_chunked
 from ron_tensorflow_tpu_torch.tools.time_nms import device_ms
 from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
 from ron_tensorflow_tpu_torch.train.optimizer import global_norm, make_optimizer
-from ron_tensorflow_tpu_torch.train.state import create_train_state, detection_loss_fn, make_train_step
+from ron_tensorflow_tpu_torch.train.state import create_train_state, detection_loss_fn, make_train_step, train_forward
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
 from ron_tensorflow_tpu_torch.weights import from_jax_params, load_trained_fixture
 
@@ -487,33 +525,23 @@ def f32_parity(state, images, flags):
 
 def bf16_drift(state, images, f32_dets):
     """Phase 4b: how far the bf16 detections of the four images lie from the
-    f32 ones, with block 1 unfused (cuDNN) and through K-B: the (image,
-    class) pairs whose keep counts agree, the detections on each side, and
-    over the pairs that agree the largest score and box difference."""
-    ref_s, ref_b = (t.float() for t in f32_dets)
+    f32 ones (`detection_drift`), with block 1 unfused (cuDNN) and through
+    K-B."""
     drift = {}
     for fuse in (False, True):
         model = RON(RON_320_SPEC, dtype=torch.bfloat16, fuse_block1=fuse)
         model.load_state_dict(state, strict=True)
         kernels.reset_launch_counts()
-        got_s, got_b = Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")(images)
+        dets = Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")(images)
         torch.cuda.synchronize()
         if kernels.fused_vgg_block1.launches != int(fuse):
             raise AssertionError("the bf16 drift run did not take the intended block 1")
-        n_ref, n_got = (ref_s > 0).sum(-1), (got_s > 0).sum(-1)
-        same = n_ref == n_got
-        rank = torch.arange(ref_s.shape[-1], device=ref_s.device)
-        live = same[..., None] & (rank < n_ref[..., None])
-        d_s = float(torch.where(live, (got_s - ref_s).abs(), 0.0).max())
-        d_b = float(torch.where(live[..., None], (got_b - ref_b).abs(), 0.0).max())
         label = "K-B" if fuse else "unfused (cuDNN)"
-        drift[label] = {"pairs_equal_counts": int(same.sum()), "pairs": same.numel(),
-                        "detections_bf16": int(n_got.sum()), "detections_f32": int(n_ref.sum()),
-                        "sum_abs_count_diff": int((n_got - n_ref).abs().sum()),
-                        "max_abs_score_diff": d_s, "max_abs_box_diff": d_b}
-        print(f"  bf16 vs f32 detections, block 1 {label}: keep counts equal in {int(same.sum())} of "
-              f"{same.numel()} (image, class) pairs; {int(n_got.sum())} detections vs {int(n_ref.sum())}; "
-              f"over the equal pairs max |score diff| {d_s:.6g}, max |box diff| {d_b:.6g}")
+        d = drift[label] = detection_drift(f32_dets, dets)
+        print(f"  bf16 vs f32 detections, block 1 {label}: keep counts equal in {d['pairs_equal_counts']} of "
+              f"{d['pairs']} (image, class) pairs; {d['detections_bf16']} detections vs {d['detections_f32']}; "
+              f"over the equal pairs max |score diff| {d['max_abs_score_diff']:.6g}, max |box diff| "
+              f"{d['max_abs_box_diff']:.6g}")
     return drift
 
 
@@ -665,7 +693,7 @@ def realtime_bf16(model, images, batch, fx):
 
 
 class Recording:
-    """A detector that keeps what it returned, call by call."""
+    """A detector (or model) that keeps what it returned, call by call."""
 
     def __init__(self, det):
         self.det, self.outputs = det, []
@@ -1036,8 +1064,10 @@ def grad_recorder(model, names=None):
 def tf32_unpinned():
     """Inside the block the f32 model's forward and the train step run
     their convolutions under the caller's cuDNN TF32 flag: the pin taken
-    out, to show what the gate of phase "train" (a) would see."""
+    out, to show what the gates of phases "train" (a) and "ssd train" (a)
+    would see."""
     with mock.patch("ron_tensorflow_tpu_torch.models.ron.full_f32_convs", contextlib.nullcontext), \
+            mock.patch("ron_tensorflow_tpu_torch.models.ssd.full_f32_convs", contextlib.nullcontext), \
             mock.patch("ron_tensorflow_tpu_torch.train.state.full_f32_convs", contextlib.nullcontext):
         yield
 
@@ -1126,13 +1156,14 @@ def quietly(fn):
     return out, buf.getvalue().splitlines()
 
 
-def seeded_model_dir(model_dir, state):
-    """A checkpoint at step 0 holding the trained weights, from which a
-    Trainer in `model_dir` resumes (warm start is not ported)."""
-    model = RON(RON_320_SPEC)
+def seeded_model_dir(model_dir, state, cfg=TRAIN_CFG):
+    """A checkpoint at step 0 holding `state` (the trained weights, or
+    seeded ones), from which a Trainer of `cfg.model` in `model_dir`
+    resumes (warm start is not ported)."""
+    model, _ = get_network(cfg.model)
     model.load_state_dict(state, strict=True)
-    tx = make_optimizer(TRAIN_CFG.optimizer, model)
-    CheckpointManager(model_dir, TRAIN_CFG.max_to_keep).save(0, create_train_state(model, tx))
+    tx = make_optimizer(cfg.optimizer, model)
+    CheckpointManager(model_dir, cfg.max_to_keep).save(0, create_train_state(model, tx))
 
 
 def bf16_trainer_run(state, host, fx):
@@ -1265,7 +1296,7 @@ def staged_step_ms(trainer, state, batch, reps):
     """The train step cut at its stages by CUDA events (it does what
     `train.state.make_train_step` does, in its order): augmentation,
     encoding, forward + loss, backward, optimizer + EMA. Mean ms each."""
-    model, loss = trainer.model, detection_loss_fn(trainer.config.loss)
+    model, loss = trainer.model, detection_loss_fn(trainer.loss_config)
     params = list(state.params.values())
     sums = dict.fromkeys(TRAIN_STAGES, 0.0)
     for r in range(reps + 1):
@@ -1278,7 +1309,7 @@ def staged_step_ms(trainer, state, batch, reps):
         ev[2].record()
         for p in params:
             p.grad = None
-        out = model(aug["image"], train=True)
+        out = train_forward(model, aug["image"], gen)
         total, _ = loss(out, targets, gen)
         ev[3].record()
         total.backward()
@@ -1343,6 +1374,577 @@ def train_timing(state, fx):
           f"{kb['kernel_fwd_recompute_bwd_ms']:.3f} ms (the forward alone {kb['kernel_fwd_ms']:.3f}), autograd "
           f"through the unfused cuDNN composition {kb['unfused_autograd_ms']:.3f} ms")
     return res
+
+
+# --------------------------------------------------------------------------- #
+# SSD-300/512 and the heavy VGG variant (phases "ssd f32", "ssd bf16",
+# "ssd train", "heavy", "eval losses" and their timings)
+
+SSD_NAMES = ("ssd_300_vgg", "ssd_512_vgg")
+# the SSD eval preset's detection values (ron_tensorflow_tpu/presets.py:18-41)
+SSD_DET = DetectionConfig(select_threshold=0.01, objectness_threshold=0.0, top_k=400, keep_top_k=200,
+                          nms_threshold=0.45)
+SSD_BATCH = {"ssd_300_vgg": BATCH, "ssd_512_vgg": 8}
+SSD_SEED = {"ssd_300_vgg": 300, "ssd_512_vgg": 512, "ron_320_vgg_heavy": 4096}
+SSD_F32_BATCH = 2
+# Seeded SSD weights: He-scaled draws (gain sqrt 2) keep each ReLU layer's
+# output at its input's scale through the ~20 layers without BatchNorm;
+# plain fan-in scaling shrinks it by sqrt 2 a layer and flattens every
+# softmax towards 1/21, where top-k order is a coin toss between devices.
+# Each multibox head is then scaled so that its logits and locations have
+# these standard deviations on the four images.
+SSD_GAIN, SSD_LOGIT_STD, SSD_LOC_STD = 2.0 ** 0.5, 2.5, 0.5  # scale_ssd_heads' defaults
+SPREAD_MIN = 3.0 / 21  # the mean largest class probability must be 3x the flat softmax's
+FORWARD_TOL = 1e-4  # card vs CPU f32 forward, of each output's largest magnitude
+DET_TOL = 1e-5  # card vs CPU postprocess of the same outputs: scores and boxes
+EVAL_LOSS_RTOL = 1e-5
+# The ssd_300 train preset's matching (presets.py:57-60) at batch 32, with the
+# repo's recipe for SSD from scratch (plain VGG, no BatchNorm): lr 0.003,
+# warmup 1000 steps, gradients clipped at global norm 50 (tools/synthetic_e2e.py:
+# 88-104, run with SYNTH_WARMUP=1000 SYNTH_CLIP=50). With the preset's lr 1e-3
+# and neither, seeded SSD-300 went to NaN at step 3 (on the CPU, f32, batch 4).
+SSD_TRAIN_CFG = dataclasses.replace(
+    TRAIN_CFG, model="ssd_300_vgg", match=MatchConfig(positive_threshold=0.5, ignore_threshold=0.5),
+    data=dataclasses.replace(TRAIN_CFG.data, batch_size=BATCH),
+    optimizer=dataclasses.replace(TRAIN_CFG.optimizer, learning_rate=0.003, warmup_steps=1000, clip_global_norm=50.0))
+# (a) The f32 step against the CPU's runs the TrainConfig optimizer (lr 1e-3,
+# momentum, weight decay, no warmup, no clipping), so that one step moves the
+# weights: with SSD_TRAIN_CFG's warmup the first step's lr is 3e-6 and the
+# update, at most 3e-6 x 50, lies below any 1e-4 gate. The loss and its parts
+# within 1e-4 relative of the CPU float32 step's; grad_norm within 1e-4 of
+# the float64 step's. Each gradient and each update (new - old parameters)
+# against the float64 step's as in phase "train" (a): the median over the
+# tensors of max |card - float64| / max |float64| within 1e-3, each within
+# 5e-2 (a ReLU flip: on the CPU, the float32 step lies 2.6e-3 from float64
+# in conv5_3's kernel gradient, the median 1.8e-6; TF32 emulated in the
+# convolutions there gives a median of 2.1e-2). The updated parameters
+# against the CPU float32 step's: the median over the tensors within 1e-4 of
+# each tensor's largest magnitude (the step moves the median tensor by 2.4%
+# of it; one flip moves a tensor's by more: 8.7e-4 at conv5_3, CPU float32
+# against float64). The step must move the median tensor by at least 1e-3.
+SSD_PARITY_OPT = TRAIN_CFG.optimizer
+SSD_VISIBLE_MIN = 1e-3
+SSD_TRAIN_STEPS = 10
+EVAL_LOSS_BATCHES = 2
+
+
+def demo_images(fx, spec):
+    """The four demo images resized (TF1 bilinear) to the spec's input and
+    whitened, on the CPU."""
+    return torch.stack([eval_preprocess(torch.as_tensor(fx[f"img_{i}_pixels"]).float() / 255.0, spec.img_shape)[0]
+                        for i in IMAGES])
+
+
+def class_spread(predictions):
+    """How far the class probabilities [B, N, C] are from the flat softmax:
+    the largest probability of an anchor (mean, median), the share of
+    anchors whose argmax is the background, the mean entropy in nats (a flat
+    softmax over 21 classes has 3.04)."""
+    top = predictions.max(-1)
+    p = predictions.clamp_min(1e-30)
+    return {"mean_max_prob": float(top.values.mean()), "median_max_prob": float(top.values.median()),
+            "background_argmax_share": float((top.indices == 0).float().mean()),
+            "mean_entropy_nats": float(-(p * p.log()).sum(-1).mean())}
+
+
+def seeded_state(name, gain):
+    """`name`'s weights drawn from a numpy seed (`models.testing`), as a
+    state dict, and its spec."""
+    model, spec = get_network(name)
+    params, stats = seeded_flax_params(model, SSD_SEED[name], gain)
+    return from_jax_params(params, stats), spec
+
+
+def ssd_state(name, fx):
+    """Seeded SSD weights (He-scaled draws) with each head scaled to
+    SSD_LOGIT_STD and SSD_LOC_STD on the four images, on the card
+    (`models.testing.scale_ssd_heads`). Prints the class probabilities'
+    spread and fails if they are near the flat softmax."""
+    state, spec = seeded_state(name, SSD_GAIN)
+    model, _ = get_network(name)
+    model.load_state_dict(state, strict=True)
+    model.cuda()
+    images = demo_images(fx, spec).cuda()
+    scale_ssd_heads(model, images, SSD_LOGIT_STD, SSD_LOC_STD)
+    with torch.inference_mode():
+        spread = class_spread(model(images).predictions)
+    print(f"  {name} seeded weights (seed {SSD_SEED[name]}, gain {SSD_GAIN:.4f}, heads scaled to logit std "
+          f"{SSD_LOGIT_STD}, location std {SSD_LOC_STD}): class probabilities on the four images " +
+          ", ".join(f"{k} {v:.4f}" for k, v in spread.items()))
+    if not spread["mean_max_prob"] > SPREAD_MIN:
+        raise AssertionError(f"{name}: the class probabilities are near the flat softmax ({spread})")
+    return {k: v.cpu() for k, v in model.state_dict().items()}, spec, spread
+
+
+def host(out):
+    return type(out)(*(t.cpu() for t in out))
+
+
+def forward_errors(label, got, ref, fields=("logits", "locations", "predictions")):
+    """max |card - CPU| / max |CPU| of each output, gated at FORWARD_TOL."""
+    errs = {}
+    for f in fields:
+        g, r = getattr(got, f).cpu(), getattr(ref, f)
+        errs[f] = float((g - r).abs().max()) / float(r.abs().max())
+    print(f"  {label}, card vs CPU f32 forward: max |diff| / max |CPU| " +
+          ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tolerance {FORWARD_TOL})")
+    if max(errs.values()) > FORWARD_TOL:
+        raise AssertionError(f"{label}: the card's f32 forward is off the CPU's: {errs}")
+    return errs
+
+
+def compare_dets(label, got, ref, valid=None):
+    """Card detections against the CPU's on the same outputs: equal keep
+    counts per (image, class) (or valid flags and labels, realtime), scores
+    and boxes within DET_TOL. Returns (detections, max |diff|)."""
+    got = [t.cpu() for t in got]
+    if valid is None:  # Detector: (scores [B, C-1, K], boxes)
+        counts = (got[0] > 0).sum(-1), (ref[0] > 0).sum(-1)
+        if not torch.equal(*counts):
+            raise AssertionError(f"{label}: keep counts differ in {int((counts[0] != counts[1]).sum())} pairs")
+        pairs = ((got[0], ref[0]), (got[1], ref[1]))
+        n = int(counts[1].sum())
+    else:  # realtime: (scores, labels, boxes, valid)
+        if not (torch.equal(got[3], ref[3]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"{label}: realtime valid flags or labels differ")
+        pairs = ((got[0], ref[0]), (got[2], ref[2]))
+        n = int(ref[3].sum())
+    worst = max(float((a - b).abs().max()) for a, b in pairs)
+    print(f"  {label}: {n} detections, keep counts equal; max |score or box diff| {worst:.3g} (tolerance {DET_TOL})")
+    if worst > DET_TOL or n == 0:
+        raise AssertionError(f"{label}: {n} detections, max diff {worst}")
+    return n, worst
+
+
+def ssd_f32(name, state, spec, fx):
+    """Phase "ssd f32": SSD in f32 (the f32 pin) at batch 2 on the card
+    against the CPU's forward of the same weights and images; the card's
+    Detector (SSD eval preset, K-A) and realtime head (class-wise mode, as
+    `RealtimeConfig.for_spec` picks it for SSD; K-C) on the card's outputs
+    against the CPU's on the same outputs. Returns the numbers and the f32
+    detections of the two images."""
+    cpu, _ = get_network(name)
+    cpu.load_state_dict(state, strict=True)
+    card, _ = get_network(name)
+    card.load_state_dict(state, strict=True)
+    card.cuda()
+    images = demo_images(fx, spec)[:SSD_F32_BATCH]
+    with torch.inference_mode():
+        out = card(images.cuda())
+        ref_out = cpu(images)
+        res = {"forward_rel_err": forward_errors(f"{name} batch {SSD_F32_BATCH}", out, ref_out)}
+        dets = Detector(card, spec, SSD_DET, device="cuda").postprocess(out)
+        ref = Detector(cpu, spec, SSD_DET, device="cpu").postprocess(host(out))
+        res["detector"] = compare_dets(f"{name} Detector (SSD eval preset, K-A) vs the CPU's (plain NMS)", dets, ref)
+        rt_cfg = RealtimeConfig.for_spec(spec)
+        if not rt_cfg.class_wise:
+            raise AssertionError("RealtimeConfig.for_spec did not pick class-wise mode for SSD")
+        rt = RealtimeDetector(card, spec, rt_cfg, device="cuda").postprocess(out)
+        rt_ref = RealtimeDetector(cpu, spec, rt_cfg, device="cpu").postprocess(host(out))
+        res["realtime_class_wise"] = compare_dets(f"{name} realtime head, class-wise (K-C) vs the CPU's", rt, rt_ref,
+                                                  valid=True)
+    return res, dets
+
+
+def detection_drift(ref, got):
+    """Detections [B, C-1, K(, 4)] against reference ones: the (image, class)
+    pairs whose keep counts agree, the detections on each side, and over the
+    pairs that agree the largest score and box difference."""
+    ref_s, ref_b = (t.float() for t in ref)
+    got_s, got_b = (t.float() for t in got)
+    n_ref, n_got = (ref_s > 0).sum(-1), (got_s > 0).sum(-1)
+    same = n_ref == n_got
+    rank = torch.arange(ref_s.shape[-1], device=ref_s.device)
+    live = same[..., None] & (rank < n_ref[..., None])
+    return {"pairs_equal_counts": int(same.sum()), "pairs": same.numel(), "detections_bf16": int(n_got.sum()),
+            "detections_f32": int(n_ref.sum()), "sum_abs_count_diff": int((n_got - n_ref).abs().sum()),
+            "max_abs_score_diff": float(torch.where(live, (got_s - ref_s).abs(), 0.0).max()),
+            "max_abs_box_diff": float(torch.where(live[..., None], (got_b - ref_b).abs(), 0.0).max())}
+
+
+def block1_of(model):
+    """An SSD's block-1 parameters (w1, b1, w2, b2) on its device."""
+    return tuple(getattr(getattr(model, f"conv1_{j}").conv, p) for j in (1, 2) for p in ("weight", "bias"))
+
+
+def bf16_detector_run(label, model, spec, batch):
+    """A bf16 Detector batch with K-B: launch counts read around it (K-B
+    once, K-A once), output shapes, finite values, a detection in every
+    image. Returns (detector, detections, launches)."""
+    det = Detector(model, spec, SSD_DET if spec.name.startswith("ssd") else NMS_CFG, device="cuda")
+    kernels.reset_launch_counts()
+    scores, boxes = det(batch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts(label, launches, MAIN_PATH)
+    if launches["fused_vgg_block1"] != 1 or launches["nms_fixpoint_keep_mask"] != 1:
+        raise AssertionError(f"{label}: K-B and K-A must launch once each: {launches}")
+    b, k = batch.shape[0], det.config.keep_top_k
+    if scores.shape != (b, spec.num_classes - 1, k) or boxes.shape != (b, spec.num_classes - 1, k, 4):
+        raise AssertionError(f"{label}: output shapes {tuple(scores.shape)}, {tuple(boxes.shape)}")
+    kept = (scores > 0).sum(dim=(1, 2))
+    if not (torch.isfinite(scores).all() and torch.isfinite(boxes).all()) or int(kept.min()) < 1:
+        raise AssertionError(f"{label}: non-finite detections, or an image kept none")
+    print(f"  {label}: detections per image {kept[:len(IMAGES)].tolist()} (first images)")
+    return det, (scores, boxes), launches
+
+
+def ssd_bf16(name, state, spec, fx, f32_dets, max_err):
+    """Phase "ssd bf16": SSD in bf16 with K-B through the Detector at its
+    batch (SSD-300: 32, SSD-512: 8); K-B's output on that batch against its
+    plain version (at 300: ragged tiles); the bf16 detections of the first
+    two images against the f32 ones (recorded)."""
+    model, _ = get_network(name, dtype=torch.bfloat16, fuse_block1=True)
+    model.load_state_dict(state, strict=True)
+    b = SSD_BATCH[name]
+    batch = demo_images(fx, spec).cuda().repeat(b // len(IMAGES), 1, 1, 1).contiguous()
+    det, dets, launches = bf16_detector_run(f"{name} bf16 Detector with K-B, batch {b}", model, spec, batch)
+    x = batch.to(torch.bfloat16).contiguous()
+    with torch.inference_mode():
+        err = block1_err(f"{name} batch {list(x.shape)}", kernels.fused_vgg_block1(x, *block1_of(model)),
+                         kernels.fused_vgg_block1_plain(x, *block1_of(model)))
+    max_err["fused_vgg_block1"] = max(max_err["fused_vgg_block1"], err)
+    drift = detection_drift(f32_dets, tuple(t[:SSD_F32_BATCH] for t in dets))
+    print(f"  {name} bf16 vs f32 detections of {SSD_F32_BATCH} images: keep counts equal in "
+          f"{drift['pairs_equal_counts']} of {drift['pairs']} pairs; {drift['detections_bf16']} vs "
+          f"{drift['detections_f32']}; max |score diff| {drift['max_abs_score_diff']:.4g}, max |box diff| "
+          f"{drift['max_abs_box_diff']:.4g} over the equal pairs (recorded)")
+    return {"model": model, "det": det, "batch": batch, "launches": launches, "kb_err": err, "drift": drift}
+
+
+def ssd_train_inputs(host_batch, batch, seed, pcfg):
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.as_tensor(v[:batch]) for k, v in host_batch.items()}, draw_augment(g, batch, pcfg)
+
+
+def ssd_f32_train_parity(state, host_batch):
+    """Phase "ssd train" (a): one f32 SSD-300 step at batch 2, dropout rate
+    0, on the card (torch's default flags) against the same step on the CPU
+    in float32 and in float64: the same weights, batch (the SSD augmentation
+    with the same draws), matching (the ssd_300 train preset's) and
+    `SsdLossConfig`, the optimizer SSD_PARITY_OPT. Gates: see
+    SSD_PARITY_OPT. Then the card's step once more with the f32 pin taken
+    out, which the gradient gate must catch."""
+    cfg = SSD_TRAIN_CFG
+    spec = SSD_300_SPEC
+    pcfg = PreprocessConfig(out_shape=spec.img_shape, variant="ssd")
+    host_b, draws = ssd_train_inputs(host_batch, F32_STEP_BATCH, 3, pcfg)
+    loss_cfg = SsdLossConfig(num_classes=spec.num_classes, match_threshold=cfg.match.positive_threshold)
+    before = {n: t.float() for n, t in state.items()}
+    runs = {}
+    for device, dtype, pinned in (("cuda", torch.float32, True), ("cpu", torch.float32, True),
+                                  ("cpu", torch.float64, True), ("cuda", torch.float32, False)):
+        model, _ = get_network(cfg.model, dtype=dtype, dropout_rate=0.0)
+        model.load_state_dict(state, strict=True)
+        model.to(device)
+        grads = grad_recorder(model)
+        enc = TargetEncoder(spec.anchor_layout(), spec.img_shape, cfg.match.positive_threshold,
+                            cfg.match.ignore_threshold, spec.prior_scaling)
+        tx = make_optimizer(SSD_PARITY_OPT, model)
+        st = create_train_state(model, tx)
+        batch = augmented(host_b, draws, pcfg, device)
+        with torch_default_flags() if device == "cuda" else contextlib.nullcontext(), \
+                contextlib.nullcontext() if pinned else tf32_unpinned():
+            _, metrics = make_train_step(model, enc, tx, loss_cfg)(st, batch)
+        updates = {n: t.detach().cpu() - before[n] for n, t in model.named_parameters()}
+        runs[device, dtype, pinned] = ({k: float(v) for k, v in metrics.items()}, grads, updates)
+    (m_gpu, g_gpu, u_gpu), (m_cpu, g_cpu, u_cpu) = runs["cuda", torch.float32, True], runs["cpu", torch.float32, True]
+    (m_64, g_64, u_64), g_tf32 = runs["cpu", torch.float64, True], runs["cuda", torch.float32, False][1]
+    if not g_gpu.keys() == g_cpu.keys() == g_64.keys() == u_64.keys():
+        raise AssertionError("SSD-300 f32 step: not every parameter got a gradient on every device")
+    worst = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu if k.startswith("loss/")}
+    grad_norm_err = abs(m_gpu["grad_norm"] - m_64["grad_norm"]) / m_64["grad_norm"]
+    zero = sorted(n for n, r in g_64.items() if float(r.abs().max()) == 0)
+    for n in zero:  # no positive reaches these heads: exactly 0 everywhere
+        if float(g_gpu[n].abs().max()) != 0:
+            raise AssertionError(f"SSD-300 f32 step, d{n}: 0 in float64, not on the card")
+    errs = {label: grad_errors(g, g_64) for label, g in (("card", g_gpu), ("CPU f32", g_cpu), ("card, TF32", g_tf32))}
+    errs["card update"] = grad_errors(u_gpu, u_64)
+    medians = {label: float(np.median(list(e.values()))) for label, e in errs.items()}
+    maxima = {label: max(e.items(), key=lambda kv: kv[1]) for label, e in errs.items()}
+    visible = float(np.median([float(u.abs().max()) / float(before[n].abs().max()) for n, u in u_64.items()
+                               if float(before[n].abs().max()) > 0]))
+    params = {n: float((u_gpu[n] - u_cpu[n]).abs().max()) / (TRAIN_STATE_RTOL * float((before[n] + u_cpu[n]).abs().max()))
+              for n in u_cpu}
+    params_median, params_max = float(np.median(list(params.values()))), max(params.items(), key=lambda kv: kv[1])
+    tf32_loss = runs["cuda", torch.float32, False][0]["loss/total"]
+    print(f"  SSD-300 f32 step, batch {F32_STEP_BATCH}, card (cuDNN TF32 flag on) vs CPU: loss {m_cpu['loss/total']:.6f}, "
+          + ", ".join(f"{k.split('/')[-1]} {v:.2e}" for k, v in worst.items())
+          + f" relative (tolerance {TRAIN_LOSS_RTOL}); positives {m_cpu['counts/positives']:.0f} / "
+          f"{m_gpu['counts/positives']:.0f}; grad_norm {m_gpu['grad_norm']:.6g}, {grad_norm_err:.2e} from float64's "
+          f"(tolerance {TRAIN_LOSS_RTOL}); the step moves the median tensor by {visible:.3g} of its largest magnitude")
+    print(f"  gradients and updates against the float64 step ({len(errs['card'])} tensors): median / largest "
+          "max|diff|/max|float64| " + "; ".join(f"{label} {medians[label]:.2e} / {maxima[label][1]:.2e} "
+                                               f"({maxima[label][0]})" for label in errs)
+          + f" (tolerances {GRAD_MEDIAN_TOL} / {GRAD_MAX_TOL}); loss with the pin out {tf32_loss:.6f}; {len(zero)} "
+          f"exactly 0 on all ({zero}); updated parameters vs the CPU f32 step: median {params_median:.3f}, largest "
+          f"{params_max[1]:.3f} ({params_max[0]}) of {TRAIN_STATE_RTOL} of each tensor's largest magnitude")
+    for ok, what in ((m_gpu["counts/positives"] == m_cpu["counts/positives"], "positives differ"),
+                     (max(worst.values()) <= TRAIN_LOSS_RTOL, f"losses {worst}"),
+                     (grad_norm_err <= TRAIN_LOSS_RTOL, f"grad_norm {grad_norm_err:.3g} from float64's"),
+                     (visible >= SSD_VISIBLE_MIN, f"the step moves the median tensor by only {visible:.3g}"),
+                     (medians["card"] <= GRAD_MEDIAN_TOL, f"median gradient error {medians['card']:.3g}"),
+                     (maxima["card"][1] <= GRAD_MAX_TOL, f"gradient d{maxima['card'][0]} {maxima['card'][1]:.3g}"),
+                     (medians["card update"] <= GRAD_MEDIAN_TOL, f"median update error {medians['card update']:.3g}"),
+                     (maxima["card update"][1] <= GRAD_MAX_TOL,
+                      f"update of {maxima['card update'][0]} {maxima['card update'][1]:.3g}"),
+                     (params_median <= 1.0, f"updated parameters at {params_median:.3f} of the tolerance (median)"),
+                     (medians["card, TF32"] > GRAD_MEDIAN_TOL,
+                      f"the median gate would not catch TF32 ({medians['card, TF32']:.3g})")):
+        if not ok:
+            raise AssertionError(f"SSD-300 f32 step: {what}")
+    return {"loss_rel_diff": worst, "grad_norm_rel_diff_f64": grad_norm_err, "grad_median_err": medians,
+            "grad_max_err": maxima, "median_update_share": visible, "param_tolerance_used_median": params_median,
+            "param_tolerance_used_max": params_max, "tf32_unpinned_loss": tf32_loss, "exact_zero": zero,
+            "loss": m_cpu["loss/total"], "grad_norm": m_cpu["grad_norm"], "positives": m_cpu["counts/positives"]}
+
+
+def ssd_trainer_run(state, host_batch):
+    """Phase "ssd train" (b): Trainer.train with model ssd_300_vgg, bf16, K-B,
+    the ssd_300 train preset's matching, batch 32, from a step-0 checkpoint
+    of the seeded weights: 10 steps, K-B launched once a step and no other
+    kernel, every loss finite; the train-mode loss (dropout on, masks from a
+    fixed generator) of one fixed batch (one SSD augmentation with fixed
+    draws) lower after the steps than before; its eval-step loss recorded."""
+    with tempfile.TemporaryDirectory() as model_dir:
+        cfg = dataclasses.replace(SSD_TRAIN_CFG, model_dir=model_dir)
+        seeded_model_dir(model_dir, state, cfg)
+        trainer = Trainer(cfg, device="cuda")
+        if not (trainer.model.fuse_block1 and trainer.preprocess_config.variant == "ssd"
+                and isinstance(trainer.loss_config, SsdLossConfig)):
+            raise AssertionError("the SSD trainer did not take K-B, the ssd augmentation or the SSD loss")
+        host_b, draws = ssd_train_inputs(host_batch, BATCH, 4, trainer.preprocess_config)
+        fixed = augmented(host_b, draws, trainer.preprocess_config, "cuda")
+        loss_fn = detection_loss_fn(trainer.loss_config)
+
+        def fixed_losses():
+            _, metrics = trainer.eval_step(trainer.state, fixed)
+            with torch.no_grad():
+                out = trainer.model(fixed["image"], train=True, generator=torch.Generator("cuda").manual_seed(7))
+                targets = trainer.encoder.batched(fixed["gt_labels"], fixed["gt_boxes"], fixed["gt_valid"])
+                total, _ = loss_fn(out, targets)
+            return float(total), float(metrics["loss/total"])
+
+        trainer.init_state()
+        before, eval_before = fixed_losses()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, _ = quietly(lambda: trainer.train(max_steps=SSD_TRAIN_STEPS, batches=itertools.repeat(host_batch)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        after, eval_after = fixed_losses()
+        check_counts(f"SSD-300 trainer ({SSD_TRAIN_STEPS} bf16 steps, batch {BATCH})", launches, ("fused_vgg_block1",))
+        rows = [json.loads(line) for line in open(Path(model_dir) / "metrics.jsonl")]
+        losses = [r["loss/total"] for r in rows]
+        if st.step != SSD_TRAIN_STEPS or launches["fused_vgg_block1"] != SSD_TRAIN_STEPS:
+            raise AssertionError(f"SSD trainer: step {st.step}, K-B launched {launches['fused_vgg_block1']} times")
+        if [r["step"] for r in rows] != list(range(1, SSD_TRAIN_STEPS + 1)) or not np.isfinite(losses).all():
+            raise AssertionError(f"SSD trainer: logged steps {[r['step'] for r in rows]}, losses {losses}")
+        if not after < before:
+            raise AssertionError(f"the fixed batch's SSD train-mode loss did not fall: {before} -> {after}")
+    print(f"  SSD-300 trainer bf16 + K-B, batch {BATCH}: {SSD_TRAIN_STEPS} steps in {seconds:.2f} s (host clock, "
+          f"first steps included), losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; K-B launched "
+          f"{launches['fused_vgg_block1']} times, no other kernel; the fixed batch's loss {before:.4f} -> {after:.4f} "
+          f"(train mode, fixed dropout masks), eval step {eval_before:.4f} -> {eval_after:.4f}")
+    return {"steps": SSD_TRAIN_STEPS, "seconds": seconds, "losses": losses, "fixed_loss_before": before,
+            "fixed_loss_after": after, "eval_step_loss_before": eval_before, "eval_step_loss_after": eval_after,
+            "launches": launches}
+
+
+def heavy_phase(fx):
+    """Phase "heavy": ron_320_vgg_heavy from seeded weights (fan-in scaled,
+    gain 1), f32 at batch 2 on the card against the CPU's forward of the
+    same weights and images; then bf16 with K-B at batch 32 through the
+    Detector (K-B and K-A once each)."""
+    state, spec = seeded_state("ron_320_vgg_heavy", 1.0)
+    images = demo_images(fx, spec)
+    cpu, _ = get_network("ron_320_vgg_heavy")
+    cpu.load_state_dict(state, strict=True)
+    card, _ = get_network("ron_320_vgg_heavy")
+    card.load_state_dict(state, strict=True)
+    card.cuda()
+    with torch.inference_mode():
+        out = card(images[:SSD_F32_BATCH].cuda())
+        errs = forward_errors(f"ron_320_vgg_heavy batch {SSD_F32_BATCH}", out, cpu(images[:SSD_F32_BATCH]),
+                              fields=("logits", "locations", "objness_logits", "predictions"))
+        spread = class_spread(out.predictions)
+    del cpu, card
+    model, _ = get_network("ron_320_vgg_heavy", dtype=torch.bfloat16, fuse_block1=True)
+    model.load_state_dict(state, strict=True)
+    batch = images.cuda().repeat(BATCH // len(IMAGES), 1, 1, 1).contiguous()
+    det, _, launches = bf16_detector_run(f"ron_320_vgg_heavy bf16 Detector with K-B, batch {BATCH}", model, spec,
+                                         batch)
+    print(f"  heavy fc6 {tuple(model.backbone.fc6.conv.weight.shape)}, fc7 {tuple(model.backbone.fc7.conv.weight.shape)}; "
+          f"class probabilities " + ", ".join(f"{k} {v:.4f}" for k, v in spread.items()))
+    return {"forward_rel_err": errs, "spread": spread, "launches": launches}, det, batch
+
+
+def eval_losses(label, model, spec, loss_cfg, image_batch, fx, draws=None):
+    """Phase "eval losses": StreamingEvaluator(loss_config=...) on the card
+    (K-B and K-A) over EVAL_LOSS_BATCHES batches with gts from the fixture's
+    realtime references; each batch's loss/* metrics against the port's CPU
+    loss on the same outputs (copied to the host) and targets, with the same
+    draws for RON, within EVAL_LOSS_RTOL relative."""
+    det_cfg = SSD_DET if spec.name.startswith("ssd") else NMS_CFG
+    ev = StreamingEvaluator(model, spec, det_cfg, device="cuda", loss_config=loss_cfg)
+    ev.detector.model = Recording(ev.detector.model)
+    reps = image_batch.shape[0] // len(IMAGES)
+    gl, gb, gd = (np.tile(a, (reps,) + (1,) * (a.ndim - 1)) for a in reference_gts(fx))
+    batches = [{"image": image_batch, "gt_labels": gl, "gt_boxes": gb, "gt_difficult": gd}
+               for _ in range(EVAL_LOSS_BATCHES)]
+    kernels.reset_launch_counts()
+    _, _, _, stats = ev.run(iter(batches), log_every=0, loss_draws=draws)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts(f"streaming evaluator with losses, {label}", launches, MAIN_PATH)
+    enc = TargetEncoder(spec.anchor_layout(), spec.img_shape, 0.5, 0.3, spec.prior_scaling)
+    loss_fn = detection_loss_fn(loss_cfg)
+    worst = 0.0
+    for bi, (out, got) in enumerate(zip(ev.detector.model.outputs, ev.batch_losses)):
+        targets = enc.batched(torch.as_tensor(gl), torch.as_tensor(gb), torch.as_tensor(gl) > 0)
+        with torch.no_grad():
+            _, ref = loss_fn(host(out), targets, draws=None if draws is None else draws[bi].cpu())
+        for k, v in ref.items():
+            if k.startswith("loss/"):
+                worst = max(worst, abs(got[k] - float(v)) / abs(float(v)))
+    print(f"  {label}: loss/* of {len(ev.batch_losses)} batches of {image_batch.shape[0]} against the CPU loss on the "
+          f"same outputs: max relative diff {worst:.3g} (tolerance {EVAL_LOSS_RTOL}); means "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stats.items() if k.startswith("loss/")))
+    if worst > EVAL_LOSS_RTOL or len(ev.batch_losses) != EVAL_LOSS_BATCHES:
+        raise AssertionError(f"{label}: the evaluator's losses are off the CPU's ({worst})")
+    return {"max_rel_diff": worst, "means": {k: v for k, v in stats.items() if k.startswith("loss/")},
+            "launches": launches}
+
+
+def detector_stage_ms(det, batch):
+    """A Detector batch's ms (CUDA events) and its stage split: forward,
+    candidates (decode, gate, top-k), NMS (K-A + compact)."""
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: det(batch), reps=5, warmup=2)
+        out = det.model(batch)
+        flat = det.candidates(out)
+        cfg = det.config
+        stages = {"forward": cuda_ms(lambda: det.model(batch), reps=5),
+                  "candidates": cuda_ms(lambda: det.candidates(out), reps=5),
+                  "nms": cuda_ms(lambda: nms_sorted_kernel(*flat, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode),
+                                 reps=20)}
+    return {"ms": ms, "img_per_s": batch.shape[0] * 1e3 / ms, "stage_ms": stages}, flat
+
+
+def ssd_timing(ssd, ssd_300_state, heavy_det, heavy_batch, host_batch):
+    """Phase "timing", SSD and heavy: the bf16 Detectors' ms, images/s and
+    stage split (SSD-300 batch 32, SSD-512 batch 8 and 32, heavy RON-320
+    batch 32); the SSD-300 bf16 train step at batch 32, and a profiler pass
+    over its augmentation (the step's second-largest stage). Returns the numbers
+    and the NMS rows of the SSD Detectors and of SSD-300's class-wise
+    realtime head, for the kernels' rows."""
+    res, rows = {}, {}
+    runs = [("ssd_300_vgg", ssd["ssd_300_vgg"]["det"], ssd["ssd_300_vgg"]["batch"]),
+            ("ssd_512_vgg", ssd["ssd_512_vgg"]["det"], ssd["ssd_512_vgg"]["batch"]),
+            ("ssd_512_vgg", ssd["ssd_512_vgg"]["det"],
+             ssd["ssd_512_vgg"]["batch"].repeat(BATCH // SSD_BATCH["ssd_512_vgg"], 1, 1, 1)),
+            ("ron_320_vgg_heavy", heavy_det, heavy_batch)]
+    for name, det, batch in runs:
+        key = f"{name} b{batch.shape[0]}"
+        res[key], flat = detector_stage_ms(det, batch)
+        rows[key] = flat
+        r = res[key]
+        print(f"  Detector {key} bf16 + K-B: {r['ms']:.3f} ms/batch, {r['img_per_s']:.1f} img/s; stages (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["stage_ms"].items()))
+    s300 = ssd["ssd_300_vgg"]
+    with torch.inference_mode():
+        cw = RealtimeDetector(s300["model"], SSD_300_SPEC, RealtimeConfig.for_spec(SSD_300_SPEC), device="cuda")
+        rt_rows = cw.candidates(cw.model(s300["batch"]))
+    with tempfile.TemporaryDirectory() as model_dir:
+        trainer = Trainer(dataclasses.replace(SSD_TRAIN_CFG, model_dir=model_dir), device="cuda")
+        st = trainer.init_state()
+        trainer.model.load_state_dict(ssd_300_state, strict=True)
+        batch = to_device(host_batch, "cuda")
+        ms = cuda_ms(lambda: trainer.step(st, batch), reps=10, warmup=3)
+        stages = staged_step_ms(trainer, st, batch, reps=5)
+        augment_profile = profile_call(f"SSD-300 augmentation, batch {BATCH}",
+                                       lambda: trainer.augment(batch, trainer.generator(0)))
+        torch.cuda.reset_peak_memory_stats()
+        trainer.step(st, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    res["ssd_300_train_b32"] = {"ms": ms, "img_per_s": BATCH * 1e3 / ms, "stage_ms": stages, "peak_bytes": peak,
+                                "augment_profile": augment_profile}
+    print(f"  SSD-300 train step bf16 + K-B, batch {BATCH}: {ms:.3f} ms, {BATCH * 1e3 / ms:.1f} img/s; stages (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f" (sum {sum(stages.values()):.3f}); peak memory {peak / 2 ** 30:.2f} GiB")
+    return res, rows, rt_rows
+
+
+def nms_part(label, scores, boxes, thr, mode, cap=None):
+    """One row set of an NMS kernel (K-A, or K-C with a cap) on a path's own
+    rows: 0 mask differences against its plain version, then its device
+    time, the wrapper's per-call time, the plain version's time, the
+    overlaps the keep set needs and the bound they give."""
+    scores, boxes = scores.contiguous(), boxes.contiguous()
+    if cap is None:
+        fn = lambda: kernels.nms_fixpoint_keep_mask(scores, boxes, thr, mode)  # noqa: E731
+        plain = lambda: kernels.nms_fixpoint_keep_mask_plain(scores, boxes, thr, mode)  # noqa: E731
+    else:
+        fn = lambda: kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)  # noqa: E731
+        plain = lambda: kernels.nms_scan_keep_mask_plain(scores, boxes, thr, cap, mode)  # noqa: E731
+    keep, keep_plain = fn(), plain()
+    err, n_diff = mask_err(keep, keep_plain)
+    if n_diff:
+        raise AssertionError(f"NMS on {label}: {n_diff} mask differences")
+    r, k = scores.shape
+    pairs = greedy_pairs(keep)
+    bound_ms, bound_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
+    part = {"rows": [r, k], "mode": mode, "keep_top_k": cap, **nms_times(fn), "plain_ms": cuda_ms(plain, reps=2),
+            "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, **kept_stats(keep)}
+    print(f"  {'nms_fixpoint_keep_mask' if cap is None else 'nms_scan_keep_mask'} {label} {mode}: {part['ms']:.4f} ms "
+          f"device, {part['call_ms']:.4f} ms a wrapper call, plain {part['plain_ms']:.4f}; {pairs} overlaps needed, "
+          f"bound {bound_ms:.5f} by {bound_by}; kept per row mean {part['kept_mean']:.2f}, max {part['kept_max']}; "
+          "0 mask differences")
+    return part
+
+
+def kb_shape_rows(ssd):
+    """K-B at the SSD shapes ([32, 300, 300, 3] with ragged tiles, [8, 512,
+    512, 3], [32, 512, 512, 3]): its launches in one Detector batch of that
+    shape, ms, plain ms, bound, and cuDNN's time for the same block
+    (`F.conv2d` x2 + `F.max_pool2d`, bf16)."""
+    rows = {}
+    for name, b in (("ssd_300_vgg", BATCH), ("ssd_512_vgg", 8), ("ssd_512_vgg", BATCH)):
+        s = ssd[name]
+        batch = s["batch"].repeat(b // s["batch"].shape[0], 1, 1, 1).contiguous()
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            s["det"](batch)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["fused_vgg_block1"]
+        x = batch.to(torch.bfloat16).contiguous()
+        w = block1_of(s["model"])
+        _, h, wd, _ = x.shape
+        flops = 2 * b * h * wd * 64 * 9 * (3 + 64)
+        nbytes = x.numel() * 2 + b * (h // 2) * (wd // 2) * 64 * 2 + (w[0].numel() + w[2].numel()) * 2 + 128 * 4
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        x_nchw = x.permute(0, 3, 1, 2)
+        lw = [t.to(torch.bfloat16) for t in w]
+
+        def library():
+            y = F.relu(F.conv2d(x_nchw, lw[0], lw[1], padding=1))
+            return F.max_pool2d(F.relu(F.conv2d(y, lw[2], lw[3], padding=1)), 2, 2)
+
+        with torch.inference_mode():
+            row = with_rates({
+                "path": f"{name} Detector, bf16, batch {b}", "launches": launches,
+                "ms": cuda_ms(lambda: kernels.fused_vgg_block1(x, *w), reps=20),
+                "plain_ms": cuda_ms(lambda: kernels.fused_vgg_block1_plain(x, *w), reps=2),
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(library, reps=10),
+            }, flops)
+        rows[str(list(x.shape))] = row
+        print(f"  fused_vgg_block1 {list(x.shape)}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+              f"{bound_ms:.4f} by {bound_by}, cuDNN {row['library_ms']:.4f}), {row['tflops']:.1f} TFLOP/s, "
+              f"{row['bound_share']:.3f} of bound, {row['library_ratio']:.3f}x cuDNN; launched {launches} in the "
+              f"{name} Detector's batch")
+    return rows
 
 
 def main() -> int:
@@ -1431,6 +2033,40 @@ def main() -> int:
         train_run = bf16_trainer_run(state, host, fx)
         train_kb = kb_train_grads(state, host)
 
+    with phase("ssd f32"):
+        ssd_states, ssd_res, ssd_f32_dets = {}, {}, {}
+        kernels.reset_launch_counts()
+        for name in SSD_NAMES:
+            ssd_states[name], spec, spread = ssd_state(name, fx)
+            ssd_res[name], ssd_f32_dets[name] = ssd_f32(name, ssd_states[name], spec, fx)
+            ssd_res[name]["spread"] = spread
+        torch.cuda.synchronize()
+        check_counts("SSD f32 phase (Detector and class-wise realtime head)", kernels.launch_counts(),
+                     ("nms_fixpoint_keep_mask", "nms_scan_keep_mask"))
+        ssd_f32_launches = kernels.launch_counts()
+
+    with phase("ssd bf16"):
+        ssd = {name: ssd_bf16(name, ssd_states[name], get_network(name)[1], fx, ssd_f32_dets[name], max_err)
+               for name in SSD_NAMES}
+
+    with phase("ssd train"):
+        host32 = train_host_batch(fx, BATCH)
+        ssd_train = {"f32_card_vs_cpu": ssd_f32_train_parity(ssd_states["ssd_300_vgg"], host32),
+                     "trainer_bf16": ssd_trainer_run(ssd_states["ssd_300_vgg"], host32)}
+
+    with phase("heavy"):
+        heavy, heavy_det, heavy_batch = heavy_phase(fx)
+
+    with phase("eval losses"):
+        s300 = ssd["ssd_300_vgg"]
+        n_ron = RON_320_SPEC.anchor_layout().num_anchors
+        ron_draws = [torch.rand(2, BATCH, n_ron, device="cuda", generator=torch.Generator("cuda").manual_seed(bi))
+                     for bi in range(EVAL_LOSS_BATCHES)]
+        eval_loss = {"ssd_300_vgg": eval_losses("SSD-300 bf16, SsdLossConfig", s300["model"], SSD_300_SPEC,
+                                                SsdLossConfig(), s300["batch"], fx),
+                     "ron_320_vgg": eval_losses("RON-320 bf16 (trained), RonLossConfig", model, RON_320_SPEC,
+                                                TRAIN_CFG.loss, batch, fx, ron_draws)}
+
     with phase("timing"):
         print(f"  card before timing: {smi_sample()} (SM clock, power, temperature)")
         with torch.inference_mode():
@@ -1481,7 +2117,19 @@ def main() -> int:
                       f"by {p['bound_by']}, library {p['library_ms']:.4f}), {p['tflops']:.1f} TFLOP/s, "
                       f"{p['bound_share']:.3f} of bound, {p['library_ratio']:.3f}x the library")
         train_times = train_timing(state, fx)
+        ssd_times, ssd_rows, ssd_rt_rows = ssd_timing(ssd, ssd_states["ssd_300_vgg"], heavy_det, heavy_batch, host32)
+        del heavy_det, heavy_batch
+        with torch.inference_mode():
+            results[0]["parts"] = {f"{key} {list(flat[0].shape)}": nms_part(key, *flat, SSD_DET.nms_threshold,
+                                                                              SSD_DET.nms_mode)
+                                   for key, flat in ssd_rows.items() if key.startswith("ssd")}
+            cw = RealtimeConfig.for_spec(SSD_300_SPEC)
+            results[2]["parts"][f"ssd_300 class-wise {list(ssd_rt_rows[0].shape)}"] = nms_part(
+                "ssd_300 class-wise", *ssd_rt_rows, cw.nms_threshold, cw.nms_mode, cw.keep_per_class)
+            results[0]["parts_launches"] = {name: s["launches"]["nms_fixpoint_keep_mask"] for name, s in ssd.items()}
+            results[2]["ssd_f32_launches"] = ssd_f32_launches["nms_scan_keep_mask"]
         kb_row = next(r for r in results if r["name"] == "fused_vgg_block1")
+        kb_row["shapes"] = kb_shape_rows(ssd)
         kb_row.update({"train_launches": train_run["launches"]["fused_vgg_block1"], "train_steps": TRAIN_STEPS,
                        "train_path": "Trainer.train, bf16, batch 14: one kernel forward a step, backward by "
                                      "recompute through block1_reference (cuDNN)", **train_times["kb_train"]})
@@ -1506,7 +2154,10 @@ def main() -> int:
                       "bf16_vs_f32": drift, "profile": profile, "realtime_head_bf16": realtime,
                       "evaluators": evaluators, "profile_realtime": rt_profile,
                       "train": {"f32_card_vs_cpu": train_f32, "trainer_bf16": train_run, "kb_in_step": train_kb,
-                                "timing": train_times}}))
+                                "timing": train_times},
+                      "ssd": {name: {**ssd_res[name], "kb_err": ssd[name]["kb_err"], "bf16_vs_f32": ssd[name]["drift"]}
+                              for name in SSD_NAMES},
+                      "ssd_train": ssd_train, "heavy": heavy, "eval_losses": eval_loss, "ssd_timing": ssd_times}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -5,14 +5,16 @@ Port of `ron_tensorflow_tpu/eval/evaluator.py::StreamingEvaluator`
 `Detector` (forward, decode, gate, class-wise NMS through K-A) and the
 per-class TP/FP matching; the small score and TP/FP arrays then go to the
 host accumulator `StreamingTpFp`. Per-class AP (VOC07 and VOC12) and mAP at
-the end. Not ported yet: the JAX evaluator's `mesh` (multi-device eval) and
-`loss_config` (eval losses, which need the training slice).
+the end. With `loss_config`, the model's losses of every batch too, from the
+same forward as its detections (ref: eval_ron_network.py:208-236). Not
+ported yet: the JAX evaluator's `mesh` (multi-device eval, ROADMAP Queue 1
+item 4).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,7 +22,9 @@ import torch
 from ..data.preprocess import VGG_MEANS, whiten
 from ..inference.detector import DetectionConfig, Detector
 from ..ops.ap import StreamingTpFp
+from ..ops.encode import TargetEncoder
 from ..ops.matching import match_all_classes
+from ..train.state import detection_loss_fn
 
 
 def copy_to_host(*tensors: torch.Tensor):
@@ -49,12 +53,34 @@ class StreamingEvaluator:
         config: DetectionConfig = DetectionConfig(),
         matching_threshold: float = 0.5,
         device="cuda",
+        loss_config=None,
+        loss_match_threshold: float = 0.5,
+        loss_ignore_threshold: float = 0.3,
     ):
+        """loss_config: a `RonLossConfig` or `SsdLossConfig` to report the
+        model's `loss/*` metrics of every batch beside the detections
+        (`evaluator.py:32-72`), its targets encoded from the batch's gts
+        (valid where the label is > 0) at the two thresholds."""
         self.detector = Detector(model, spec, config, device=device)
         self.device = self.detector.device
         self.spec = spec
         self.matching_threshold = matching_threshold
         self.accumulator: Optional[StreamingTpFp] = None  # the last run's
+        self.batch_losses: List[Dict[str, float]] = []  # the last run's, batch by batch
+        self._loss = None
+        if loss_config is not None:
+            self._encoder = TargetEncoder(spec.anchor_layout(), spec.img_shape, loss_match_threshold,
+                                          loss_ignore_threshold, spec.prior_scaling)
+            self._loss = detection_loss_fn(loss_config)
+
+    def batch_loss(self, out, gt_labels, gt_boxes, bi: int, draws=None) -> Dict[str, torch.Tensor]:
+        """The `loss/*` metrics of batch `bi`'s outputs. RON's loss samples
+        its negatives with `draws`, else with a generator seeded `bi` (the
+        JAX evaluator's `PRNGKey(bi)`); SSD's draws nothing."""
+        targets = self._encoder.batched(gt_labels, gt_boxes, gt_labels > 0)
+        generator = None if draws is not None else torch.Generator(device=self.device).manual_seed(bi)
+        _, metrics = self._loss(out, targets, generator, draws)
+        return {k: v for k, v in metrics.items() if k.startswith("loss/")}
 
     @torch.inference_mode()
     def run(
@@ -65,6 +91,7 @@ class StreamingEvaluator:
         debug_dir: Optional[str] = None,
         debug_max_images: int = 64,
         debug_score_threshold: float = 0.5,
+        loss_draws: Optional[Sequence] = None,
     ):
         """batches yield "image" (whitened float [B, H, W, 3], or uint8
         pixels, whitened on the device), padded GT "gt_labels" [B, G],
@@ -73,11 +100,16 @@ class StreamingEvaluator:
 
         debug_dir: dump boxed JPEGs of the post-NMS detections of the first
         `debug_max_images` images (ref: eval_ron_network.py:240-247).
+        loss_draws: with a RON `loss_config`, the loss's [2, B, N] draws of
+        each batch, in order (else `batch_loss` seeds a generator per batch).
 
-        Returns (map07, map12, {class: ap07}, stats); `self.accumulator`
-        keeps the run's per-class scores and TP/FP marks."""
+        Returns (map07, map12, {class: ap07}, stats); with `loss_config`,
+        stats also holds each `loss/*` metric's mean over the batches, and
+        `self.batch_losses` each batch's. `self.accumulator` keeps the run's
+        per-class scores and TP/FP marks."""
         acc = StreamingTpFp(self.spec.num_classes)
         self.accumulator = acc
+        self.batch_losses = []
         n_images = 0
         n_debugged = 0
         t_start = time.time()
@@ -116,21 +148,29 @@ class StreamingEvaluator:
                 # whiten on the device
                 image = whiten(image.to(torch.float32) / 255.0)
             gt = [torch.as_tensor(batch[k]).to(self.device) for k in ("gt_labels", "gt_boxes", "gt_difficult")]
-            scores, boxes = self.detector(image)
+            losses = {}
+            if self._loss is None:
+                scores, boxes = self.detector(image)
+            else:  # one forward for the detections and the losses
+                out = self.detector.model(image)
+                scores, boxes = self.detector.postprocess(out)
+                losses = self.batch_loss(out, gt[0], gt[1], bi, None if loss_draws is None else loss_draws[bi])
             res = match_all_classes(self.spec.num_classes, scores, boxes, *gt, self.matching_threshold)
             debug = debug_dir is not None and n_debugged < debug_max_images
-            copied = copy_to_host(scores, res.n_gt, res.tp, res.fp, *((boxes,) if debug else ()))
+            copied = copy_to_host(scores, res.n_gt, res.tp, res.fp, *losses.values(), *((boxes,) if debug else ()))
             sample_valid = batch.get("sample_valid")
             debug_image = np.asarray(batch["image"]) if debug else None
-            return bi, copied, sample_valid, debug_image
+            return bi, copied, list(losses), sample_valid, debug_image
 
         def harvest(pending):
             """Take one dispatched batch's results and accumulate TP/FP."""
             nonlocal n_images
-            bi, copied, sample_valid, debug_image = pending
-            scores, n_gt, tp, fp, *boxes = wait_host(copied)
+            bi, copied, loss_names, sample_valid, debug_image = pending
+            scores, n_gt, tp, fp, *rest = wait_host(copied)
+            if loss_names:
+                self.batch_losses.append({k: float(v) for k, v in zip(loss_names, rest)})
             if debug_image is not None:
-                debug_dump(debug_image, scores, boxes[0])
+                debug_dump(debug_image, scores, rest[len(loss_names)])
             b = scores.shape[0]
             sample_valid = np.ones((b,), bool) if sample_valid is None else np.asarray(sample_valid)
             for img in range(b):
@@ -158,4 +198,6 @@ class StreamingEvaluator:
         map07, aps07 = acc.mean_average_precision("voc07")
         map12, _ = acc.mean_average_precision("voc12")
         stats = {"images": n_images, "sec_per_image": (time.time() - t_start) / max(n_images, 1)}
+        for k in self.batch_losses[0] if self.batch_losses else ():
+            stats[k] = sum(b[k] for b in self.batch_losses) / len(self.batch_losses)
         return map07, map12, aps07, stats

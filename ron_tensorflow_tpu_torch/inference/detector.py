@@ -13,6 +13,11 @@ Port of `ron_tensorflow_tpu/inference/detector.py`:
   filters -> whole-image union-mode NMS (K-C) -> [B, keep_top_k] detections
   with labels. Its class-wise mode runs per-class top-k and per-class NMS
   (K-C) instead, then one whole-image top-k.
+
+Both heads take any detector module whose forward maps whitened images
+[B, H, W, 3] to `DetectorOutputs` (RON, SSD); SSD's constant objectness of
+1 passes the gates (the SSD eval preset sets its objectness threshold to 0,
+and `RealtimeConfig.for_spec` picks class-wise mode for it).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels.nms import nms_sorted_kernel
-from ..models.ron import RON, DetectorOutputs
+from ..models.ron import DetectorOutputs
 from ..models.spec import DetectorSpec
 from ..ops import boxes as boxops
 from ..ops.decode import decode_boxes
@@ -55,11 +60,11 @@ class DetectionConfig:
 
 
 class Detector:
-    """Class-wise detection head over a RON model on one device."""
+    """Class-wise detection head over a detector model (RON, SSD) on one device."""
 
     def __init__(
         self,
-        model: RON,
+        model: torch.nn.Module,
         spec: DetectorSpec,
         config: DetectionConfig = DetectionConfig(),
         device="cuda",
@@ -163,11 +168,12 @@ class RealtimeConfig:
 
 
 class RealtimeDetector:
-    """Whole-image NMS detection head over a RON model on one device."""
+    """Whole-image NMS detection head over a detector model (RON, SSD) on one
+    device; class-wise in the mode `RealtimeConfig.for_spec` picks for SSD."""
 
     def __init__(
         self,
-        model: RON,
+        model: torch.nn.Module,
         spec: DetectorSpec,
         config: RealtimeConfig = RealtimeConfig(),
         device="cuda",

@@ -1,4 +1,4 @@
-"""RON-320 detector modules (NCHW inside, the JAX layout at the outputs)."""
+"""Detector modules (NCHW inside, the JAX layout at the outputs): RON and SSD."""
 
 from __future__ import annotations
 
@@ -7,22 +7,24 @@ import torch
 
 def get_network(name: str, dtype: torch.dtype = torch.float32, **kwargs):
     """Model registry (`ron_tensorflow_tpu/models/__init__.py::get_network`):
-    name -> (RON module, DetectorSpec). `kwargs` go to `RON` (fuse_block1,
-    bn_fast_normalize). The heavy VGG variant and SSD are not ported yet."""
+    name -> (module, DetectorSpec). `kwargs` go to the module: `RON`'s
+    (fuse_block1, bn_fast_normalize) or `SSD`'s (fuse_block1, dropout_rate).
+    The reference's *_caffe entries differ only in how their weights were
+    first seeded, so they name the same two SSD architectures."""
     from .ron import RON
-    from .spec import RON_320_SPEC, RON_TINY_SPEC
+    from .spec import RON_320_SPEC, RON_TINY_SPEC, SSD_300_SPEC, SSD_512_SPEC
+    from .ssd import SSD
 
-    specs = {"ron_320_vgg": RON_320_SPEC, "ron_tiny_vgg": RON_TINY_SPEC}
-    later = {
-        "ron_320_vgg_heavy": "the 'heavy' VGG variant (ROADMAP Queue 1, left out of the realtime slice)",
-        "ssd_300_vgg": "SSD (ROADMAP Queue 1 item 2)",
-        "ssd_512_vgg": "SSD (ROADMAP Queue 1 item 2)",
-        "ssd_300_vgg_caffe": "SSD (ROADMAP Queue 1 item 2)",
-        "ssd_512_vgg_caffe": "SSD (ROADMAP Queue 1 item 2)",
+    registry = {
+        "ron_320_vgg": (RON, RON_320_SPEC, {"backbone_variant": "reduced"}),
+        "ron_320_vgg_heavy": (RON, RON_320_SPEC, {"backbone_variant": "heavy"}),
+        "ron_tiny_vgg": (RON, RON_TINY_SPEC, {}),
+        "ssd_300_vgg": (SSD, SSD_300_SPEC, {}),
+        "ssd_512_vgg": (SSD, SSD_512_SPEC, {}),
+        "ssd_300_vgg_caffe": (SSD, SSD_300_SPEC, {}),
+        "ssd_512_vgg_caffe": (SSD, SSD_512_SPEC, {}),
     }
-    if name in later:
-        raise NotImplementedError(f"network {name!r} is not ported yet: {later[name]}")
-    if name not in specs:
-        raise ValueError(f"unknown network {name!r}; options: {sorted(specs) + sorted(later)}")
-    spec = specs[name]
-    return RON(spec, dtype=dtype, **kwargs), spec
+    if name not in registry:
+        raise ValueError(f"unknown network {name!r}; options: {sorted(registry)}")
+    cls, spec, fixed = registry[name]
+    return cls(spec, dtype=dtype, **fixed, **kwargs), spec

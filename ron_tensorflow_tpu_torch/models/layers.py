@@ -78,7 +78,8 @@ class BatchNorm(nn.Module):
 
 
 class Conv(nn.Module):
-    """slim.conv2d equivalent: conv [+ BN] [+ ReLU], SAME padding.
+    """slim.conv2d equivalent: conv [+ BN] [+ ReLU], XLA's 'SAME' padding or
+    none ('VALID').
 
     With `norm=True` the conv has no bias (slim drops it when a normalizer
     is set). `conv.weight` is OIHW."""
@@ -92,18 +93,23 @@ class Conv(nn.Module):
         dilation: Tuple[int, int] = (1, 1),
         norm: bool = False,
         relu: bool = True,
+        padding: str = "SAME",
     ):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
         self.conv = nn.Conv2d(
             in_features, features, kernel, strides, dilation=dilation, bias=not norm
         )
         self.bn = BatchNorm(features) if norm else None
         self.relu = relu
+        self.padding = padding
 
     def forward(self, x, train: bool = False):
         c = self.conv
         (pt, pb), (pl, pr) = (
             _same_pads(x.shape[d], c.kernel_size[i], c.stride[i], c.dilation[i])
+            if self.padding == "SAME" else (0, 0)
             for i, d in enumerate((2, 3))
         )
         if pt != pb or pl != pr:
@@ -144,13 +150,38 @@ def max_pool_2x2(x):
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
 
 
+def max_pool_3x3_s1(x):
+    """3x3/stride-1 SAME max pool (SSD's pool5, `ssd.py:194`): flax pads with
+    -inf, as `F.max_pool2d`'s implicit padding does, so the map keeps its size."""
+    return F.max_pool2d(x, 3, 1, padding=1)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout` in train mode: keep with probability 1 - rate and
+    scale by 1 / (1 - rate), else 0; the identity when not training or at
+    rate 0. The mask is drawn from `generator` (torch's default generator
+    when None), on x's device."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, train: bool = False, generator: torch.Generator = None):
+        if not train or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class L2Normalization(nn.Module):
     """Channel-wise L2 normalization with a learnable per-channel scale
     (`layers.py:213-232`)."""
 
     def __init__(self, features: int, scale_init: float = 1.0):
         super().__init__()
-        self.gamma = nn.Parameter(torch.full((features,), float(scale_init)))
+        self.scale_init = float(scale_init)
+        self.gamma = nn.Parameter(torch.full((features,), self.scale_init))
 
     def forward(self, x):
         x32 = x.float()
@@ -175,11 +206,12 @@ def _glorot_uniform_(weight, fan_in: int, fan_out: int, generator):
 
 def init_like_flax_(module: nn.Module, generator: torch.Generator = None) -> nn.Module:
     """Re-initialize `module`'s parameters as the flax modules do
-    (`layers.py:125-136, 170-179`): glorot-uniform conv kernels with fan in
-    kh*kw*in and fan out kh*kw*out, the 2x2 deconv's glorot on its
+    (`layers.py:125-136, 170-179, 227-232`): glorot-uniform conv kernels with
+    fan in kh*kw*in and fan out kh*kw*out, the 2x2 deconv's glorot on its
     [2, 2, in, out] kernel, zero biases, BN scale 1 and bias 0 and running
-    statistics 0 and 1. Not `nn.Conv2d`'s default (kaiming) init. The
-    module may lie on any device."""
+    statistics 0 and 1, an L2 normalization's scale at its initial value.
+    Not `nn.Conv2d`'s default (kaiming) init. The module may lie on any
+    device."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             out_c, in_c, kh, kw = m.weight.shape
@@ -195,4 +227,6 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator = None) -> nn.
             nn.init.zeros_(m.bias)
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, L2Normalization):
+            nn.init.constant_(m.gamma, m.scale_init)
     return module

@@ -19,10 +19,14 @@ from torch import nn
 from .. import full_f32_convs
 from .layers import BatchNorm, Conv, ConvTranspose
 from .spec import RON_320_SPEC, DetectorSpec
-from .vgg import VGG16Backbone
+from .vgg import FC_VARIANTS, VGG16Backbone
 
-# Backbone channels of each endpoint a reverse connection reads.
-_ENDPOINT_CHANNELS = {"block4": 512, "block5": 512, "block6": 1024, "block7": 1024}
+
+def _endpoint_channels(variant: str) -> dict:
+    """Backbone channels of each endpoint a reverse connection reads:
+    block6 and block7 carry the fc variant's width (1024 reduced, 4096 heavy)."""
+    fc = FC_VARIANTS[variant][2]
+    return {"block4": 512, "block5": 512, "block6": fc, "block7": fc}
 
 
 class DetectorOutputs(NamedTuple):
@@ -117,6 +121,7 @@ class ReverseConnection(nn.Module):
 class RON(nn.Module):
     """The RON detector (ref: nets/ron_vgg_320.py:434-580 `ron_net_reducedfc`).
 
+    backbone_variant: the VGG fc variant, 'reduced' or 'heavy'.
     dtype: compute dtype; parameters stay float32 and are cast per call.
     fuse_block1: run VGG block 1 through the fused CUDA kernel.
     bn_fast_normalize: in train mode, normalize a bf16 activation with one
@@ -129,15 +134,17 @@ class RON(nn.Module):
         dtype: torch.dtype = torch.float32,
         fuse_block1: bool = False,
         bn_fast_normalize: bool = False,
+        backbone_variant: str = "reduced",
     ):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
-        self.backbone = VGG16Backbone(fuse_block1=fuse_block1)
+        self.backbone = VGG16Backbone(fuse_block1=fuse_block1, variant=backbone_variant)
+        channels = _endpoint_channels(backbone_variant)
         for i, layer in enumerate(spec.feat_layers):
             a = spec.num_anchors_per_cell(i)
             self.add_module(
-                f"{layer}_reverse", ReverseConnection(_ENDPOINT_CHANNELS[layer], first=i == 0)
+                f"{layer}_reverse", ReverseConnection(channels[layer], first=i == 0)
             )
             self.add_module(f"{layer}_objectness", ObjectnessHead(a))
             self.add_module(f"{layer}_cls", ClsHead(a, spec.num_classes))

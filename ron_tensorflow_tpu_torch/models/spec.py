@@ -1,8 +1,9 @@
 """Static detector hyper-parameters.
 
 Copied from `ron_tensorflow_tpu/models/ron.py` (`DetectorSpec`,
-`RON_320_SPEC`) and `ron_tensorflow_tpu/models/testing.py`
-(`RON_TINY_SPEC`), so that neither the port nor its tests need flax.
+`RON_320_SPEC`), `ron_tensorflow_tpu/models/testing.py` (`RON_TINY_SPEC`)
+and `ron_tensorflow_tpu/models/ssd.py` (`SSD_300_SPEC`, `SSD_512_SPEC`), so
+that neither the port nor its tests need flax.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ class DetectorSpec:
     anchor_offset: float = 0.5
     prior_scaling: Tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
     anchor_style: str = "ron"  # 'ron' (sizes x ratios) | 'ssd' (sizes[0]+ratios)
+    # per-layer L2-normalization scale init; <= 0 disables (SSD's block4: 20)
     normalizations: Tuple[float, ...] = ()
+    # False for SSD, whose outputs carry a constant objectness of 1: heads
+    # gated by objectness pick class-wise semantics (RealtimeConfig.for_spec)
     has_objectness: bool = True
 
     @functools.lru_cache(maxsize=None)
@@ -77,4 +81,58 @@ RON_TINY_SPEC = DetectorSpec(
     anchor_sizes=((44.8, 51.2), (32.0, 38.4), (19.2, 25.6), (6.4, 12.8)),
     anchor_ratios=tuple((1.0, 2.0, 3.0, 0.5, 1.0 / 3.0) for _ in range(4)),
     anchor_steps=(64.0, 32.0, 16.0, 8.0),
+)
+
+SSD_300_SPEC = DetectorSpec(
+    name="ssd_300_vgg",
+    img_shape=(300, 300),
+    num_classes=21,
+    feat_layers=("block4", "block7", "block8", "block9", "block10", "block11"),
+    feat_shapes=((38, 38), (19, 19), (10, 10), (5, 5), (3, 3), (1, 1)),
+    # SSD matches without border filtering; borders = img size disable it.
+    allowed_borders=(300.0,) * 6,
+    anchor_sizes=((21.0, 45.0), (45.0, 99.0), (99.0, 153.0), (153.0, 207.0), (207.0, 261.0), (261.0, 315.0)),
+    anchor_ratios=(
+        (2.0, 0.5),
+        (2.0, 0.5, 3.0, 1.0 / 3.0),
+        (2.0, 0.5, 3.0, 1.0 / 3.0),
+        (2.0, 0.5, 3.0, 1.0 / 3.0),
+        (2.0, 0.5),
+        (2.0, 0.5),
+    ),
+    anchor_steps=(8.0, 16.0, 32.0, 64.0, 100.0, 300.0),
+    anchor_style="ssd",
+    normalizations=(20.0, -1.0, -1.0, -1.0, -1.0, -1.0),
+    has_objectness=False,
+)
+
+SSD_512_SPEC = DetectorSpec(
+    name="ssd_512_vgg",
+    img_shape=(512, 512),
+    num_classes=21,
+    feat_layers=("block4", "block7", "block8", "block9", "block10", "block11", "block12"),
+    feat_shapes=((64, 64), (32, 32), (16, 16), (8, 8), (4, 4), (2, 2), (1, 1)),
+    allowed_borders=(512.0,) * 7,
+    anchor_sizes=(
+        (20.48, 51.2),
+        (51.2, 133.12),
+        (133.12, 215.04),
+        (215.04, 296.96),
+        (296.96, 378.88),
+        (378.88, 460.8),
+        (460.8, 542.72),
+    ),
+    anchor_ratios=(
+        (2.0, 0.5),
+        (2.0, 0.5, 3.0, 1.0 / 3.0),
+        (2.0, 0.5, 3.0, 1.0 / 3.0),
+        (2.0, 0.5, 3.0, 1.0 / 3.0),
+        (2.0, 0.5, 3.0, 1.0 / 3.0),
+        (2.0, 0.5),
+        (2.0, 0.5),
+    ),
+    anchor_steps=(8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0),
+    anchor_style="ssd",
+    normalizations=(20.0, -1.0, -1.0, -1.0, -1.0, -1.0, -1.0),
+    has_objectness=False,
 )

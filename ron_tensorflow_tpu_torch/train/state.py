@@ -26,7 +26,9 @@ import torch
 
 from .. import full_f32_convs
 from ..losses.ron import RonLossConfig, ron_losses
+from ..losses.ssd import SsdLossConfig, ssd_losses
 from ..models.layers import init_like_flax_
+from ..models.ssd import SSD
 from ..ops.encode import TargetEncoder
 from .optimizer import Optimizer, global_norm
 
@@ -88,16 +90,29 @@ def create_train_state(model: torch.nn.Module, tx: Optimizer, generator: Optiona
 
 def detection_loss_fn(loss_config) -> Callable:
     """(outputs, targets, generator, draws) -> (loss, metrics) for the
-    config's family. Only RON's is ported; SSD's waits for its slice."""
-    if not isinstance(loss_config, RonLossConfig):
-        raise NotImplementedError(
-            f"{type(loss_config).__name__}: the SSD loss is not ported yet (ROADMAP Queue 1 item 2)")
+    config's family (`state.py:53-79`): `SsdLossConfig` -> `ssd_losses`,
+    which draws nothing; otherwise (`RonLossConfig`) `ron_losses`, whose
+    negatives come from `draws` or `generator`."""
+    if isinstance(loss_config, SsdLossConfig):
+        def ssd_fn(out, targets, generator=None, draws=None):
+            return ssd_losses(out.logits, out.locations, targets.labels, targets.locations, targets.scores,
+                              loss_config)
+
+        return ssd_fn
 
     def fn(out, targets, generator=None, draws=None):
         return ron_losses(out.logits, out.locations, out.objness_logits, out.objness_pred,
                           targets.labels, targets.locations, loss_config, generator=generator, draws=draws)
 
     return fn
+
+
+def train_forward(model, images, generator: Optional[torch.Generator] = None):
+    """The model in train mode. Only SSD draws in its forward (its dropout
+    masks, from `generator`)."""
+    if isinstance(model, SSD):
+        return model(images, train=True, generator=generator)
+    return model(images, train=True)
 
 
 def pinned_precision(model) -> contextlib.AbstractContextManager:
@@ -110,9 +125,10 @@ def make_train_step(model, encoder: TargetEncoder, tx: Optimizer, loss_config=Ro
     """The train step: (state, batch, generator=None, draws=None) ->
     (state, metrics), batch = dict(image [B, H, W, 3] whitened, gt_labels
     [B, G], gt_boxes [B, G, 4], gt_valid [B, G]) on the model's device.
-    The loss samples its negatives with `draws` ([2, B, N] uniforms) or, if
-    none are given, with `generator`. Metrics are 0-dim tensors on the
-    device (reading one waits for the step)."""
+    The forward's draws (SSD's dropout masks) come from `generator`; RON's
+    loss samples its negatives with `draws` ([2, B, N] uniforms) or, if none
+    are given, with `generator` after the forward. Metrics are 0-dim tensors
+    on the device (reading one waits for the step)."""
     loss = detection_loss_fn(loss_config)
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None, draws=None):
@@ -121,7 +137,7 @@ def make_train_step(model, encoder: TargetEncoder, tx: Optimizer, loss_config=Ro
         for p in params:
             p.grad = None
         with pinned_precision(model):
-            out = model(batch["image"], train=True)
+            out = train_forward(model, batch["image"], generator)
             total, metrics = loss(out, targets, generator, draws)
             total.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]

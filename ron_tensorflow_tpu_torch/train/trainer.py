@@ -17,14 +17,19 @@ Around it, as the JAX trainer does:
   `SystemExit(75)`);
 - debug images of the augmented batch with its gt boxes.
 
+The SSD models train as in the JAX trainer (trainer.py:109-125): the
+'ssd' augmentation when `augment_variant` is 'auto', and the hard-negative
+loss `SsdLossConfig(num_classes, match_threshold=match.positive_threshold)`
+in place of `config.loss`; their dropout draws from the step's generator.
+
 K-B (the fused block-1 kernel, with its recompute backward) is on where the
 JAX trainer turns it on (trainer.py:84-100): `fuse_block1` asked for, a
 bf16 model, one device, a CUDA device and a shape `fused_block1_supported`
-takes. Not ported yet, and raising: reading TFRecord shards (`make_batches`,
-ROADMAP Queue 1 item 5), warm start (`checkpoint_path`, item 3), a mesh
-over several devices (item 4), `s2d_stem`, the SSD models and their loss
-(item 2). TensorBoard event files are not written: with `tensorboard=True`
-the trainer says so once.
+takes (RON-320, SSD-300 and SSD-512 alike). Not ported yet, and raising:
+reading TFRecord shards (`make_batches`, ROADMAP Queue 1 item 5), warm
+start (`checkpoint_path`, item 3), a mesh over several devices (item 4),
+`s2d_stem`. TensorBoard event files are not written: with
+`tensorboard=True` the trainer says so once.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..config import TrainConfig, print_config
 from ..data.pipeline import DevicePrefetcher
 from ..data.preprocess import PreprocessConfig, train_augment_batch, unwhiten
 from ..kernels import fused_block1_supported
+from ..losses.ssd import SsdLossConfig
 from ..models import get_network
 from ..ops.encode import TargetEncoder
 from ..utils.profiling import StepTimer
@@ -66,8 +72,6 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def _not_ported(config: TrainConfig) -> Optional[str]:
-    if config.model.startswith("ssd") or config.augment_variant == "ssd":
-        return "the SSD models, their loss and augmentation (ROADMAP Queue 1 item 2)"
     if config.checkpoint_path:
         return "warm start from checkpoint_path and the TF, Caffe and orbax importers (ROADMAP Queue 1 item 3)"
     if config.mesh_shape and config.mesh_shape[0] * config.mesh_shape[1] > 1:
@@ -90,17 +94,24 @@ class Trainer:
         self.config = config
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if config.bfloat16 else torch.float32
+        ssd = config.model.startswith("ssd")
         _, spec = get_network(config.model)
         fuse = (config.fuse_block1 and config.bfloat16 and self.device.type == "cuda"
                 and fused_block1_supported(*spec.img_shape))
-        self.model, self.spec = get_network(config.model, dtype=dtype, fuse_block1=fuse,
-                                            bn_fast_normalize=config.bn_fast_normalize)
+        kwargs = {} if ssd else {"bn_fast_normalize": config.bn_fast_normalize}
+        self.model, self.spec = get_network(config.model, dtype=dtype, fuse_block1=fuse, **kwargs)
         self.encoder = TargetEncoder(spec.anchor_layout(), spec.img_shape, config.match.positive_threshold,
                                      config.match.ignore_threshold, spec.prior_scaling)
         self.tx = make_optimizer(config.optimizer, self.model)
-        self.preprocess_config = PreprocessConfig(out_shape=spec.img_shape, variant="ron")
-        self._train_step = make_train_step(self.model, self.encoder, self.tx, config.loss, config.ema_decay)
-        self.eval_step = make_eval_step(self.model, self.encoder, config.loss)
+        variant = config.augment_variant
+        if variant == "auto":
+            variant = "ssd" if ssd else "ron"
+        self.preprocess_config = PreprocessConfig(out_shape=spec.img_shape, variant=variant)
+        # SSD models train with the hard-negative-mining loss family
+        self.loss_config = (SsdLossConfig(num_classes=spec.num_classes, match_threshold=config.match.positive_threshold)
+                            if ssd else config.loss)
+        self._train_step = make_train_step(self.model, self.encoder, self.tx, self.loss_config, config.ema_decay)
+        self.eval_step = make_eval_step(self.model, self.encoder, self.loss_config)
         self._ckpt = CheckpointManager(config.model_dir, max_to_keep=config.max_to_keep)
         self.state: Optional[TrainState] = None
 
@@ -123,7 +134,8 @@ class Trainer:
                                   "pass host batches to Trainer.train(batches=...)")
 
     def generator(self, step: int) -> torch.Generator:
-        """The step's generator: augmentation draws first, then the loss's."""
+        """The step's generator: augmentation draws first, then the
+        forward's (SSD's dropout), then the loss's (RON's)."""
         return torch.Generator(device=self.device).manual_seed(step_seed(self.config.seed, step))
 
     def augment(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:

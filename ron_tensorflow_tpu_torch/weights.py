@@ -1,5 +1,5 @@
-"""Carry flax RON weights into the port's modules, and name the port's
-tensors by their flax paths.
+"""Carry flax RON and SSD weights into the port's modules, and name the
+port's tensors by their flax paths.
 
 The JAX package names every variable by its flax path, joined with '/'
 (`ron_tensorflow_tpu/train/checkpoint.py::flatten_params`), e.g.
@@ -11,6 +11,7 @@ modules use the same path with '.', and torch's leaf names:
         flipped (`layers.py:180-189`): weight[c, o, dy, dx] = kernel[1-dy, 1-dx, c, o]
   BN    scale / bias / mean / var          -> weight / bias / running_mean / running_var
   conv  bias, deconv_bias                  -> bias
+  L2 normalization gamma                   -> gamma
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ def _convert(path: str, value: torch.Tensor) -> Tuple[str, torch.Tensor]:
         "deconv_bias": "bias",
         "mean": "running_mean",
         "var": "running_var",
+        "gamma": "gamma",
     }
     if leaf not in renamed:
         raise KeyError(f"no torch counterpart for flax variable {path!r}")
@@ -43,7 +45,7 @@ def from_jax_params(
     params_flat: Mapping[str, object], stats_flat: Mapping[str, object]
 ) -> Dict[str, torch.Tensor]:
     """Flax flat-name params and batch stats (numpy arrays or tensors) ->
-    a float32 `state_dict` for `models.ron.RON`."""
+    a float32 `state_dict` for `models.ron.RON` or `models.ssd.SSD`."""
     state = {}
     for path, value in list(params_flat.items()) + list(stats_flat.items()):
         if not torch.is_tensor(value):
@@ -79,6 +81,7 @@ _TORCH_TO_FLAX_LEAF = {
     "Conv2d": {"weight": "kernel", "bias": "bias"},
     "ConvTranspose": {"weight": "deconv_kernel", "bias": "deconv_bias"},
     "BatchNorm": {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"},
+    "L2Normalization": {"gamma": "gamma"},
 }
 
 

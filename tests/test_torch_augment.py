@@ -128,7 +128,8 @@ def test_draw_augment_ranges_and_reproducibility():
     cfg = port_pre.PreprocessConfig()
     a = port_pre.draw_augment(torch.Generator().manual_seed(3), 64, cfg)
     b = port_pre.draw_augment(torch.Generator().manual_seed(3), 64, cfg)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert a.color is None  # RON's chain draws no colour distortion by default
+    assert all(torch.equal(x, y) for x, y in zip(a[:-1], b[:-1]))
     assert a.wh.shape == (64, cfg.patch_candidates, cfg.aspect_attempts, 2) and a.patch.shape == (64, 16, 2)
     assert float(a.wh.min()) >= 0.1 and float(a.wh.max()) < 0.999
     assert float(a.oy.max()) < cfg.expand_ratio - 1.0 and float(a.oy.min()) >= 0.0
@@ -144,6 +145,13 @@ def test_train_augment_one_image_and_variants():
     assert img.shape == (40, 32, 3) and b.shape == (6, 4) and v.dtype == torch.bool
     back = port_pre.unwhiten(img)  # a bilinear blend of [0, 1] pixels and the mean
     assert float(back.min()) >= -1e-5 and float(back.max()) <= 1.0 + 1e-5
-    with pytest.raises(NotImplementedError, match="SSD"):
-        port_pre.train_augment_batch(torch.Generator(), images, boxes, labels, valid,
-                                     port_pre.PreprocessConfig(variant="ssd"))
+    # the SSD chain on the same image: its own draws, the colour distortion on by default
+    cfg = port_pre.PreprocessConfig(out_shape=(40, 32), variant="ssd")
+    draws = port_pre.draw_augment(torch.Generator().manual_seed(0), 1, cfg)
+    assert isinstance(draws, port_pre.SsdAugmentDraws) and draws.color is not None
+    img, b, lab, v = port_pre.train_augment(torch.Generator().manual_seed(0), images[0], boxes[0], labels[0],
+                                            valid[0], cfg)
+    assert img.shape == (40, 32, 3) and b.shape == (6, 4) and v.dtype == torch.bool
+    back = port_pre.unwhiten(img)  # clipped to [0, 1] after the distortion
+    assert float(back.min()) >= -1e-5 and float(back.max()) <= 1.0 + 1e-5
+    assert bool((v <= valid[0]).all()) and bool(v.any())

@@ -24,15 +24,18 @@ from ron_tensorflow_tpu_torch.kernels import (
     nms_scan_keep_mask_plain,
 )
 from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
-from ron_tensorflow_tpu_torch.inference.detector import RealtimeConfig, RealtimeDetector
+from ron_tensorflow_tpu_torch.inference.detector import DetectionConfig, Detector, RealtimeConfig, RealtimeDetector
 from ron_tensorflow_tpu_torch.kernels.nms import MAX_K
+from ron_tensorflow_tpu_torch.models import get_network
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_TINY_SPEC
 from ron_tensorflow_tpu_torch.ops.matching import match_all_classes
 from ron_tensorflow_tpu_torch.models.layers import init_like_flax_
+from ron_tensorflow_tpu_torch.models.testing import seeded_flax_params
 from ron_tensorflow_tpu_torch.ops.encode import TargetEncoder
 from ron_tensorflow_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from ron_tensorflow_tpu_torch.train.state import create_train_state, make_train_step
+from ron_tensorflow_tpu_torch.weights import from_jax_params
 
 pytestmark = pytest.mark.cuda
 
@@ -246,7 +249,7 @@ def test_block1_grads_match_recompute_composition(cuda, dtype, rel):
 
 
 @pytest.mark.parametrize(
-    "shape", [(1, 16, 32), (2, 36, 52), (1, 8, 12), (2, 320, 320), (1, 300, 300), (1, 512, 512)]
+    "shape", [(1, 16, 32), (2, 36, 52), (1, 8, 12), (2, 320, 320), (1, 300, 300), (2, 300, 300), (1, 512, 512)]
 )
 def test_block1_kernel_within_bf16_of_plain(cuda, shape):
     """Tolerance: both round conv1_1 to bf16 and the output to bf16; their
@@ -535,3 +538,38 @@ def make_and_step(device, batch, draws):
     model, state, step = tiny_train_setup(device, torch.bfloat16, fuse_block1=True)
     _, metrics = step(state, batch, draws=draws)
     return metrics
+
+
+def test_ssd300_fused_block1_through_the_detector_on_card(cuda):
+    """SSD-300 in bf16 with fuse_block1, batch 2, through the Detector with
+    the SSD eval preset's values (select 0.01, objectness 0, top-k 400, keep
+    200, 'min' NMS 0.45): K-B and K-A launched once each, K-B's output at
+    300x300 (ragged tiles) within bf16 of its plain version; the card's
+    postprocess of its own outputs against the CPU Detector's (plain NMS) on
+    the same outputs copied to the host: equal keep counts, scores and boxes
+    within 1e-5 (the card's exp in the box decode may differ by an ulp)."""
+    model, spec = get_network("ssd_300_vgg", dtype=torch.bfloat16, fuse_block1=True)
+    params, _ = seeded_flax_params(model, seed=3)
+    model.load_state_dict(from_jax_params(params, {}), strict=True)
+    cfg = DetectionConfig(select_threshold=0.01, objectness_threshold=0.0, top_k=400, keep_top_k=200,
+                          nms_threshold=0.45)
+    det = Detector(model, spec, cfg, device="cuda")
+    images = (torch.rand(2, 300, 300, 3, generator=torch.Generator().manual_seed(4)) * 255 - 120).to(cuda)
+    kernels.reset_launch_counts()
+    scores, boxes = det(images)
+    torch.cuda.synchronize()
+    assert fused_vgg_block1.launches == 1 and nms_fixpoint_keep_mask.launches == 1
+    assert scores.shape == (2, 20, 200) and boxes.shape == (2, 20, 200, 4) and bool((scores > 0).any())
+    with torch.inference_mode():
+        x = images.to(torch.bfloat16).contiguous()
+        c1, c2 = model.conv1_1.conv, model.conv1_2.conv
+        torch.testing.assert_close(fused_vgg_block1(x, c1.weight, c1.bias, c2.weight, c2.bias).float(),
+                                   fused_vgg_block1_plain(x, c1.weight, c1.bias, c2.weight, c2.bias).float(),
+                                   rtol=8e-3, atol=0.1)
+        out = det.model(images)
+        got = [t.cpu() for t in det.postprocess(out)]
+        cpu_model, _ = get_network("ssd_300_vgg")
+        ref = Detector(cpu_model, spec, cfg, device="cpu").postprocess(type(out)(*(t.cpu() for t in out)))
+    assert torch.equal((got[0] > 0).sum(-1), (ref[0] > 0).sum(-1))
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)

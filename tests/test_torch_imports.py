@@ -24,10 +24,12 @@ def test_port_modules_found():
     for name in ("kernels.nms", "kernels.fused_conv_pool", "kernels._build", "inference.detector", "weights",
                  "eval.evaluator", "eval.realtime", "ops.matching", "ops.nms", "ops.encode", "losses.ron",
                  "train.optimizer", "train.state", "train.checkpoint", "train.trainer", "config",
-                 "data.pipeline", "utils.summaries", "utils.profiling"):
+                 "data.pipeline", "utils.summaries", "utils.profiling", "models.ssd", "models.testing",
+                 "losses.ssd"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
     from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401
+    from ron_tensorflow_tpu_torch.models.ssd import SSD  # noqa: F401
 
 
 def test_port_and_chip_smoke_import_without_jax():

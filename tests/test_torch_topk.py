@@ -20,7 +20,7 @@ def assert_same(x, k, num_chunks):
 
 
 @pytest.mark.parametrize("num_chunks", [1, 5, 16])
-@pytest.mark.parametrize("n,k", [(2125, 200), (997, 100), (50, 50), (21250, 200)])
+@pytest.mark.parametrize("n,k", [(2125, 200), (997, 100), (50, 50), (21250, 200), (8732, 400), (24564, 400)])
 def test_matches_lax_top_k_random(n, k, num_chunks):
     rng = np.random.default_rng(n * 1000 + k + num_chunks)
     assert_same(rng.normal(size=n).astype(np.float32), k, num_chunks)

@@ -35,7 +35,7 @@ from ron_tensorflow_tpu.train.checkpoint import flatten_params, unflatten_params
 from ron_tensorflow_tpu_torch.losses.ron import RonLossConfig
 from ron_tensorflow_tpu_torch.models import get_network, layers
 from ron_tensorflow_tpu_torch.models.ron import RON
-from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC, RON_TINY_SPEC
+from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC, RON_TINY_SPEC, SSD_300_SPEC, SSD_512_SPEC
 from ron_tensorflow_tpu_torch.ops.encode import TargetEncoder
 from ron_tensorflow_tpu_torch.train import optimizer as port_opt
 from ron_tensorflow_tpu_torch.train.state import create_train_state, make_eval_step, make_train_step, pinned_precision
@@ -327,11 +327,23 @@ def test_glorot_init_like_flax():
 
 
 def test_get_network_registry():
+    """Every registered name builds its model; the output shapes come from a
+    forward on the meta device (shapes only, no arithmetic)."""
     model, spec = get_network("ron_320_vgg", dtype=torch.bfloat16)
     assert spec is RON_320_SPEC and model.dtype == torch.bfloat16
-    for name in ("ron_320_vgg_heavy", "ssd_300_vgg", "ssd_512_vgg"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            get_network(name)
+    cases = {"ron_320_vgg_heavy": (RON_320_SPEC, 21250), "ssd_300_vgg": (SSD_300_SPEC, 8732),
+             "ssd_512_vgg": (SSD_512_SPEC, 24564), "ssd_300_vgg_caffe": (SSD_300_SPEC, 8732),
+             "ssd_512_vgg_caffe": (SSD_512_SPEC, 24564)}
+    for name, (want_spec, n) in cases.items():
+        with torch.device("meta"):
+            model, spec = get_network(name)
+            out = model(torch.empty(2, *spec.img_shape, 3))
+        assert spec is want_spec and spec.anchor_layout().num_anchors == n
+        assert type(model).__name__ == ("RON" if name.startswith("ron") else "SSD")
+        assert out.logits.shape == out.predictions.shape == (2, n, 21) and out.locations.shape == (2, n, 4)
+        assert out.objness_pred.shape == (2, n) and out.objness_logits.shape == (2, n, 2)
+    heavy = get_network("ron_320_vgg_heavy")[0].backbone
+    assert heavy.fc6.conv.weight.shape == (4096, 512, 7, 7) and heavy.fc7.conv.weight.shape == (4096, 4096, 1, 1)
     with pytest.raises(ValueError, match="unknown network"):
         get_network("resnet")
 

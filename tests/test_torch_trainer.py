@@ -20,7 +20,10 @@ from ron_tensorflow_tpu import config as jax_config
 
 from ron_tensorflow_tpu_torch.config import DataConfig, MatchConfig, TrainConfig, apply_overrides
 from ron_tensorflow_tpu_torch.data.pipeline import DevicePrefetcher, PrefetchIterator
+from ron_tensorflow_tpu_torch.data.preprocess import PreprocessConfig
+from ron_tensorflow_tpu_torch.losses.ssd import SsdLossConfig
 from ron_tensorflow_tpu_torch.models import layers
+from ron_tensorflow_tpu_torch.models.spec import SSD_300_SPEC
 from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
 from ron_tensorflow_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from ron_tensorflow_tpu_torch.train.state import create_train_state
@@ -158,8 +161,7 @@ def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(tiny_config(tmp_path))
     for kw, match in ((dict(checkpoint_path="vgg.pth"), "Queue 1 item 3"), (dict(s2d_stem=True), "s2d_stem"),
-                      (dict(mesh_shape=(2, 1)), "Queue 1 item 4"), (dict(model="ssd_300_vgg"), "Queue 1 item 2"),
-                      (dict(data=DataConfig(use_grain=True)), "Grain")):
+                      (dict(mesh_shape=(2, 1)), "Queue 1 item 4"), (dict(data=DataConfig(use_grain=True)), "Grain")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(tiny_config(tmp_path, **kw), device="cpu")
     t = Trainer(tiny_config(tmp_path), device="cpu")
@@ -168,6 +170,14 @@ def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
     # K-B only on a CUDA device: the CPU model keeps block 1 unfused
     t = Trainer(tiny_config(tmp_path, bfloat16=True, fuse_block1=True), device="cpu")
     assert not t.model.backbone.fuse_block1 and t.model.dtype == torch.bfloat16
+    # SSD: the SSD model, its hard-negative loss at the match threshold and the 'ssd' augmentation
+    t = Trainer(tiny_config(tmp_path, model="ssd_300_vgg", match=MatchConfig(0.5, 0.5), fuse_block1=True),
+                device="cpu")
+    assert type(t.model).__name__ == "SSD" and t.spec is SSD_300_SPEC and not t.model.fuse_block1
+    assert t.loss_config == SsdLossConfig(num_classes=21, match_threshold=0.5)
+    assert t.preprocess_config == PreprocessConfig(out_shape=(300, 300), variant="ssd")
+    assert Trainer(tiny_config(tmp_path, model="ssd_512_vgg", augment_variant="ron"),
+                   device="cpu").preprocess_config.variant == "ron"
 
 
 def test_step_seeds_differ_by_step_and_seed():
