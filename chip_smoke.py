@@ -121,6 +121,38 @@ Phases, each ending with a line that gives its elapsed seconds:
               [8, 512, 512, 3] and [32, 512, 512, 3] beside its bound, plain
               version and cuDNN; K-A on the SSD Detectors' rows and K-C on
               SSD-300's class-wise realtime rows.
+ 17. reference import  the reference's RON-320: the 184 slim tensors named in
+              tests/fixtures/reference_forward.npz, regenerated by name as
+              tools/reference_forward.py does (`weight_for`, a copy), mapped
+              by the port's `slim_ron_to_flat` and loaded with
+              `from_jax_params`; on the card in float64 against the TF1
+              reference graph's outputs and in f32 (TF32 off, torch's own
+              convolutions) against that float64 forward, each within
+              tests/test_model_parity.py's bounds (raw outputs 2e-3 x
+              max(1, |ref|max), probabilities 5e-4); the f32 forward against
+              the graph and through cuDNN recorded; the bf16 Detector with
+              K-B at batch 32 on the same weights (K-B and K-A once each),
+              its detections against the f32 Detector's recorded;
+ 18. warm start  a seeded ssd.pytorch VGG-16 `.pth` (`vgg.N`, fc6/fc7 at
+              31/33) saved with torch.save; a bf16 RON-320 Trainer with K-B,
+              checkpoint_format "torch", BGR -> RGB, TensorBoard on: the 30
+              backbone tensors equal the source exactly (conv1_1's input
+              channels reversed), every other parameter and every buffer the
+              seeded init of a Trainer without checkpoint_path; 10 steps at
+              batch 14 (K-B 10 times, no other kernel, finite losses); a
+              second Trainer on the model dir resumes at step 10 and does not
+              warm-start again; the step's ms at batch 14 (CUDA events); then
+              SSD-300 from a Caffe model of the same VGG (encoded with the
+              port's protobuf primitives, conv4_3's norm scale included):
+              its 26 conv tensors restored exactly, the rest at the seeded
+              init, 3 steps at batch 32 with K-B;
+ 19. import cli  `import-ckpt --format torch` of the same `.pth` into a fresh
+              model dir, `inspect-ckpt` listing every parameter, and a bf16
+              Trainer resuming there at step 0 with the warm start's
+              backbone;
+ 20. tensorboard  phase 18's event file read back with every record's CRCs
+              verified: each scalar of metrics.jsonl at each log step, as
+              float32.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -138,6 +170,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 from unittest import mock
 
@@ -145,8 +178,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ron_tensorflow_tpu_torch import kernels
+from ron_tensorflow_tpu_torch import full_f32_convs, kernels
+from ron_tensorflow_tpu_torch.cli import main as cli_main
 from ron_tensorflow_tpu_torch.config import MatchConfig, TrainConfig
+from ron_tensorflow_tpu_torch.data.example import _len_delimited, _varint
 from ron_tensorflow_tpu_torch.data.pipeline import to_device
 from ron_tensorflow_tpu_torch.data.preprocess import PreprocessConfig, apply_augment, draw_augment, eval_preprocess, whiten
 from ron_tensorflow_tpu_torch.data.resize import tf1_bilinear_resize
@@ -184,8 +219,10 @@ from ron_tensorflow_tpu_torch.tools.time_nms import device_ms
 from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
 from ron_tensorflow_tpu_torch.train.optimizer import global_norm, make_optimizer
 from ron_tensorflow_tpu_torch.train.state import create_train_state, detection_loss_fn, make_train_step, train_forward
+from ron_tensorflow_tpu_torch.train.tf_checkpoint import slim_ron_to_flat
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
-from ron_tensorflow_tpu_torch.weights import from_jax_params, load_trained_fixture
+from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
+from ron_tensorflow_tpu_torch.weights import from_jax_params, jax_names, load_trained_fixture
 
 REPO = Path(__file__).resolve().parent
 TRAINED_FIXTURE = REPO / "tests" / "fixtures" / "e2e_parity_trained.npz"
@@ -1947,6 +1984,323 @@ def kb_shape_rows(ssd):
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# Checkpoint import (phases "reference import", "warm start", "import cli",
+# "tensorboard")
+
+REF_FIXTURE = REPO / "tests" / "fixtures" / "reference_forward.npz"
+# tests/test_model_parity.py's bounds: raw head outputs within 2e-3 x max(1,
+# |ref|max), probabilities within 5e-4 absolute. The import is held to the
+# TF1 reference graph's outputs by the port's float64 forward, and the port's
+# f32 forward to its float64 one, both at these bounds: the graph's outputs
+# are f32 themselves (2.45e-4 from float64 in the probabilities), and an f32
+# forward summing in another order than TF's adds as much again.
+REF_SCALED_FIELDS, REF_SCALED_TOL = ("logits", "objness_logits", "locations"), 2e-3
+REF_PROB_FIELDS, REF_PROB_ATOL = ("predictions", "objness_pred"), 5e-4
+
+
+def weight_for(name: str, shape) -> np.ndarray:
+    """tools/reference_forward.py's name-keyed pseudo-weights (a copy: the
+    tool imports TensorFlow's graph code): fan-in-scaled conv kernels,
+    non-trivial BatchNorm statistics."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    shape = tuple(int(s) for s in shape)
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf in ("moving_variance", "gamma"):
+        return rng.uniform(0.8, 1.2, shape).astype(np.float32)
+    if leaf in ("moving_mean", "beta", "biases"):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+    assert leaf == "weights", name
+    # conv HWIO fan-in = kh*kw*cin; TF deconv layout is [kh, kw, OUT, IN].
+    cin = shape[3] if "deconv" in name else shape[2]
+    std = np.sqrt(2.0 / (shape[0] * shape[1] * cin))
+    return (rng.standard_normal(shape) * std).astype(np.float32)
+
+
+def reference_errors(out, ref) -> dict:
+    """max |out - ref| of each output (`ref`: the fixture, or another
+    forward's outputs), each raw output's scale max(1, |ref|max), and
+    whether all are within the bounds ("within")."""
+    errs = {}
+    for field in REF_SCALED_FIELDS + REF_PROB_FIELDS:
+        r = np.asarray(ref[field] if not hasattr(ref, "_fields") else getattr(ref, field).cpu(), np.float64)
+        errs[field] = float(np.abs(getattr(out, field).detach().double().cpu().numpy() - r).max())
+        if field in REF_SCALED_FIELDS:
+            errs[f"{field}_scale"] = max(1.0, float(np.abs(r).max()))
+    errs["within"] = (all(errs[f] <= REF_SCALED_TOL * errs[f"{f}_scale"] for f in REF_SCALED_FIELDS)
+                      and all(errs[f] <= REF_PROB_ATOL for f in REF_PROB_FIELDS))
+    return errs
+
+
+def format_errors(errs) -> str:
+    return ", ".join([f"{f} {errs[f]:.4g} (bound {REF_SCALED_TOL * errs[f + '_scale']:.4g})" for f in REF_SCALED_FIELDS]
+                     + [f"{f} {errs[f]:.4g} (bound {REF_PROB_ATOL})" for f in REF_PROB_FIELDS])
+
+
+# ssd.pytorch's VGG-16 with the reduced fc6/fc7 (`vgg16_reducedfc.pth`, RON-320's
+# and SSD's shapes): (torch index, Caffe layer and flax name, in, out, kernel).
+VGG16_REDUCED = tuple((i, n, ci, co, 3) for i, n, ci, co in (
+    (0, "conv1_1", 3, 64), (2, "conv1_2", 64, 64), (5, "conv2_1", 64, 128), (7, "conv2_2", 128, 128),
+    (10, "conv3_1", 128, 256), (12, "conv3_2", 256, 256), (14, "conv3_3", 256, 256), (17, "conv4_1", 256, 512),
+    (19, "conv4_2", 512, 512), (21, "conv4_3", 512, 512), (24, "conv5_1", 512, 512), (26, "conv5_2", 512, 512),
+    (28, "conv5_3", 512, 512), (31, "fc6", 512, 1024))) + ((33, "fc7", 1024, 1024, 1),)
+VGG_SEED = 16
+# The warm-started RON-320 run: phase "train"'s bf16 Trainer with K-B, batch 14,
+# from an ssd.pytorch VGG-16 trained on BGR input; TensorBoard on.
+WARM_CFG = dataclasses.replace(TRAIN_CFG, checkpoint_format="torch", checkpoint_bgr_to_rgb=True, tensorboard=True)
+WARM_STEPS = 10
+# SSD-300 from a Caffe VGG-16 (BGR): phase "ssd train"'s recipe, batch 32.
+SSD_CAFFE_CFG = dataclasses.replace(SSD_TRAIN_CFG, checkpoint_format="caffe", checkpoint_bgr_to_rgb=True)
+SSD_WARM_STEPS = 3
+
+
+def seeded_vgg16(seed):
+    """An ssd.pytorch-layout VGG-16 state dict ('vgg.N', OIHW) drawn from a
+    numpy seed: He-scaled kernels, biases N(0, 0.05)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for idx, _, cin, cout, k in VGG16_REDUCED:
+        std = np.sqrt(2.0 / (cin * k * k))
+        sd[f"vgg.{idx}.weight"] = torch.from_numpy((rng.standard_normal((cout, cin, k, k)) * std).astype(np.float32))
+        sd[f"vgg.{idx}.bias"] = torch.from_numpy((rng.standard_normal(cout) * 0.05).astype(np.float32))
+    return sd
+
+
+def write_caffemodel(path, sd, gamma):
+    """`sd`'s VGG-16 as a Caffe NetParameter (layers by Caffe's names, blobs
+    with a packed BlobShape and packed float data) plus conv4_3's
+    L2-normalization scale, encoded with the port's protobuf primitives."""
+    def blob(a):
+        shape = _len_delimited(1, b"".join(_varint(d) for d in a.shape))
+        return _len_delimited(7, shape) + _len_delimited(5, a.astype("<f4").tobytes())
+
+    def layer(name, ltype, blobs):
+        body = _len_delimited(1, name.encode()) + _len_delimited(2, ltype.encode())
+        return _len_delimited(100, body + b"".join(_len_delimited(7, blob(b)) for b in blobs))
+
+    net = b"".join(layer(name, "Convolution", [sd[f"vgg.{idx}.weight"].numpy(), sd[f"vgg.{idx}.bias"].numpy()])
+                   for idx, name, *_ in VGG16_REDUCED)
+    Path(path).write_bytes(net + layer("conv4_3_norm", "Normalize", [gamma]))
+
+
+def reference_import():
+    """Phase "reference import": the reference's RON-320 (the 184 slim
+    tensors of tests/fixtures/reference_forward.npz, regenerated by name)
+    through the port's `slim_ron_to_flat` and `from_jax_params`, on the card:
+    (a) in float64 against the TF1 reference graph's outputs, (b) in f32
+    (TF32 off) with torch's own convolutions against (a), both within
+    tests/test_model_parity.py's bounds; f32 through cuDNN, and (b) against
+    the graph, recorded; then the bf16 Detector with K-B at batch 32 on the
+    same weights (K-B and K-A once each), its detections against the f32
+    Detector's (recorded)."""
+    fx = np.load(REF_FIXTURE, allow_pickle=False)
+    names, shapes = [str(n) for n in fx["var_names"]], json.loads(str(fx["var_shapes"]))
+    params, stats = slim_ron_to_flat({n: weight_for(n, s) for n, s in zip(names, shapes)})
+    if len(params) + len(stats) != len(names):
+        raise AssertionError(f"slim_ron_to_flat mapped {len(params) + len(stats)} of {len(names)} tensors")
+    state = from_jax_params(params, stats)
+    x = torch.from_numpy(fx["input"]).cuda()
+    convs = {"torch's own convolutions": lambda: torch.backends.cudnn.flags(enabled=False, allow_tf32=False),
+             "cuDNN": contextlib.nullcontext}
+    out, model = {}, None
+    for dtype, conv in ((torch.float64, "cuDNN"), (torch.float32, "torch's own convolutions"), (torch.float32, "cuDNN")):
+        model = RON(RON_320_SPEC, dtype=dtype)
+        model.load_state_dict(state, strict=True)
+        with torch.inference_mode(), full_f32_convs(), convs[conv]():
+            out[dtype, conv] = model.to("cuda", dtype)(x.to(dtype))
+    f64 = out[torch.float64, "cuDNN"]
+    errs = {"float64 vs graph": reference_errors(f64, fx),
+            "f32 (torch's convs) vs float64": reference_errors(out[torch.float32, "torch's own convolutions"], f64),
+            "f32 (torch's convs) vs graph": reference_errors(out[torch.float32, "torch's own convolutions"], fx),
+            "f32 (cuDNN) vs float64": reference_errors(out[torch.float32, "cuDNN"], f64),
+            "f32 (cuDNN) vs graph": reference_errors(out[torch.float32, "cuDNN"], fx)}
+    print(f"  {len(names)} slim tensors -> {len(params)} params + {len(stats)} BN statistics; RON-320 on the card:")
+    for label, e in errs.items():
+        gated = label in ("float64 vs graph", "f32 (torch's convs) vs float64")
+        print(f"    {label}{'' if gated else ' (recorded)'}: {format_errors(e)}")
+        if gated and not e["within"]:
+            raise AssertionError(f"reference import, {label}: outside the bounds: {e}")
+    f32_dets = Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")(x.repeat(2, 1, 1, 1))
+    bf16 = RON(RON_320_SPEC, dtype=torch.bfloat16, fuse_block1=True)
+    bf16.load_state_dict(state, strict=True)
+    _, dets, launches = bf16_detector_run(f"reference weights, bf16 Detector with K-B, batch {BATCH}", bf16,
+                                          RON_320_SPEC, x.repeat(BATCH, 1, 1, 1).contiguous())
+    drift = detection_drift(f32_dets, tuple(t[:2] for t in dets))
+    print(f"  bf16 vs f32 detections (recorded): keep counts equal in {drift['pairs_equal_counts']} of "
+          f"{drift['pairs']} pairs; {drift['detections_bf16']} vs {drift['detections_f32']}; max |score diff| "
+          f"{drift['max_abs_score_diff']:.4g}, max |box diff| {drift['max_abs_box_diff']:.4g}")
+    return {"errors": errs, "launches": launches, "bf16_vs_f32": drift}
+
+
+def init_tensors(cfg):
+    """A Trainer's seeded init of `cfg` without a checkpoint_path: its
+    parameters and buffers, on the card."""
+    trainer = Trainer(dataclasses.replace(cfg, checkpoint_path=None, model_dir=cfg.model_dir + "_init"), device="cuda")
+    state = trainer.init_state()
+    return ({k: v.detach().clone() for k, v in state.params.items()},
+            {k: v.detach().clone() for k, v in state.batch_stats.items()})
+
+
+def check_warm_start(label, trainer, state, expected, printed, init, init_bufs):
+    """Exactly `expected` ({torch name: source tensor in the port's layout})
+    restored, cast to each parameter's dtype; every other parameter and
+    every buffer equal to the seeded init."""
+    changed = sorted(n for n, p in state.params.items() if not torch.equal(p, init[n]))
+    if changed != sorted(expected):
+        raise AssertionError(f"{label}: restored {changed}, expected {sorted(expected)}")
+    wrong = [n for n, w in expected.items() if not torch.equal(state.params[n], w.to(state.params[n]))]
+    kept = [n for n in state.batch_stats if not torch.equal(state.batch_stats[n], init_bufs[n])]
+    if wrong or kept:
+        raise AssertionError(f"{label}: restored tensors unlike the source {wrong}; buffers moved {kept}")
+    names = jax_names(trainer.model)
+    n_reverse = sum("reverse" in names[n] for n in state.params)
+    print(f"  {label}: {[x for x in printed if x.startswith('[warm-start]')]}; {len(expected)} tensors equal the "
+          f"source exactly (float32); the other {len(state.params) - len(expected)} parameters ({n_reverse} under "
+          f"'reverse') and {len(state.batch_stats)} buffers equal the seeded init")
+    return n_reverse
+
+
+def trained_rows(label, trainer, steps, launches, t0):
+    """Gates of a Trainer.train run: K-B once a step and no other kernel,
+    one metrics.jsonl row a step, every loss finite."""
+    check_counts(label, launches, ("fused_vgg_block1",))
+    rows = [json.loads(line) for line in open(Path(trainer.config.model_dir) / "metrics.jsonl")]
+    losses = [r["loss/total"] for r in rows]
+    if launches["fused_vgg_block1"] != steps or [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise AssertionError(f"{label}: K-B launched {launches['fused_vgg_block1']} times, logged "
+                             f"{[r['step'] for r in rows]}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    print(f"  {label}: {steps} steps in {time.perf_counter() - t0:.2f} s (host clock, first steps and a checkpoint "
+          f"included), losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; K-B launched "
+          f"{launches['fused_vgg_block1']} times, no other kernel")
+    return rows, losses
+
+
+def warm_start(host, host32, tmp):
+    """Phase "warm start": (a) a bf16 RON-320 Trainer with K-B warm-started
+    from an ssd.pytorch VGG-16 `.pth` (BGR-flipped conv1_1): the 30 backbone
+    tensors equal the source, everything else the seeded init; 10 steps at
+    batch 14 (K-B 10 times, finite losses, TensorBoard on); a second Trainer
+    on the model dir resumes at step 10 instead of warm-starting again; the
+    step's ms at batch 14. (b) SSD-300 from a Caffe model of the same VGG:
+    its 26 conv tensors restored (Caffe's fc6/fc7 and conv4_3_norm do not
+    name SSD's conv6/conv7 and block4_box/l2_norm, so those keep the init,
+    as in the JAX trainer); 3 steps at batch 32 with K-B."""
+    sd = seeded_vgg16(VGG_SEED)
+    pth = tmp / "vgg16_reducedfc.pth"
+    torch.save(sd, pth)
+    cfg = dataclasses.replace(WARM_CFG, model_dir=str(tmp / "ron_warm"), checkpoint_path=str(pth))
+    init, init_bufs = init_tensors(cfg)
+    trainer = Trainer(cfg, device="cuda")
+    if not trainer.model.backbone.fuse_block1 or trainer.model.dtype != torch.bfloat16:
+        raise AssertionError("the warm-started trainer is not the bf16 model with K-B")
+    state, printed = quietly(trainer.init_state)
+    expected = {}
+    for idx, name, *_ in VGG16_REDUCED:
+        w = sd[f"vgg.{idx}.weight"]
+        expected[f"backbone.{name}.conv.weight"] = w.flip(1) if name == "conv1_1" else w  # BGR -> RGB input
+        expected[f"backbone.{name}.conv.bias"] = sd[f"vgg.{idx}.bias"]
+    n_reverse = check_warm_start("RON-320 from the .pth", trainer, state, expected, printed, init, init_bufs)
+    backbone = {n: state.params[n].detach().cpu().clone() for n in expected}
+    del init, init_bufs
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _ = quietly(lambda: trainer.train(max_steps=WARM_STEPS, batches=itertools.repeat(host)))
+    torch.cuda.synchronize()
+    rows, losses = trained_rows(f"warm-started RON-320 trainer (bf16, batch {TRAIN_BATCH})", trainer, WARM_STEPS,
+                                kernels.launch_counts(), t0)
+    launches = kernels.launch_counts()
+    trained = {k: v.detach().clone() for k, v in state.params.items()}
+    resumed = Trainer(cfg, device="cuda")
+    st2, printed2 = quietly(resumed.init_state)
+    if (st2.step != WARM_STEPS or not any(f"resumed from step {WARM_STEPS}" in x for x in printed2)
+            or any(x.startswith("[warm-start]") for x in printed2)
+            or not all(torch.equal(st2.params[k], v) for k, v in trained.items())):
+        raise AssertionError(f"resume: step {st2.step}, printed {printed2}")
+    print(f"  a second Trainer on the model dir (checkpoint_path still set): {printed2[-1]!r}, no warm start, "
+          f"parameters equal the step-{WARM_STEPS} ones")
+    del resumed, st2, trained
+    batch = to_device(host, "cuda")
+    step_ms = cuda_ms(lambda: trainer.step(state, batch), reps=5)
+    print(f"  warm-started bf16 train step with K-B, batch {TRAIN_BATCH}: {step_ms:.3f} ms, "
+          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} img/s (CUDA events, 5 steps)")
+    del trainer, state, batch
+
+    caffe = tmp / "VGG_ILSVRC_16_layers_fc_reduced.caffemodel"
+    write_caffemodel(caffe, sd, np.full((512,), 20.0, np.float32))
+    scfg = dataclasses.replace(SSD_CAFFE_CFG, model_dir=str(tmp / "ssd_warm"), checkpoint_path=str(caffe))
+    sinit, sinit_bufs = init_tensors(scfg)
+    strainer = Trainer(scfg, device="cuda")
+    if not strainer.model.fuse_block1:
+        raise AssertionError("the SSD trainer did not take K-B")
+    sstate, sprinted = quietly(strainer.init_state)
+    sexpected = {}
+    for idx, name, *_ in VGG16_REDUCED[:13]:
+        w = sd[f"vgg.{idx}.weight"]
+        sexpected[f"{name}.conv.weight"] = w.flip(1) if name == "conv1_1" else w
+        sexpected[f"{name}.conv.bias"] = sd[f"vgg.{idx}.bias"]
+    check_warm_start("SSD-300 from the Caffe model", strainer, sstate, sexpected, sprinted, sinit, sinit_bufs)
+    del sinit, sinit_bufs
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    quietly(lambda: strainer.train(max_steps=SSD_WARM_STEPS, batches=itertools.repeat(host32)))
+    torch.cuda.synchronize()
+    ssd_launches = kernels.launch_counts()
+    _, ssd_losses = trained_rows(f"SSD-300 trainer from Caffe (bf16, batch {BATCH})", strainer, SSD_WARM_STEPS,
+                                 ssd_launches, t0)
+    del strainer, sstate
+    return {"ron": {"restored": len(expected), "reverse_at_init": n_reverse, "steps": WARM_STEPS, "losses": losses,
+                    "launches": launches, "resumed_to": WARM_STEPS, "step_ms_b14": step_ms},
+            "ssd_300_caffe": {"restored": len(sexpected), "steps": SSD_WARM_STEPS, "losses": ssd_losses,
+                              "launches": ssd_launches},
+            "pth": pth, "backbone": backbone, "model_dir": cfg.model_dir, "rows": rows}
+
+
+def import_cli(pth, backbone, tmp):
+    """Phase "import cli": `import-ckpt --format torch` of the warm start's
+    .pth into a fresh model dir, `inspect-ckpt` listing every parameter by
+    flax name, and a bf16 Trainer resuming there at step 0 with the warm
+    start's backbone."""
+    model_dir = str(tmp / "imported")
+    _, out = quietly(lambda: cli_main(["import-ckpt", "--format", "torch", "--source", str(pth), "--model-dir",
+                                       model_dir, "--bgr-to-rgb"]))
+    _, lines = quietly(lambda: cli_main(["inspect-ckpt", "--model-dir", model_dir]))
+    model, _ = get_network("ron_320_vgg")
+    names = jax_names(model)
+    want = sorted(names[n] for n, _ in model.named_parameters())
+    listed = sorted(x.split()[0] for x in lines[1:])
+    if lines[0] != "step: 0" or listed != want:
+        raise AssertionError(f"inspect-ckpt: {lines[0]!r}, {len(listed)} tensors listed of {len(want)}")
+    trainer = Trainer(dataclasses.replace(TRAIN_CFG, model_dir=model_dir), device="cuda")
+    state, printed = quietly(trainer.init_state)
+    same = all(torch.equal(state.params[n].cpu(), v) for n, v in backbone.items())
+    if state.step != 0 or not any("resumed from step 0" in x for x in printed) or not same:
+        raise AssertionError(f"the imported model dir: step {state.step}, printed {printed}, backbone equal: {same}")
+    print(f"  {out[-1]!r}; inspect-ckpt listed all {len(listed)} parameters (e.g. {lines[1].split()[:3]}); a bf16 "
+          f"Trainer resumed at step 0 with the warm start's {len(backbone)} backbone tensors")
+    return {"listed": len(listed), "resumed_step": state.step}
+
+
+def tensorboard_check(model_dir, rows):
+    """Phase "tensorboard": the warm-started run's event file, read back with
+    every record's CRCs verified (`read_records(verify_crc=True)`): each
+    scalar of metrics.jsonl at each log step, as float32, and no other."""
+    files = sorted(Path(model_dir).glob("events.out.tfevents.*"))
+    if len(files) != 1:
+        raise AssertionError(f"event files in {model_dir}: {files}")
+    events = read_events(str(files[0]))
+    got = {e["step"]: e["scalars"] for e in events if e["scalars"]}
+    want = {r["step"]: {k: float(np.float32(v)) for k, v in r.items() if k not in ("step", "time")} for r in rows}
+    if events[0]["file_version"] != "brain.Event:2" or got != want:
+        raise AssertionError(f"TensorBoard scalars differ from metrics.jsonl: {sorted(got)} vs {sorted(want)}")
+    n = sum(len(v) for v in want.values())
+    print(f"  {files[0].name}: {len(events)} events, {n} scalars at steps {min(got)}-{max(got)} equal to "
+          f"metrics.jsonl (float32); images: {sum(len(e['images']) for e in events)} (none asked for)")
+    return {"events": len(events), "scalars": n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -2149,6 +2503,21 @@ def main() -> int:
                                                 lambda: stream_ev.run(iter(stream_batches), log_every=0)),
         }
 
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with phase("reference import"):
+            ref_import = reference_import()
+        with phase("warm start"):
+            warm = warm_start(host, host32, tmp)
+        with phase("import cli"):
+            imported = import_cli(warm.pop("pth"), warm.pop("backbone"), tmp)
+        with phase("tensorboard"):
+            tb = tensorboard_check(warm.pop("model_dir"), warm.pop("rows"))
+    kb_row["warm_start_launches"] = {"ron_320": warm["ron"]["launches"]["fused_vgg_block1"],
+                                     "ssd_300_caffe": warm["ssd_300_caffe"]["launches"]["fused_vgg_block1"],
+                                     "reference_import_detector": ref_import["launches"]["fused_vgg_block1"]}
+    results[0]["reference_import_launches"] = ref_import["launches"]["nms_fixpoint_keep_mask"]
+
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
                       "bf16_vs_f32": drift, "profile": profile, "realtime_head_bf16": realtime,
@@ -2157,7 +2526,9 @@ def main() -> int:
                                 "timing": train_times},
                       "ssd": {name: {**ssd_res[name], "kb_err": ssd[name]["kb_err"], "bf16_vs_f32": ssd[name]["drift"]}
                               for name in SSD_NAMES},
-                      "ssd_train": ssd_train, "heavy": heavy, "eval_losses": eval_loss, "ssd_timing": ssd_times}))
+                      "ssd_train": ssd_train, "heavy": heavy, "eval_losses": eval_loss, "ssd_timing": ssd_times,
+                      "checkpoint_import": {"reference_import": ref_import, "warm_start": warm, "import_cli": imported,
+                                            "tensorboard": tb}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

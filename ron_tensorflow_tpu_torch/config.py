@@ -2,11 +2,10 @@
 
 A copy of `DataConfig`, `MatchConfig`, `TrainConfig` and `apply_overrides`
 from `ron_tensorflow_tpu/config.py` (ref: ron_net.py:52-180): the same
-field names and defaults, but for `TrainConfig.tensorboard`, False here
-(the port writes no TensorBoard event files yet). Options of the JAX
-trainer that the port does not run yet raise in `train.trainer.Trainer`:
-`s2d_stem`, a `mesh_shape` over more than one device, `checkpoint_path`,
-`data.use_grain`. `EvalConfig` and the rest wait for the CLI slice.
+field names and defaults. Options of the JAX trainer that the port does not
+run yet raise in `train.trainer.Trainer`: `s2d_stem`, a `mesh_shape` over
+more than one device, `data.use_grain`. `EvalConfig` and the rest wait for
+the CLI slice (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -76,7 +75,7 @@ class TrainConfig:
     # save a checkpoint and exit 75 (EX_TEMPFAIL) once the host RSS exceeds
     # this many GB, for a supervisor to restart; 0 = off
     max_host_rss_gb: float = 0.0
-    tensorboard: bool = False
+    tensorboard: bool = True  # events.out.tfevents.* next to metrics.jsonl
     # every N steps, sample 0 of the augmented batch with its gt boxes as
     # <model_dir>/debug/step_<N>.jpg; 0 = off
     dump_debug_images_every: int = 0

@@ -25,15 +25,32 @@ in place of `config.loss`; their dropout draws from the step's generator.
 K-B (the fused block-1 kernel, with its recompute backward) is on where the
 JAX trainer turns it on (trainer.py:84-100): `fuse_block1` asked for, a
 bf16 model, one device, a CUDA device and a shape `fused_block1_supported`
-takes (RON-320, SSD-300 and SSD-512 alike). Not ported yet, and raising:
-reading TFRecord shards (`make_batches`, ROADMAP Queue 1 item 5), warm
-start (`checkpoint_path`, item 3), a mesh over several devices (item 4),
-`s2d_stem`. TensorBoard event files are not written: with
-`tensorboard=True` the trainer says so once.
+takes (RON-320, SSD-300 and SSD-512 alike).
+
+Warm start (trainer.py:161-229, ref: tf_utils.py:186-244): when `model_dir`
+holds no checkpoint, `checkpoint_path` is read by the importer of
+`checkpoint_format` ('torch': a torchvision or ssd.pytorch VGG-16; 'tf': a
+TF slim bundle under `checkpoint_model_scope or 'vgg_16'`; 'caffe'; 'orbax':
+the npz of `tools/orbax_to_npz.py`), overlaid on the seeded parameters in
+flax names by `warm_start_params`' rule (`checkpoint_exclude_scopes`, the
+rename {'backbone': checkpoint_model_scope}), and the restored tensors are
+copied into the model's parameters in place (`weights.from_jax_params`
+gives their torch layout). BatchNorm statistics and the EMA keep their
+seeded values, as in the JAX trainer, which replaces `params` only after
+the EMA was copied from them (ROADMAP Queue 3).
+
+With `tensorboard=True` the scalars of each log step go to an
+`events.out.tfevents.*` file in `model_dir` as well (`utils/tensorboard.py`),
+and the debug images too where PIL is installed; without PIL the trainer
+says once that it writes no images.
+
+Not ported yet, and raising: reading TFRecord shards (`make_batches`,
+ROADMAP Queue 1 item 5), a mesh over several devices (item 4), `s2d_stem`.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import time
 from typing import Dict, Iterator, Optional
@@ -51,7 +68,14 @@ from ..models import get_network
 from ..ops.encode import TargetEncoder
 from ..utils.profiling import StepTimer
 from ..utils.summaries import MetricsWriter
-from .checkpoint import CheckpointManager
+from ..weights import from_jax_params, to_jax_params
+from .checkpoint import (
+    CheckpointManager,
+    load_orbax_npz,
+    load_torch_checkpoint,
+    overlay_params,
+    torch_vgg_to_flat,
+)
 from .optimizer import make_optimizer
 from .state import TrainState, create_train_state, make_eval_step, make_train_step
 
@@ -71,9 +95,11 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
+def has_pil() -> bool:
+    return importlib.util.find_spec("PIL") is not None
+
+
 def _not_ported(config: TrainConfig) -> Optional[str]:
-    if config.checkpoint_path:
-        return "warm start from checkpoint_path and the TF, Caffe and orbax importers (ROADMAP Queue 1 item 3)"
     if config.mesh_shape and config.mesh_shape[0] * config.mesh_shape[1] > 1:
         return "a mesh over several devices (ROADMAP Queue 1 item 4)"
     if config.s2d_stem:
@@ -114,20 +140,59 @@ class Trainer:
         self.eval_step = make_eval_step(self.model, self.encoder, self.loss_config)
         self._ckpt = CheckpointManager(config.model_dir, max_to_keep=config.max_to_keep)
         self.state: Optional[TrainState] = None
+        self._said_no_pil = False
 
     # ------------------------------------------------------------------ #
 
     def init_state(self) -> TrainState:
         """Parameters initialized as flax does from `config.seed` (drawn on
-        the CPU), or the newest checkpoint in `model_dir`."""
+        the CPU); then the newest checkpoint in `model_dir` if there is one,
+        else the warm start from `checkpoint_path` if one is given."""
         self.model.to(self.device)
         state = create_train_state(self.model, self.tx, torch.Generator().manual_seed(self.config.seed),
                                    ema=self.config.ema_decay is not None)
         if self._ckpt.has_checkpoint():  # auto-resume (ref: tf_utils.py:198-203)
             self._ckpt.restore(state)
             print(f"[trainer] resumed from step {state.step}")
+        elif self.config.checkpoint_path:
+            self._warm_start(state)
         self.state = state
         return state
+
+    def warm_start_source(self, backbone_prefix: str) -> Dict[str, np.ndarray]:
+        """`checkpoint_path` through the importer of `checkpoint_format`:
+        flax-flat names, flax layouts."""
+        cfg = self.config
+        if cfg.checkpoint_format == "torch":
+            return torch_vgg_to_flat(load_torch_checkpoint(cfg.checkpoint_path), backbone_prefix=backbone_prefix,
+                                     bgr_to_rgb=cfg.checkpoint_bgr_to_rgb)
+        if cfg.checkpoint_format == "tf":
+            from .tf_checkpoint import TFCheckpointReader, slim_vgg_to_flat
+
+            return slim_vgg_to_flat(TFCheckpointReader(cfg.checkpoint_path).load_all(),
+                                    source_scope=cfg.checkpoint_model_scope or "vgg_16",
+                                    backbone_prefix=backbone_prefix)
+        if cfg.checkpoint_format == "caffe":
+            from .caffe_import import caffe_vgg_to_flat, parse_caffemodel
+
+            return caffe_vgg_to_flat(parse_caffemodel(cfg.checkpoint_path), backbone_prefix=backbone_prefix,
+                                     bgr_to_rgb=cfg.checkpoint_bgr_to_rgb)
+        if cfg.checkpoint_format == "orbax":
+            return load_orbax_npz(cfg.checkpoint_path)["params"]
+        raise ValueError(f"unknown checkpoint_format {cfg.checkpoint_format!r}")
+
+    @torch.no_grad()
+    def _warm_start(self, state: TrainState) -> None:
+        """Overlay `checkpoint_path`'s tensors on the parameters, in place."""
+        cfg = self.config
+        flat = to_jax_params(self.model, state.params.items())
+        # RON trees scope the VGG under 'backbone/'; SSD keeps its convs at top level
+        backbone_prefix = "backbone" if any(k.startswith("backbone/") for k in flat) else ""
+        rename = {"backbone": cfg.checkpoint_model_scope} if cfg.checkpoint_model_scope else None
+        out, restored = overlay_params(flat, self.warm_start_source(backbone_prefix),
+                                       exclude_scopes=cfg.checkpoint_exclude_scopes, rename_map=rename)
+        for name, value in from_jax_params({k: out[k] for k in restored}, {}).items():
+            state.params[name].copy_(value)
 
     def make_batches(self, epochs=None) -> Iterator[Dict[str, np.ndarray]]:
         raise NotImplementedError("reading TFRecord shards is not ported yet (ROADMAP Queue 1 item 5); "
@@ -160,9 +225,13 @@ class Trainer:
         print_config(cfg)
         state = self.init_state()
         writer = MetricsWriter(cfg.model_dir)
+        tb = None
         if cfg.tensorboard:
-            print("[trainer] tensorboard=True: no TensorBoard event files are written yet; "
-                  "scalars go to metrics.jsonl only")
+            from ..utils.tensorboard import TensorBoardWriter
+
+            tb = TensorBoardWriter(cfg.model_dir)
+            print(f"[trainer] TensorBoard events -> {tb.path}"
+                  + ("" if has_pil() else " (scalars only: PIL, which encodes the images, is not installed)"))
         timer = StepTimer()
         last_save_time = time.time()
         it = DevicePrefetcher(batches if batches is not None else self.make_batches(), self.device)
@@ -184,10 +253,12 @@ class Trainer:
                     scalars = {k: float(v) for k, v in metrics.items()}
                     scalars["images_per_sec"] = timer.images_per_sec(cfg.data.batch_size)
                     writer.write(step, scalars)
+                    if tb is not None:
+                        tb.scalars(scalars, step)
                     print(f"[trainer] step {step} loss {loss:.4f} ({scalars['images_per_sec']:.1f} img/s)")
 
                 if cfg.dump_debug_images_every and step % cfg.dump_debug_images_every == 0:
-                    self._dump_debug_image(batch, step)
+                    self._dump_debug_image(batch, step, tb)
 
                 if cfg.max_host_rss_gb and _host_rss_gb() > cfg.max_host_rss_gb:
                     # a controlled restart point: save THIS step, exit 75 for a supervisor
@@ -204,19 +275,30 @@ class Trainer:
         finally:
             self._ckpt.wait()
             writer.close()
+            if tb is not None:
+                tb.close()
         return state
 
-    def _dump_debug_image(self, batch: Dict[str, torch.Tensor], step: int) -> None:
+    def _dump_debug_image(self, batch: Dict[str, torch.Tensor], step: int, tb=None) -> None:
         """Sample 0 of the augmented batch that step `step` trained on, with
         its gt boxes (ref: eval_ron_network.py:240-247, draw_toolbox.py:48-101):
         the augmentation re-run with that step's generator (the one of
-        state step `step - 1`), so the image is what the step saw."""
+        state step `step - 1`), so the image is what the step saw; to
+        TensorBoard too when it is on. Drawing needs PIL: without it the
+        trainer says so once and draws nothing."""
         from ..utils.visualization import draw_boxes
 
+        if not has_pil():
+            if not self._said_no_pil:
+                print("[trainer] debug images need PIL, which is not installed: none are written")
+                self._said_no_pil = True
+            return
         aug = self.augment(batch, self.generator(step - 1))
         img01 = np.clip(unwhiten(aug["image"][0].float()).cpu().numpy(), 0.0, 1.0)
         labels = torch.where(aug["gt_valid"][0], aug["gt_labels"][0], 0).cpu().numpy()
         debug_dir = os.path.join(self.config.model_dir, "debug")
         os.makedirs(debug_dir, exist_ok=True)
-        draw_boxes(img01, aug["gt_boxes"][0].cpu().numpy(), labels).save(
-            os.path.join(debug_dir, f"step_{step:06d}.jpg"))
+        pil = draw_boxes(img01, aug["gt_boxes"][0].cpu().numpy(), labels)
+        pil.save(os.path.join(debug_dir, f"step_{step:06d}.jpg"))
+        if tb is not None:
+            tb.image("train/augmented_gt", np.asarray(pil), step)

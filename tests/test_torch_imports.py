@@ -1,5 +1,7 @@
-"""The port and chip_smoke.py import neither JAX, flax, optax, ml_dtypes
-nor the JAX package: a GPU host running the port need not have any of them."""
+"""The port and chip_smoke.py import neither JAX, flax, optax, ml_dtypes,
+orbax, TensorFlow nor the JAX package: a GPU host running the port need not
+have any of them. The orbax converter, which needs JAX, lives outside the
+package."""
 
 import pkgutil
 import subprocess
@@ -9,7 +11,7 @@ from pathlib import Path
 import ron_tensorflow_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "ron_tensorflow_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "orbax", "tensorflow", "ron_tensorflow_tpu")
 
 
 def port_modules():
@@ -25,7 +27,8 @@ def test_port_modules_found():
                  "eval.evaluator", "eval.realtime", "ops.matching", "ops.nms", "ops.encode", "losses.ron",
                  "train.optimizer", "train.state", "train.checkpoint", "train.trainer", "config",
                  "data.pipeline", "utils.summaries", "utils.profiling", "models.ssd", "models.testing",
-                 "losses.ssd"):
+                 "losses.ssd", "data.example", "data.tfrecord", "data.native", "utils.tensorboard",
+                 "train.tf_checkpoint", "train.caffe_import", "cli"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
     from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401
@@ -50,3 +53,12 @@ def test_port_and_chip_smoke_import_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_orbax_converter_lives_outside_the_package():
+    converter = REPO / "tools" / "orbax_to_npz.py"
+    assert converter.is_file()
+    package = Path(ron_tensorflow_tpu_torch.__file__).resolve().parent
+    assert package not in converter.resolve().parents
+    assert not any(m.endswith("orbax_to_npz") for m in port_modules())
+    assert "orbax" in converter.read_text()

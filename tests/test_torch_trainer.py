@@ -27,7 +27,8 @@ from ron_tensorflow_tpu_torch.models.spec import SSD_300_SPEC
 from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
 from ron_tensorflow_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from ron_tensorflow_tpu_torch.train.state import create_train_state
-from ron_tensorflow_tpu_torch.train.trainer import Trainer, step_seed
+from ron_tensorflow_tpu_torch.train.trainer import Trainer, has_pil, step_seed
+from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
 
 B, CANVAS, G = 2, 96, 4
 
@@ -147,21 +148,35 @@ def test_trainer_nan_guard(tmp_path):
 
 
 def test_trainer_tensorboard_is_announced_once_and_input_can_end(tmp_path, capsys):
-    t = Trainer(tiny_config(tmp_path, tensorboard=True, max_steps=5), device="cpu")
+    """With tensorboard=True the trainer names its event file once; the
+    file holds the scalars of metrics.jsonl at the same steps (as float32),
+    and the debug image where PIL is installed."""
+    t = Trainer(tiny_config(tmp_path, tensorboard=True, max_steps=5, dump_debug_images_every=2), device="cpu")
     record_saves(t)
-    state = t.train(batches=iter([next(host_batches())]))
+    host = next(host_batches())
+    state = t.train(batches=iter([host, host]))
     out = capsys.readouterr().out
-    assert state.step == 1 and "input exhausted" in out
-    assert out.count("no TensorBoard event files") == 1
-    assert not any(f.startswith("events.out.tfevents") for f in os.listdir(t.config.model_dir))
+    assert state.step == 2 and "input exhausted" in out
+    assert out.count("TensorBoard events -> ") == 1
+    files = [f for f in os.listdir(t.config.model_dir) if f.startswith("events.out.tfevents")]
+    assert len(files) == 1
+    events = read_events(os.path.join(t.config.model_dir, files[0]))
+    rows = [json.loads(line) for line in open(os.path.join(t.config.model_dir, "metrics.jsonl"))]
+    scalars = {e["step"]: e["scalars"] for e in events if e["scalars"]}
+    assert sorted(scalars) == [r["step"] for r in rows] == [1, 2]
+    for r in rows:
+        want = {k: float(np.float32(v)) for k, v in r.items() if k not in ("step", "time")}
+        assert scalars[r["step"]] == want
+    images = [(e["step"], list(e["images"])) for e in events if e["images"]]
+    assert images == ([(2, ["train/augmented_gt"])] if has_pil() else [])
 
 
 def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(tiny_config(tmp_path))
-    for kw, match in ((dict(checkpoint_path="vgg.pth"), "Queue 1 item 3"), (dict(s2d_stem=True), "s2d_stem"),
-                      (dict(mesh_shape=(2, 1)), "Queue 1 item 4"), (dict(data=DataConfig(use_grain=True)), "Grain")):
+    for kw, match in ((dict(s2d_stem=True), "s2d_stem"), (dict(mesh_shape=(2, 1)), "Queue 1 item 4"),
+                      (dict(data=DataConfig(use_grain=True)), "Grain")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(tiny_config(tmp_path, **kw), device="cpu")
     t = Trainer(tiny_config(tmp_path), device="cpu")
@@ -229,7 +244,7 @@ def test_configs_equal_the_jax_package_defaults():
     assert fields(MatchConfig()) == fields(jax_config.MatchConfig())
     ours, theirs = fields(TrainConfig()), fields(jax_config.TrainConfig())
     assert ours.keys() == theirs.keys()
-    assert {k for k in ours if ours[k] != theirs[k]} == {"tensorboard"}  # no event files yet
+    assert ours == theirs
     cfg = apply_overrides(TrainConfig(), ["optimizer.momentum=0.5", "data.working_shape=[64, 64]", "bfloat16=no"])
     assert cfg.optimizer.momentum == 0.5 and tuple(cfg.data.working_shape) == (64, 64) and cfg.bfloat16 is False
     with pytest.raises(KeyError):
