@@ -153,6 +153,34 @@ Phases, each ending with a line that gives its elapsed seconds:
  20. tensorboard  phase 18's event file read back with every record's CRCs
               verified: each scalar of metrics.jsonl at each log step, as
               float32.
+ 21. jpeg     the port's JPEG decoder (its only one), built from
+              data/_native/jpeg_decode.c: where the card host has cv2 or
+              PIL, bit-equal to them on the fixture JPEGs, and its resize to
+              512x512 within 1 level of cv2's; the eight images of
+              tests/fixtures/voc_mini (320x320, 500x375, 375x500; gray,
+              4:4:4, restart markers, 4:2:0) decode, and make 320x320 eval
+              canvases, equal to Pillow's and JAX's by digest
+              (tests/fixtures/voc_mini_ref.npz, tools/make_voc_mini.py); the
+              resize within 1 level of the fixture's cv2 resizes; decode ms
+              per image on one thread and on the pipeline's thread pool;
+ 22. records  `cli convert-data` of the eight images under 264 ids in two
+              shards; every record parses back to its XML and JPEG;
+              `Trainer.make_batches`' first batch (seed 0, batch 4) against
+              JAX's: gts exact, pixels within 1 level;
+ 23. cli train  `cli train` from those records: RON-320, bf16, K-B, batch 14,
+              5 steps from a step-0 checkpoint of the trained weights (K-B 5
+              times, no other kernel; finite losses; a checkpoint at step 5);
+              its step ms beside a Trainer's on in-memory batches (warm runs
+              of 12 steps in turns: records, memory, memory, records);
+ 24. cli eval  `cli eval`, RON-320 bf16 with the trained weights, batch 32,
+              over the 264 records, the last batch padded (K-A and K-B
+              launched): mAP, APs and TP/FP equal to `StreamingEvaluator.run`
+              on the same batches decoded beforehand; img/s of both (warm
+              runs in turns: CLI, direct, direct, CLI);
+ 25. cli realtime-eval  `cli realtime-eval`, f32, over tests/fixtures/voc_mini
+              (K-C launched, K-A and K-B not): the detections it writes
+              against JAX's rows: equal counts, classes and images, scores and
+              boxes within 2e-3.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -162,15 +190,20 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import itertools
 import json
+import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -181,11 +214,13 @@ import torch.nn.functional as F
 from ron_tensorflow_tpu_torch import full_f32_convs, kernels
 from ron_tensorflow_tpu_torch.cli import main as cli_main
 from ron_tensorflow_tpu_torch.config import MatchConfig, TrainConfig
+from ron_tensorflow_tpu_torch.data import decode, jpeg
 from ron_tensorflow_tpu_torch.data.example import _len_delimited, _varint
-from ron_tensorflow_tpu_torch.data.pipeline import to_device
+from ron_tensorflow_tpu_torch.data.pipeline import PipelineConfig, batch_iterator, parse_voc_example, to_device
 from ron_tensorflow_tpu_torch.data.preprocess import PreprocessConfig, apply_augment, draw_augment, eval_preprocess, whiten
 from ron_tensorflow_tpu_torch.data.resize import tf1_bilinear_resize
-from ron_tensorflow_tpu_torch.data.voc import VOC_CLASSES
+from ron_tensorflow_tpu_torch.data.tfrecord import list_shards, read_records
+from ron_tensorflow_tpu_torch.data.voc import VOC_CLASSES, parse_annotation
 from ron_tensorflow_tpu_torch.eval import PascalVocEvaluator, RealtimeEvaluator, StreamingEvaluator
 from ron_tensorflow_tpu_torch.inference.detector import (
     TOPK_CHUNKS,
@@ -2301,6 +2336,377 @@ def tensorboard_check(model_dir, rows):
     return {"events": len(events), "scalars": n}
 
 
+# --------------------------------------------------------------------------- #
+# The records-to-mAP entry points (phases "jpeg", "records", "cli train",
+# "cli eval", "cli realtime-eval"), over the VOCdevkit fixture
+# tests/fixtures/voc_mini and the JAX references in voc_mini_ref.npz
+# (tools/make_voc_mini.py)
+
+VOC_MINI = REPO / "tests" / "fixtures" / "voc_mini"
+VOC_MINI_REF = REPO / "tests" / "fixtures" / "voc_mini_ref.npz"
+RECORD_PATTERN = "voc_20??_train_*.tfrecord"
+# the records: the eight fixture images under RECORD_COUNT ids in RECORD_PARTS
+# year dirs, one shard each; not a multiple of CLI_EVAL_BATCH, so that eval's
+# last batch is padded and masked by `sample_valid` on the card
+RECORD_COUNT, RECORD_PARTS = 264, 2
+BATCH_SEED, BATCH_SIZE = 0, 4  # make_batches' first batch, held to JAX's (voc_mini_ref.npz)
+RESIZE_TOL = 1  # the native resize against cv2's, in levels
+CLI_TRAIN_STEPS = 5
+TIMED_TRAIN_STEPS = 12  # steps of each timed train run; the mean of steps 3..12
+CLI_EVAL_BATCH = 32
+DECODE_REPS = 16  # passes over the eight fixture JPEGs when timing the decoder
+CARD = "cuda"  # the device of the CLI phases
+
+
+def repeated_vocdevkit(src_year: Path, dst: Path, count: int = RECORD_COUNT, parts: int = RECORD_PARTS):
+    """The eight images of `src_year` under ids 000001..count, id k being
+    image (k - 1) % 8, split in order into `parts` year directories under
+    `dst`. Returns [(year dir, output name)] for `convert-data`.
+    (tools/make_voc_mini.py makes JAX's reference batch over the same tree.)"""
+    if count % parts:
+        raise ValueError(f"{count} ids do not split into {parts} equal parts")
+    src_ids = sorted(p.stem for p in (Path(src_year) / "Annotations").glob("*.xml"))
+    per_part = count // parts
+    out = []
+    for p in range(parts):
+        year = Path(dst) / f"part{p}" / "VOC2007"
+        for sub in ("Annotations", "JPEGImages"):
+            (year / sub).mkdir(parents=True, exist_ok=True)
+        for k in range(p * per_part, (p + 1) * per_part):
+            src = src_ids[k % len(src_ids)]
+            shutil.copyfile(Path(src_year) / "Annotations" / f"{src}.xml", year / "Annotations" / f"{k + 1:06d}.xml")
+            shutil.copyfile(Path(src_year) / "JPEGImages" / f"{src}.jpg", year / "JPEGImages" / f"{k + 1:06d}.jpg")
+        out.append((year, f"voc_2007_train_{p}"))
+    return out
+
+
+def digest(a):
+    return hashlib.blake2b(np.ascontiguousarray(a).tobytes(), digest_size=16).hexdigest()
+
+
+def host_jpeg_decoders():
+    """{name: (version, decode)} of the JPEG libraries this host has (cv2,
+    PIL), each decode JPEG bytes -> RGB: the port needs neither, phase
+    "jpeg" holds its decoder to them."""
+    found = {}
+    try:
+        import cv2
+        found["cv2"] = (cv2.__version__, lambda b: cv2.cvtColor(cv2.imdecode(np.frombuffer(b, np.uint8),
+                                                                             cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
+    except ImportError:
+        pass
+    try:
+        import PIL
+        from PIL import Image
+        found["PIL"] = (PIL.__version__, lambda b: np.asarray(Image.open(io.BytesIO(b)).convert("RGB")))
+    except ImportError:
+        pass
+    return found
+
+
+def jpeg_phase(ref, smi):
+    """Phase "jpeg": the port's JPEG decoder (data/jpeg.py, the only one it
+    has), built from data/_native/jpeg_decode.c. Where the card host has cv2
+    or PIL, every fixture JPEG's decode bit-equal to theirs, and the train
+    canvas (the resize to 512x512) within 1 level of cv2.resize's. On every
+    host: every fixture JPEG's decode and its 320x320 eval canvas
+    (WARP_RESIZE) equal to Pillow's and JAX's by digest (voc_mini_ref.npz);
+    the resize within 1 level of the fixture's cv2 resizes. Decode ms per
+    image on one thread and with the pipeline's thread pool."""
+    t0 = time.perf_counter()
+    jpeg.library()
+    build_s = time.perf_counter() - t0
+    year = VOC_MINI / "VOC2007"
+    ids = [str(i) for i in ref["ids"]]
+    data = {i: (year / "JPEGImages" / f"{i}.jpg").read_bytes() for i in ids}
+    raw = {i: decode.decode_jpeg_raw(data[i]) for i in ids}
+    canvas = TRAIN_CFG.data.working_shape
+    against_host = {}
+    for name, (version, host_decode) in host_jpeg_decoders().items():
+        bad = [i for i in ids if not np.array_equal(raw[i], host_decode(data[i]))]
+        if bad:
+            raise AssertionError(f"the port's decodes differ from the host's {name} {version}: {bad}")
+        against_host[name] = {"version": version, "decodes_equal": len(ids)}
+        if name == "cv2":
+            import cv2
+
+            diffs = [np.abs(jpeg.resize_bilinear(raw[i], canvas).astype(np.int16)
+                            - cv2.resize(raw[i], canvas[::-1], interpolation=cv2.INTER_LINEAR)) for i in ids]
+            worst = max(int(d.max()) for d in diffs)
+            if worst > RESIZE_TOL:
+                raise AssertionError(f"train canvases {worst} levels from the host's cv2")
+            against_host[name].update(train_canvas_max_levels=worst,
+                                      train_canvas_unequal_share=float(np.mean([(d > 0).mean() for d in diffs])))
+    bad = [i for k, i in enumerate(ids) if digest(raw[i]) != ref["raw_digest"][k]
+           or digest(decode.decode_jpeg_eval(data[i], RON_320_SPEC.img_shape, "WARP_RESIZE")) != ref["eval_digest"][k]]
+    if bad:
+        raise AssertionError(f"decodes or eval canvases differ from Pillow's / JAX's: {bad}")
+    resize = {}
+    for k, i in enumerate(str(x) for x in ref["cv2_resize_ids"]):
+        diff = np.abs(jpeg.resize_bilinear(raw[i], ref["cv2_resize"].shape[1:3]).astype(np.int16)
+                      - ref["cv2_resize"][k])
+        resize[i] = {"max": int(diff.max()), "unequal_share": float((diff > 0).mean())}
+        if diff.max() > RESIZE_TOL:
+            raise AssertionError(f"resize of {i}: {int(diff.max())} levels from cv2's")
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))  # batch_iterator's decode_workers=-1
+    blobs = [data[i] for i in ids] * DECODE_REPS
+
+    def per_image_ms(fn, n_threads):
+        fn(blobs[0])
+        t0 = time.perf_counter()
+        if n_threads == 1:
+            for b in blobs:
+                fn(b)
+        else:
+            with ThreadPoolExecutor(max_workers=n_threads) as pool:
+                list(pool.map(fn, blobs))
+        return (time.perf_counter() - t0) * 1e3 / len(blobs)
+
+    ms = {f"{name}_{n}_threads": per_image_ms(fn, n) for name, fn in
+          (("raw", decode.decode_jpeg_raw), ("train_512", lambda b: decode.decode_jpeg(b, canvas)),
+           ("eval_320", lambda b: decode.decode_jpeg_eval(b, RON_320_SPEC.img_shape, "WARP_RESIZE")))
+          for n in (1, workers)}
+    print(f"  decoder: the port's own (data/jpeg.py, built in {build_s:.2f} s); against this host's libraries: "
+          f"{against_host or 'none installed'}")
+    print(f"  {len(ids)} JPEGs (320x320, 500x375, 375x500; gray, 4:4:4, restart markers, 4:2:0): decodes and eval "
+          f"canvases equal Pillow's and JAX's digests; resize to {canvas}: "
+          + ", ".join(f"{i} max {r['max']} level(s), unequal share {r['unequal_share']:.6f}"
+                      for i, r in resize.items()))
+    print(f"  decode ms per image ({smi}, host CPU, {os.cpu_count()} cores): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return {"decoder": "native", "against_host": against_host, "build_s": build_s, "images": len(ids),
+            "resize": resize, "ms_per_image": ms, "decode_workers": workers}
+
+
+def records_phase(ref, tmp, smi):
+    """Phase "records": `convert-data` of the eight fixture images under 264
+    ids in two VOC year dirs (one shard each); every record parses back to
+    its XML and JPEG; `Trainer.make_batches`' first batch (seed 0, batch 4,
+    the trainer's uint8 512x512 pipeline) against JAX's: the same samples
+    in the same order, gts exact, pixels within 1 level."""
+    records = tmp / "records"
+    t0 = time.perf_counter()
+    parts = repeated_vocdevkit(VOC_MINI / "VOC2007", tmp / "voc")
+    for year, name in parts:
+        quietly(lambda: cli_main(["convert-data", "--voc-root", str(year), "--output-dir", str(records),
+                                  "--output-name", name]))
+    convert_s = time.perf_counter() - t0
+    files = list_shards(str(records), RECORD_PATTERN)
+    if [os.path.basename(f) for f in files] != [str(x) for x in ref["batch/shards"]]:
+        raise AssertionError(f"shards {files}")
+    n = 0
+    for year, name in parts:
+        ids = sorted(p.stem for p in (year / "Annotations").glob("*.xml"))
+        for rec, image_id in zip(read_records(str(records / f"{name}_000.tfrecord"), verify_crc=True), ids):
+            sample = parse_voc_example(rec)
+            ann = parse_annotation(str(year / "Annotations" / f"{image_id}.xml"))
+            want = np.asarray([o.bbox for o in ann.objects], np.float32).reshape(-1, 4)
+            if (sample["jpeg"] != (year / "JPEGImages" / f"{image_id}.jpg").read_bytes()
+                    or not np.array_equal(sample["boxes"], want)
+                    or sample["labels"].tolist() != [o.label for o in ann.objects]
+                    or sample["difficult"].tolist() != [o.difficult for o in ann.objects]
+                    or sample["shape"] != ann.shape):
+                raise AssertionError(f"the record of {image_id} does not parse back to its XML and JPEG")
+            n += 1
+    if n != RECORD_COUNT:
+        raise AssertionError(f"{n} records")
+    cfg = dataclasses.replace(TRAIN_CFG, model_dir=str(tmp / "unused"), seed=BATCH_SEED,
+                              data=dataclasses.replace(TRAIN_CFG.data, dataset_dir=str(records),
+                                                       batch_size=BATCH_SIZE))
+    trainer = Trainer(cfg, device=CARD)
+    t0 = time.perf_counter()
+    first = next(iter(trainer.make_batches()))
+    first_s = time.perf_counter() - t0
+    del trainer
+    for k in ("gt_labels", "gt_boxes", "gt_valid", "gt_difficult", "sample_valid"):
+        if not np.array_equal(first[k], ref[f"batch/{k}"]):
+            raise AssertionError(f"make_batches' first batch: {k} differs from JAX's")
+    diff = np.abs(first["image01"].astype(np.int16) - ref["batch/image01"])
+    if first["image01"].dtype != np.uint8 or diff.max() > RESIZE_TOL:
+        raise AssertionError(f"make_batches' first batch: pixels {int(diff.max())} levels from JAX's")
+    print(f"  convert-data: {n} records in {len(files)} shards in {convert_s:.2f} s (host), each parsed back to its "
+          f"XML and JPEG; make_batches' first batch (seed {BATCH_SEED}, batch {BATCH_SIZE}, "
+          f"{first['image01'].shape[1:3]} uint8) equals JAX's: gts exact, pixels max {int(diff.max())} level(s), "
+          f"unequal share {float((diff > 0).mean()):.6f}; first batch in {first_s:.3f} s ({smi})")
+    return {"records": n, "shards": len(files), "convert_s": convert_s, "batch_pixel_max": int(diff.max()),
+            "batch_pixel_unequal": float((diff > 0).mean()), "path": str(records)}
+
+
+def step_ms(model_dir):
+    """Mean ms of the steps after the second, from metrics.jsonl's host
+    times (every step logs, which waits for its loss)."""
+    rows = [json.loads(line) for line in open(Path(model_dir) / "metrics.jsonl")]
+    times = [r["time"] for r in rows]
+    return (times[-1] - times[1]) * 1e3 / (len(times) - 2), rows
+
+
+def cli_train(state, records, model_dir, steps, batch):
+    """`train` through the CLI from a step-0 checkpoint of `state`, every
+    step logged; returns the printed lines."""
+    seeded_model_dir(str(model_dir), state)
+    argv = ["--device", CARD, "train", "--model-dir", str(model_dir), "--dataset-dir", str(records),
+            "fuse_block1=true", f"data.batch_size={batch}", f"max_steps={steps}", "log_every_steps=1",
+            f"save_every_steps={steps}", "max_to_keep=2", "tensorboard=false"]
+    return quietly(lambda: cli_main(argv))[1]
+
+
+def cli_train_phase(state, records, fx, tmp, smi, steps=CLI_TRAIN_STEPS, batch=TRAIN_BATCH):
+    """Phase "cli train": `train` through the CLI on the card from the
+    records, RON-320 at full width, bf16, K-B, batch 14, from a step-0
+    checkpoint of the trained weights: K-B once a step and no other kernel,
+    every loss finite, a checkpoint at the last step. Then the step's ms
+    from the records beside a Trainer of the same config on in-memory
+    batches: four warm runs of TIMED_TRAIN_STEPS steps in the order
+    records, memory, memory, records, each the mean of its steps 3..N."""
+    model_dir = tmp / "cli_train"
+    kernels.reset_launch_counts()
+    printed = cli_train(state, records, model_dir, steps, batch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts(f"CLI train ({steps} bf16 steps at batch {batch} from records)", launches, ("fused_vgg_block1",))
+    _, rows = step_ms(model_dir)
+    losses = [r["loss/total"] for r in rows]
+    if (launches["fused_vgg_block1"] != steps or CheckpointManager(str(model_dir)).latest_step() != steps
+            or [r["step"] for r in rows] != list(range(1, steps + 1)) or not np.isfinite(losses).all()):
+        raise AssertionError(f"CLI train: K-B {launches['fused_vgg_block1']}, checkpoints "
+                             f"{CheckpointManager(str(model_dir)).all_steps()}, losses {losses}")
+    shutil.rmtree(model_dir)
+    host = train_host_batch(fx, batch)
+
+    def timed(source):
+        run_dir = tmp / f"timed_{source}"
+        if source == "records":
+            cli_train(state, records, run_dir, TIMED_TRAIN_STEPS, batch)
+        else:
+            seeded_model_dir(str(run_dir), state)
+            cfg = dataclasses.replace(TRAIN_CFG, model_dir=str(run_dir), max_steps=TIMED_TRAIN_STEPS,
+                                      tensorboard=False, data=dataclasses.replace(TRAIN_CFG.data, batch_size=batch))
+            quietly(lambda: Trainer(cfg, device=CARD).train(batches=itertools.repeat(host)))
+        ms, _ = step_ms(run_dir)
+        shutil.rmtree(run_dir)
+        return ms
+
+    runs = [(source, timed(source)) for source in ("records", "memory", "memory", "records")]
+    records_ms = float(np.mean([ms for s, ms in runs if s == "records"]))
+    memory_ms = float(np.mean([ms for s, ms in runs if s == "memory"]))
+    print(f"  CLI train: {[x for x in printed if x.startswith('[trainer] step')][-1]!r}; {steps} steps, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; K-B {launches['fused_vgg_block1']} launches; checkpoint "
+          f"at step {steps}")
+    print(f"  step ms (host clock, each step waits for its loss; runs of {TIMED_TRAIN_STEPS} steps, mean of steps "
+          f"3-{TIMED_TRAIN_STEPS}, in turns): " + ", ".join(f"{s} {ms:.3f}" for s, ms in runs)
+          + f"; from records {records_ms:.3f}, from in-memory batches {memory_ms:.3f} ({smi})")
+    return {"steps": steps, "losses": losses, "launches": launches, "step_ms_records": records_ms,
+            "step_ms_in_memory": memory_ms, "timed_runs": runs}
+
+
+def cli_eval_phase(state, records, tmp, smi):
+    """Phase "cli eval": `eval` through the CLI on the card, RON-320 bf16 (K-B)
+    with the trained weights, batch 32, over the 264 records (decode
+    included; the last batch holds 8 images and 24 padded rows): K-A and K-B
+    launched; its mAP07, mAP12, APs and every class's TP/FP equal to
+    `StreamingEvaluator.run` of the same evaluator on the same batches
+    decoded beforehand and fed directly. img/s of both, from four warm runs
+    in the order CLI, direct, direct, CLI."""
+    model_dir = tmp / "cli_eval"
+    seeded_model_dir(str(model_dir), state)
+    runs = []
+    real_run = StreamingEvaluator.run
+
+    def recorded(self, *a, **kw):
+        out = real_run(self, *a, **kw)
+        runs.append((self, out, self.accumulator))
+        return out
+
+    argv = ["--device", CARD, "eval", "--model-dir", str(model_dir), "--dataset-dir", str(records),
+            f"data.file_pattern={RECORD_PATTERN}", f"data.batch_size={CLI_EVAL_BATCH}"]
+    kernels.reset_launch_counts()
+    with mock.patch.object(StreamingEvaluator, "run", recorded):
+        _, printed = quietly(lambda: cli_main(argv))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts(f"CLI eval (bf16, batch {CLI_EVAL_BATCH}, from records)", launches, MAIN_PATH)
+    ev, (map07, map12, aps, stats), acc = runs[0]
+    if not ev.detector.model.backbone.fuse_block1:
+        raise AssertionError("the CLI's bf16 eval on the card did not take K-B")
+    pcfg = PipelineConfig(batch_size=CLI_EVAL_BATCH, working_shape=RON_320_SPEC.img_shape, shuffle=False,
+                          keep_difficult=True, eval_resize="WARP_RESIZE", output_dtype="uint8")
+    batches = [{"image": b["image01"], "gt_labels": b["gt_labels"], "gt_boxes": b["gt_boxes"],
+                "gt_difficult": b["gt_difficult"], "sample_valid": b["sample_valid"]}
+               for b in batch_iterator(list_shards(str(records), RECORD_PATTERN), pcfg, epochs=1,
+                                       drop_remainder=False)]
+    padded = int((~batches[-1]["sample_valid"]).sum())
+    dmap07, dmap12, daps, dstats = ev.run(iter(batches), log_every=0)
+    n_tp = n_fp = 0
+    for c in range(1, RON_320_SPEC.num_classes):
+        got, want = acc.class_arrays(c), ev.accumulator.class_arrays(c)
+        if acc.n_gt[c] != ev.accumulator.n_gt[c] or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"CLI eval: class {c}'s TP/FP differ from the direct run's")
+        n_tp, n_fp = n_tp + int(got[1].sum()), n_fp + int(got[2].sum())
+    if ((map07, map12, aps) != (dmap07, dmap12, daps) or stats["images"] != RECORD_COUNT
+            or dstats["images"] != RECORD_COUNT or n_tp == 0 or padded == 0):
+        raise AssertionError(f"CLI eval: mAP {map07}/{map12} against {dmap07}/{dmap12}, {stats['images']} images, "
+                             f"{padded} padded rows")
+
+    def timed(source):
+        if source == "direct":
+            return 1.0 / ev.run(iter(batches), log_every=0)[3]["sec_per_image"]
+        with mock.patch.object(StreamingEvaluator, "run", recorded):
+            quietly(lambda: cli_main(argv))
+        return 1.0 / runs[-1][1][3]["sec_per_image"]
+
+    timed_runs = [(source, timed(source)) for source in ("cli", "direct", "direct", "cli")]
+    cli_ips = float(np.mean([x for s, x in timed_runs if s == "cli"]))
+    mem_ips = float(np.mean([x for s, x in timed_runs if s == "direct"]))
+    print(f"  CLI eval: {[x for x in printed if x.startswith('mAP (VOC07')][0]!r}, "
+          f"{[x for x in printed if x.startswith('mAP (VOC12')][0]!r}; {stats['images']} images in "
+          f"{len(batches)} batches, the last with {padded} padded rows; mAP, APs and TP/FP ({n_tp} TP, {n_fp} FP) "
+          f"equal to the direct run's; K-A {launches['nms_fixpoint_keep_mask']}, K-B "
+          f"{launches['fused_vgg_block1']} launches")
+    print(f"  img/s (warm runs over the {stats['images']} images, in turns; CLI = end to end from the records, "
+          f"decode included; direct = batches decoded beforehand): "
+          + ", ".join(f"{s} {x:.1f}" for s, x in timed_runs)
+          + f"; end to end {cli_ips:.1f}, fed in memory {mem_ips:.1f} ({smi})")
+    return {"map07": map07, "map12": map12, "images": stats["images"], "padded_rows": padded, "tp": n_tp,
+            "fp": n_fp, "launches": launches, "img_per_s_end_to_end": cli_ips, "img_per_s_in_memory": mem_ips,
+            "timed_runs": timed_runs, "losses": {k: v for k, v in stats.items() if k.startswith("loss/")},
+            "model_dir": str(model_dir)}
+
+
+def cli_realtime_phase(model_dir, ref, tmp, smi):
+    """Phase "cli realtime-eval": `realtime-eval` through the CLI on the card,
+    f32 RON-320 with the trained weights, over the fixture VOCdevkit (its
+    JPEGs through the native decoder): K-C launched, K-A and K-B not; the
+    detections it writes, per class and image, against JAX's rows: equal
+    counts, classes and images, scores and boxes within 2e-3."""
+    out_dir = tmp / "rt_out"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, printed = quietly(lambda: cli_main(["--device", CARD, "realtime-eval", "--model-dir", model_dir,
+                                           "--voc-root", str(VOC_MINI), "--output-dir", str(out_dir)]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_counts("CLI realtime-eval (f32)", launches, ("nms_scan_keep_mask",))
+    with open(out_dir / "detections.pkl", "rb") as f:
+        all_boxes = pickle.load(f)
+    rows = [(c, ii, row) for c, per_image in enumerate(all_boxes) for ii, r in enumerate(per_image)
+            for row in np.asarray(r).reshape(-1, 5)]
+    if (len(rows) != len(ref["rt/rows"]) or [c for c, _, _ in rows] != ref["rt/cls"].tolist()
+            or [i for _, i, _ in rows] != ref["rt/image"].tolist()):
+        raise AssertionError(f"CLI realtime-eval: {len(rows)} detections against JAX's {len(ref['rt/rows'])}, "
+                             "or other classes or images")
+    err = float(np.abs(np.stack([r for _, _, r in rows]) - ref["rt/rows"]).max())
+    if err > PARITY_ATOL:
+        raise AssertionError(f"CLI realtime-eval: detections {err} from JAX's")
+    mean_ap = [x for x in printed if x.startswith("Mean AP")][0]
+    print(f"  CLI realtime-eval: {len(rows)} detections of {len(ref['ids'])} images, classes and counts equal "
+          f"JAX's, scores and boxes within {err:.3g} (gate {PARITY_ATOL}); {mean_ap!r} (JAX's "
+          f"{float(ref['rt/map']):.4f}); K-C {launches['nms_scan_keep_mask']} launches; {seconds:.2f} s with the "
+          f"restore ({smi})")
+    return {"detections": len(rows), "max_abs_err": err, "launches": launches, "seconds": seconds,
+            "mean_ap": mean_ap}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -2513,6 +2919,23 @@ def main() -> int:
             imported = import_cli(warm.pop("pth"), warm.pop("backbone"), tmp)
         with phase("tensorboard"):
             tb = tensorboard_check(warm.pop("model_dir"), warm.pop("rows"))
+    ref = np.load(VOC_MINI_REF, allow_pickle=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with phase("jpeg"):
+            jpeg_res = jpeg_phase(ref, smi)
+        with phase("records"):
+            records = records_phase(ref, tmp, smi)
+        with phase("cli train"):
+            cli_train = cli_train_phase(state, Path(records["path"]), fx, tmp, smi)
+        with phase("cli eval"):
+            cli_eval = cli_eval_phase(state, Path(records["path"]), tmp, smi)
+        with phase("cli realtime-eval"):
+            cli_rt = cli_realtime_phase(cli_eval.pop("model_dir"), ref, tmp, smi)
+    kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
+                              "eval": cli_eval["launches"]["fused_vgg_block1"]}
+    results[0]["cli_eval_launches"] = cli_eval["launches"]["nms_fixpoint_keep_mask"]
+    results[2]["cli_realtime_eval_launches"] = cli_rt["launches"]["nms_scan_keep_mask"]
     kb_row["warm_start_launches"] = {"ron_320": warm["ron"]["launches"]["fused_vgg_block1"],
                                      "ssd_300_caffe": warm["ssd_300_caffe"]["launches"]["fused_vgg_block1"],
                                      "reference_import_detector": ref_import["launches"]["fused_vgg_block1"]}
@@ -2528,7 +2951,9 @@ def main() -> int:
                               for name in SSD_NAMES},
                       "ssd_train": ssd_train, "heavy": heavy, "eval_losses": eval_loss, "ssd_timing": ssd_times,
                       "checkpoint_import": {"reference_import": ref_import, "warm_start": warm, "import_cli": imported,
-                                            "tensorboard": tb}}))
+                                            "tensorboard": tb},
+                      "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
+                                         "cli_eval": cli_eval, "cli_realtime_eval": cli_rt}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

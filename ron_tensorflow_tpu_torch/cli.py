@@ -1,44 +1,217 @@
-"""`ron` CLI of the port: the parser of `ron_tensorflow_tpu/cli.py`, with its
-two checkpoint subcommands.
+"""`ron` CLI of the port: train / eval / realtime-eval / convert-data /
+import-ckpt / inspect-ckpt, the subcommands and arguments of
+`ron_tensorflow_tpu/cli.py`.
 
+  python -m ron_tensorflow_tpu_torch.cli convert-data --voc-root ./VOCdevkit/VOC2007 --output-dir ./records
+  python -m ron_tensorflow_tpu_torch.cli train --config cfg.json --dataset-dir ./records data.batch_size=32
+  python -m ron_tensorflow_tpu_torch.cli eval --model-dir ./model --dataset-dir ./records
+  python -m ron_tensorflow_tpu_torch.cli realtime-eval --model-dir ./model --voc-root ./VOCdevkit
   python -m ron_tensorflow_tpu_torch.cli import-ckpt --format torch --source vgg16.pth --model-dir ./model
-  python -m ron_tensorflow_tpu_torch.cli import-ckpt --format tf --source ron_320.ckpt --model-dir ./model
   python -m ron_tensorflow_tpu_torch.cli inspect-ckpt --model-dir ./model [--pattern conv1]
+
+`--device` (before the subcommand) replaces the JAX CLI's `--platform`:
+"cuda" by default, "cpu" only when asked for; without a card the default
+raises. `train` and `eval` take `--preset`, `--config` (a JSON file of the
+JAX package's format) and dotted `key=value` overrides; an unknown key
+raises KeyError. `eval` scores the newest checkpoint of `--model-dir` over
+the TFRecord shards (every image: the last batch is padded and its padding
+rows masked), or with `wait_for_checkpoints=true` every new checkpoint until
+`max_evals`. A bf16 `eval` on the card runs block 1 through the fused
+kernel (K-B), as the JAX CLI does on an accelerator; `realtime-eval` (one
+image at a time in the reference) and every CPU run keep it unfused.
 
 `import-ckpt` turns a reference checkpoint (TF slim bundle, torch state
 dict, Caffe model) into a step-0 train state in `--model-dir`, from which
-`train.trainer.Trainer` resumes (ref: tf_utils.py:186-244). A TF bundle
-that holds the whole RON graph (a `reverse_module` scope, under
-`--model-scope` or at the top) goes through `slim_ron_to_flat`, its
-BatchNorm statistics into the buffers; any other bundle is read as a VGG-16
-under `--model-scope` (default 'vgg_16'). Tensors the source lacks keep the
-seeded init. Both subcommands run on the CPU.
+the Trainer resumes (ref: tf_utils.py:186-244). A TF bundle that holds the
+whole RON graph (a `reverse_module` scope, under `--model-scope` or at the
+top) goes through `slim_ron_to_flat`, its BatchNorm statistics into the
+buffers; any other bundle is read as a VGG-16 under `--model-scope`
+(default 'vgg_16'). Tensors the source lacks keep the seeded init. It and
+`inspect-ckpt` (parameters by flax name in flax layout, ref:
+inspect_checkpoint.py:32-131) run on the CPU.
 
-`inspect-ckpt` lists a model dir's parameters as the JAX package's
-`inspect_params` does, by flax name in flax layout
-(ref: inspect_checkpoint.py:32-131).
-
-The other subcommands (train, eval, realtime-eval, infer, convert-data,
-bench) are in the parser and raise NotImplementedError: they wait for the
-config loading, presets and the TFRecord input (ROADMAP Queue 1 item 5).
+`infer` (ROADMAP Queue 1 item 5: it draws its picture with PIL, which a
+card host may lack) and `bench` (ROADMAP Queue 2: the port's benchmark) are
+in the parser and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
-NOT_PORTED = "not ported yet: the CLI's {} subcommand waits for ROADMAP Queue 1 item 5"
+NOT_PORTED = {
+    "infer": "not ported yet: the CLI's infer subcommand waits for ROADMAP Queue 1 item 5 "
+             "(it draws its output picture with PIL, which a card host may lack)",
+    "bench": "not ported yet: the CLI's bench subcommand waits for the port's benchmark "
+             "(ROADMAP Queue 2)",
+}
 
 
 def _not_ported(args):
-    raise NotImplementedError(NOT_PORTED.format(args.command))
+    raise NotImplementedError(NOT_PORTED[args.command])
+
+
+def _preset(kind: str, name):
+    if not name:
+        return None
+    from .presets import get_preset
+
+    return get_preset(kind, name)
 
 
 def is_ron_graph(names, scope: str) -> bool:
     """Whether TF tensor names hold the whole RON graph: a `reverse_module`
     scope at the top or under `scope`."""
     return any(n.startswith("reverse_module/") or n.startswith(f"{scope}/reverse_module/") for n in names)
+
+
+def fuse_block1_for_eval(spec, device, bfloat16: bool) -> bool:
+    """Whether batched inference runs block 1 through K-B (JAX
+    `cli.py:67-87`): bf16 on a CUDA device, at a shape the kernel takes.
+    The batch-1 realtime path keeps the unfused layers, as JAX's does."""
+    from .kernels import fused_block1_supported
+
+    return bfloat16 and device.type == "cuda" and fused_block1_supported(*spec.img_shape)
+
+
+def restore_for_eval(model, model_dir: str, use_ema: bool = False) -> int:
+    """Inference-only restore (JAX `cli.py:44-64`): the newest checkpoint's
+    parameters (or EMA) and BatchNorm statistics into `model`, in place,
+    whatever optimizer trained it; returns the step."""
+    from .train.checkpoint import CheckpointManager
+
+    variables, step = CheckpointManager(model_dir).restore_eval(use_ema=use_ema)
+    model.load_state_dict({**variables["params"], **variables["batch_stats"]}, strict=True)
+    return step
+
+
+def cmd_train(args):
+    from .config import TrainConfig, load_config
+    from .train.trainer import Trainer
+
+    overrides = list(args.overrides)
+    if args.model_dir:
+        overrides.append(f"model_dir={args.model_dir}")
+    if args.dataset_dir:
+        overrides.append(f"data.dataset_dir={args.dataset_dir}")
+    cfg = load_config(TrainConfig, args.config, overrides, base=_preset("train", args.preset))
+    Trainer(cfg, device=args.device).train()
+
+
+def cmd_eval(args):
+    import torch
+
+    from . import resolve_device
+    from .config import EvalConfig, load_config
+    from .data.pipeline import PipelineConfig, PrefetchIterator, batch_iterator
+    from .data.tfrecord import list_shards
+    from .eval import StreamingEvaluator
+    from .inference.detector import DetectionConfig
+    from .losses.ron import RonLossConfig
+    from .losses.ssd import SsdLossConfig
+    from .models import get_network, get_spec
+    from .train.checkpoint import CheckpointManager
+
+    cfg = load_config(EvalConfig, args.config, args.overrides, base=_preset("eval", args.preset))
+    model_dir = args.model_dir or cfg.model_dir
+    dataset_dir = args.dataset_dir or cfg.data.dataset_dir
+    device = resolve_device(args.device)
+    fuse = fuse_block1_for_eval(get_spec(cfg.model), device, cfg.bfloat16)
+    model, spec = get_network(cfg.model, dtype=torch.bfloat16 if cfg.bfloat16 else torch.float32, fuse_block1=fuse)
+
+    files = list_shards(dataset_dir, cfg.data.file_pattern)
+    if not files:
+        raise FileNotFoundError(f"no shards matching {cfg.data.file_pattern!r} in {dataset_dir!r}")
+    pcfg = PipelineConfig(
+        batch_size=cfg.data.batch_size,
+        working_shape=spec.img_shape,
+        max_boxes=cfg.data.max_boxes,
+        shuffle=False,
+        keep_difficult=True,
+        eval_resize=cfg.resize,  # TF1 legacy bilinear + box remap
+        output_dtype="uint8",  # a quarter of the upload; the evaluator whitens on the device
+    )
+
+    def eval_batches():
+        # drop_remainder=False: every image is scored (the last batch is
+        # padded and its padding rows masked by sample_valid)
+        for hb in PrefetchIterator(batch_iterator(files, pcfg, epochs=1, drop_remainder=False)):
+            yield {"image": hb["image01"], "gt_labels": hb["gt_labels"], "gt_boxes": hb["gt_boxes"],
+                   "gt_difficult": hb["gt_difficult"], "sample_valid": hb["sample_valid"]}
+
+    loss_config = None
+    if cfg.report_loss:
+        loss_config = (SsdLossConfig(num_classes=spec.num_classes, match_threshold=cfg.match.positive_threshold)
+                       if cfg.model.startswith("ssd") else RonLossConfig(num_classes=spec.num_classes))
+    ev = StreamingEvaluator(
+        model,
+        spec,
+        DetectionConfig(select_threshold=cfg.select_threshold, objectness_threshold=cfg.objectness_threshold,
+                        top_k=cfg.select_top_k, keep_top_k=cfg.keep_top_k, nms_threshold=cfg.nms_threshold),
+        cfg.matching_threshold,
+        device=device,
+        loss_config=loss_config,
+        loss_match_threshold=cfg.match.positive_threshold,
+        loss_ignore_threshold=cfg.match.ignore_threshold,
+    )
+
+    # one-shot by default; with wait_for_checkpoints, every new checkpoint
+    # of model_dir (the reference's slim evaluation_loop, ref: eval_ssd_network.py:305-340)
+    mgr = CheckpointManager(model_dir)
+    if not cfg.wait_for_checkpoints and mgr.latest_step() is None:
+        raise FileNotFoundError(f"no checkpoint in {model_dir}")
+    evaluated_step, n_done = None, 0
+    while True:
+        latest = mgr.latest_step()
+        if latest is not None and latest != evaluated_step:
+            step = restore_for_eval(ev.detector.model, model_dir, cfg.use_ema)
+            print(f"[eval] restored step {step}")
+            map07, map12, aps07, stats = ev.run(eval_batches(), cfg.max_batches, debug_dir=cfg.debug_dir,
+                                                debug_max_images=cfg.debug_max_images)
+            for cls, ap in sorted(aps07.items()):
+                print(f"  AP07[class {cls:2d}] = {ap:.4f}")
+            print(f"mAP (VOC07 metric) = {map07:.4f}")
+            print(f"mAP (VOC12 metric) = {map12:.4f}")
+            for k in sorted(stats):
+                if k.startswith("loss/"):
+                    print(f"{k} = {stats[k]:.4f}")
+            print(f"eval speed: {stats['sec_per_image']:.4f} sec/image")
+            evaluated_step, n_done = step, n_done + 1
+        if not cfg.wait_for_checkpoints:
+            break
+        if cfg.max_evals is not None and n_done >= cfg.max_evals:
+            break
+        time.sleep(cfg.eval_interval_secs)
+        mgr.reload()  # pick up checkpoints written by the training job
+
+
+def cmd_realtime_eval(args):
+    from . import resolve_device
+    from .eval import RealtimeEvaluator
+    from .inference.detector import RealtimeConfig
+    from .models import get_network
+
+    device = resolve_device(args.device)
+    model, spec = get_network(args.model)  # f32, block 1 unfused: the batch-1 path
+    step = restore_for_eval(model, args.model_dir, args.use_ema)
+    print(f"[ron-eval] restored step {step}")
+    # SSD models get the streaming eval's class-wise settings (the objectness override does not apply)
+    rt = RealtimeEvaluator(model, spec, RealtimeConfig.for_spec(spec, objectness_threshold=args.objectness_threshold),
+                           device=device)
+    mean_ap, aps = rt.evaluate_voc(args.voc_root, args.set_type, max_images=args.max_images,
+                                   output_dir=args.output_dir, debug_dir=args.debug_dir)
+    for cls, ap in aps.items():
+        print(f"AP for {cls} = {ap:.4f}")
+    print(f"Mean AP = {mean_ap:.4f}")
+
+
+def cmd_convert_data(args):
+    from .data.convert import convert_voc
+
+    n = convert_voc(args.voc_root, args.output_dir, args.output_name, shuffle_seed=args.shuffle_seed)
+    print(f"converted {n} samples -> {args.output_dir}")
 
 
 def cmd_import_ckpt(args):
@@ -105,12 +278,45 @@ def cmd_inspect_ckpt(args):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ron", description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--device", default="cuda", help="torch device of train, eval and realtime-eval (default: cuda)")
     sub = p.add_subparsers(dest="command", required=True)
 
-    for name, help_ in (("train", "train a detector"), ("eval", "streaming mAP eval on TFRecords"),
-                        ("realtime-eval", "official VOCdevkit eval"), ("infer", "detect objects in images"),
-                        ("convert-data", "VOC -> TFRecord shards"), ("bench", "run the repo benchmark")):
-        sub.add_parser(name, help=f"{help_} (not ported yet)").set_defaults(fn=_not_ported)
+    t = sub.add_parser("train", help="train a detector")
+    t.add_argument("--preset", default=None, help="named recipe (ron_320/ssd_300/ssd_512)")
+    t.add_argument("--config", default=None)
+    t.add_argument("--model-dir", default=None)
+    t.add_argument("--dataset-dir", default=None)
+    t.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("eval", help="streaming mAP eval on TFRecords")
+    e.add_argument("--preset", default=None, help="named recipe (ron_320/ssd_300/ssd_512)")
+    e.add_argument("--config", default=None)
+    e.add_argument("--model-dir", default=None)
+    e.add_argument("--dataset-dir", default=None)
+    e.add_argument("overrides", nargs="*")
+    e.set_defaults(fn=cmd_eval)
+
+    r = sub.add_parser("realtime-eval", help="official VOCdevkit eval")
+    r.add_argument("--model", default="ron_320_vgg")
+    r.add_argument("--model-dir", required=True)
+    r.add_argument("--voc-root", required=True)
+    r.add_argument("--set-type", default="test")
+    r.add_argument("--max-images", type=int, default=None)
+    r.add_argument("--output-dir", default="./output_test")
+    r.add_argument("--objectness-threshold", type=float, default=0.95)
+    r.add_argument("--use-ema", action="store_true")
+    r.add_argument("--debug-dir", default=None, help="dump boxed JPEGs of the detections (ref: ron_eval.py:553-555)")
+    r.set_defaults(fn=cmd_realtime_eval)
+
+    sub.add_parser("infer", help="detect objects in images (not ported yet)").set_defaults(fn=_not_ported)
+
+    c = sub.add_parser("convert-data", help="VOC -> TFRecord shards")
+    c.add_argument("--voc-root", required=True, help="VOCdevkit/VOC2007 style dir")
+    c.add_argument("--output-dir", required=True)
+    c.add_argument("--output-name", default="voc_2007_train")
+    c.add_argument("--shuffle-seed", type=int, default=None)
+    c.set_defaults(fn=cmd_convert_data)
 
     m = sub.add_parser("import-ckpt", help="convert a TF/torch/caffe checkpoint to a model dir")
     m.add_argument("--format", required=True, choices=("tf", "torch", "caffe"))
@@ -127,6 +333,7 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--pattern", default=None)
     k.set_defaults(fn=cmd_inspect_ckpt)
 
+    sub.add_parser("bench", help="run the repo benchmark (not ported yet)").set_defaults(fn=_not_ported)
     return p
 
 

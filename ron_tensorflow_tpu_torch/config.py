@@ -1,11 +1,14 @@
-"""Typed training configuration.
+"""Typed configuration: nested frozen dataclasses, loaded from JSON files
+with `key=value` dotted overrides.
 
-A copy of `DataConfig`, `MatchConfig`, `TrainConfig` and `apply_overrides`
-from `ron_tensorflow_tpu/config.py` (ref: ron_net.py:52-180): the same
-field names and defaults. Options of the JAX trainer that the port does not
-run yet raise in `train.trainer.Trainer`: `s2d_stem`, a `mesh_shape` over
-more than one device, `data.use_grain`. `EvalConfig` and the rest wait for
-the CLI slice (ROADMAP Queue 1 item 5).
+A copy of `ron_tensorflow_tpu/config.py` (ref: ron_net.py:52-180,
+eval_ron_network.py:40-135): the same field names and defaults, so that the
+JAX package's config files load here. Options the port does not run raise:
+in `train.trainer.Trainer`, `s2d_stem`, a `mesh_shape` over more than one
+device and `data.use_grain`; in `EvalConfig`, a `mesh_shape` over more than
+one device (ROADMAP Queue 1 item 4) and a nonzero `shared_top_k`, the TPU's
+candidate preselection, which the port leaves out (0 is the JAX default
+and loads).
 """
 
 from __future__ import annotations
@@ -81,6 +84,52 @@ class TrainConfig:
     dump_debug_images_every: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    model: str = "ron_320_vgg"
+    model_dir: str = "./model"
+    data: DataConfig = DataConfig(
+        dataset_name="pascalvoc_2007", split_name="test",
+        file_pattern="voc_2007_test_*.tfrecord", batch_size=8, shuffle=False,
+        keep_difficult=True,
+    )
+    match: MatchConfig = MatchConfig(positive_threshold=0.5)
+    # detection pipeline (ref: eval_ron_network.py:64-75)
+    select_threshold: float = 0.01
+    objectness_threshold: float = 0.03
+    select_top_k: int = 200
+    keep_top_k: int = 100
+    nms_threshold: float = 0.4
+    shared_top_k: int = 0  # the TPU's candidate preselection: not ported, 0 only
+    matching_threshold: float = 0.5
+    # the model's losses on eval batches beside the mAP (ref: eval_ron_network.py:212-220),
+    # gts encoded at match.positive_threshold
+    report_loss: bool = True
+    max_batches: Optional[int] = None
+    use_ema: bool = False
+    bfloat16: bool = True
+    mesh_shape: Optional[Tuple[int, int]] = None  # None => one device
+    # continuous eval: evaluate every new checkpoint in model_dir
+    # (ref: eval_ssd_network.py:101,305-340)
+    wait_for_checkpoints: bool = False
+    eval_interval_secs: float = 60.0
+    max_evals: Optional[int] = None  # stop after N evaluations (None = forever)
+    # boxed-JPEG dumps of post-NMS detections (ref: eval_ron_network.py:240-247); None = off
+    debug_dir: Optional[str] = None
+    debug_max_images: int = 64
+    # WARP_RESIZE | CENTRAL_CROP | PAD_AND_RESIZE (ref: eval_ssd_network.py
+    # eval_resize_option); 'NONE' needs the realtime evaluator
+    resize: str = "WARP_RESIZE"
+
+    def __post_init__(self):
+        if self.shared_top_k:
+            raise NotImplementedError(f"shared_top_k={self.shared_top_k}: the TPU's whole-image candidate "
+                                      "preselection is not ported (0, the exact default, is)")
+        if self.mesh_shape and self.mesh_shape[0] * self.mesh_shape[1] > 1:
+            raise NotImplementedError(f"not ported yet: eval over a mesh {tuple(self.mesh_shape)} "
+                                      "(ROADMAP Queue 1 item 4)")
+
+
 def _coerce(value: str, field_type) -> Any:
     if field_type in (int, "int", Optional[int]):
         return int(value)
@@ -114,6 +163,30 @@ def _apply_one(cfg, parts, value):
         return dataclasses.replace(cfg, **{parts[0]: _coerce(value, fields[parts[0]].type)})
     child = getattr(cfg, parts[0])
     return dataclasses.replace(cfg, **{parts[0]: _apply_one(child, parts[1:], value)})
+
+
+def load_config(cls, path: Optional[str] = None, overrides: Sequence[str] = (), base=None):
+    """Build a config from an optional base (preset) + JSON file + dotted
+    overrides; the file replaces the base, overrides apply last."""
+    cfg = base if base is not None else cls()
+    if path:
+        with open(path) as f:
+            data = json.load(f)
+        cfg = _from_dict(cls, data)
+    return apply_overrides(cfg, overrides)
+
+
+def _from_dict(cls, data: dict):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        if dataclasses.is_dataclass(f.default) and isinstance(v, dict):
+            kwargs[f.name] = _from_dict(type(f.default), v)
+        else:
+            kwargs[f.name] = tuple(v) if isinstance(v, list) else v
+    return cls(**kwargs)
 
 
 def config_to_dict(cfg) -> dict:

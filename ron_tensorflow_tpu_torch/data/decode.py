@@ -1,58 +1,31 @@
-"""JPEG decode for evaluation and the realtime evaluator.
+"""JPEG decode for the input pipeline, evaluation and the realtime evaluator.
 
 Port of `decode_jpeg_raw`, `decode_jpeg` and `decode_jpeg_eval` from
-`ron_tensorflow_tpu/data/pipeline.py:73-111`. OpenCV (cv2) decodes when it
-is installed, else Pillow (PIL). Both are imported inside the functions:
-a host without either can import this module and run everything that does
-not decode a JPEG.
+`ron_tensorflow_tpu/data/pipeline.py:73-111`. The JAX package decodes
+through OpenCV (cv2), else Pillow (PIL); the port decodes and resizes with
+its own decoder (`data/jpeg.py`), bit for bit what cv2 gives (libjpeg-
+turbo's decode, cv2.resize INTER_LINEAR) on baseline JPEGs. Frames it does
+not take (progressive, arithmetic-coded, 12-bit, CMYK) raise ValueError.
 """
 
 from __future__ import annotations
 
-import io
-
 import numpy as np
 
+from . import jpeg
 from .preprocess import VGG_MEANS
 from .resize import preprocess_for_eval
 
 
-def _cv2():
-    try:
-        import cv2
-    except ImportError:
-        return None
-    return cv2
-
-
-def _pil_image():
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError("decoding a JPEG needs OpenCV (cv2) or Pillow (PIL); neither is installed") from e
-    return Image
-
-
 def decode_jpeg_raw(data: bytes) -> np.ndarray:
     """JPEG -> uint8 [H, W, 3] RGB at its original resolution."""
-    cv2 = _cv2()
-    if cv2 is not None:
-        arr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-        return cv2.cvtColor(arr, cv2.COLOR_BGR2RGB)
-    return np.asarray(_pil_image().open(io.BytesIO(data)).convert("RGB"))
+    return jpeg.decode_rgb(data)
 
 
 def decode_jpeg(data: bytes, out_hw) -> np.ndarray:
-    """JPEG -> float32 [H, W, 3] in [0, 1], resized to out_hw by the
-    library's bilinear warp (the train path's; eval uses the TF1 resize)."""
-    arr = decode_jpeg_raw(data)
-    cv2 = _cv2()
-    if cv2 is not None:
-        arr = cv2.resize(arr, (out_hw[1], out_hw[0]), interpolation=cv2.INTER_LINEAR)
-    else:
-        image = _pil_image()
-        arr = np.asarray(image.fromarray(arr).resize((out_hw[1], out_hw[0]), image.BILINEAR))
-    return arr.astype(np.float32) / 255.0
+    """JPEG -> float32 [H, W, 3] in [0, 1], resized to out_hw by cv2's
+    bilinear warp (the train path's; eval uses the TF1 resize)."""
+    return jpeg.resize_bilinear(jpeg.decode_rgb(data), out_hw).astype(np.float32) / 255.0
 
 
 def decode_jpeg_eval(data: bytes, out_hw, strategy: str) -> np.ndarray:

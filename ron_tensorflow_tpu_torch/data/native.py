@@ -7,6 +7,8 @@ the CUDA kernels' build), named by a hash of the source so that an edit
 rebuilds it, and loaded through ctypes. Every entry point returns None
 when no compiler or library is found, and `data/tfrecord.py` then computes
 the CRC with its numpy table. A host helper, not a kernel of the card.
+`build_shared` also builds the JPEG decoder (`data/jpeg.py`), which has no
+fallback and lets a failed build raise.
 """
 
 from __future__ import annotations
@@ -27,33 +29,37 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
+def build_shared(src: str, stem: str, flags=()) -> str:
+    """Compile the C source `src` into `_build/<stem>_<hash>.so` with the
+    host C compiler, unless that file is there already; returns its path.
+    Raises OSError or subprocess.SubprocessError when the build fails."""
+    with open(src, "rb") as f:
+        text = f.read()
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    so_path = os.path.join(_BUILD_DIR, f"{stem}_{tag}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    cc = os.environ.get("CC", "cc")
+    with tempfile.NamedTemporaryFile(suffix=".so", dir=_BUILD_DIR, delete=False) as tmp:
+        tmp_path = tmp.name
+    try:
+        proc = subprocess.run([cc, "-O3", "-shared", "-fPIC", *flags, "-o", tmp_path, src, "-lm"],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode:
+            raise subprocess.SubprocessError(f"{cc} failed on {src}:\n{proc.stderr}")
+        os.replace(tmp_path, so_path)  # atomic against concurrent builds
+    finally:
+        if os.path.exists(tmp_path):
+            os.unlink(tmp_path)
+    return so_path
+
+
 def _build_and_load() -> Optional[ctypes.CDLL]:
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    cache_dir = _BUILD_DIR
-    so_path = os.path.join(cache_dir, f"crc32c_{tag}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(cache_dir, exist_ok=True)
-        cc = os.environ.get("CC", "cc")
-        with tempfile.NamedTemporaryFile(
-            suffix=".so", dir=cache_dir, delete=False
-        ) as tmp:
-            tmp_path = tmp.name
-        try:
-            subprocess.run(
-                [cc, "-O3", "-shared", "-fPIC", "-o", tmp_path, _SRC],
-                check=True,
-                capture_output=True,
-                timeout=60,
-            )
-            os.replace(tmp_path, so_path)  # atomic vs concurrent builders
-        except (OSError, subprocess.SubprocessError):
-            try:
-                os.unlink(tmp_path)
-            except OSError:
-                pass
-            return None
+    try:
+        so_path = build_shared(_SRC, "crc32c")
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(so_path)
     except OSError:

@@ -2,8 +2,9 @@
 
 A copy of the label map, `VocObject`, `VocAnnotation`, `parse_annotation`
 and `voc_image_and_annotation_paths` of `ron_tensorflow_tpu/data/voc.py`
-(standard library only). The split registry stays with the TFRecord
-pipeline, which is not ported yet.
+(standard library only). JAX's split registry (`SPLITS`) and the dataset
+factory over it (`data/factory.py`) have no caller in either CLI and are
+left out: the CLI takes a records directory and a file pattern.
 
 (ref: datasets/pascalvoc_common.py:24-53 label registry,
 datasets/pascalvoc_to_tfrecords.py:70-125 XML annotation parsing — including

@@ -5,17 +5,12 @@ from __future__ import annotations
 import torch
 
 
-def get_network(name: str, dtype: torch.dtype = torch.float32, **kwargs):
-    """Model registry (`ron_tensorflow_tpu/models/__init__.py::get_network`):
-    name -> (module, DetectorSpec). `kwargs` go to the module: `RON`'s
-    (fuse_block1, bn_fast_normalize) or `SSD`'s (fuse_block1, dropout_rate).
-    The reference's *_caffe entries differ only in how their weights were
-    first seeded, so they name the same two SSD architectures."""
+def _registry():
     from .ron import RON
     from .spec import RON_320_SPEC, RON_TINY_SPEC, SSD_300_SPEC, SSD_512_SPEC
     from .ssd import SSD
 
-    registry = {
+    return {
         "ron_320_vgg": (RON, RON_320_SPEC, {"backbone_variant": "reduced"}),
         "ron_320_vgg_heavy": (RON, RON_320_SPEC, {"backbone_variant": "heavy"}),
         "ron_tiny_vgg": (RON, RON_TINY_SPEC, {}),
@@ -24,7 +19,22 @@ def get_network(name: str, dtype: torch.dtype = torch.float32, **kwargs):
         "ssd_300_vgg_caffe": (SSD, SSD_300_SPEC, {}),
         "ssd_512_vgg_caffe": (SSD, SSD_512_SPEC, {}),
     }
+
+
+def get_spec(name: str):
+    """The DetectorSpec of a registered network, without building it."""
+    registry = _registry()
     if name not in registry:
         raise ValueError(f"unknown network {name!r}; options: {sorted(registry)}")
-    cls, spec, fixed = registry[name]
+    return registry[name][1]
+
+
+def get_network(name: str, dtype: torch.dtype = torch.float32, **kwargs):
+    """Model registry (`ron_tensorflow_tpu/models/__init__.py::get_network`):
+    name -> (module, DetectorSpec). `kwargs` go to the module: `RON`'s
+    (fuse_block1, bn_fast_normalize) or `SSD`'s (fuse_block1, dropout_rate).
+    The reference's *_caffe entries differ only in how their weights were
+    first seeded, so they name the same two SSD architectures."""
+    spec = get_spec(name)
+    cls, _, fixed = _registry()[name]
     return cls(spec, dtype=dtype, **fixed, **kwargs), spec

@@ -44,8 +44,11 @@ With `tensorboard=True` the scalars of each log step go to an
 and the debug images too where PIL is installed; without PIL the trainer
 says once that it writes no images.
 
-Not ported yet, and raising: reading TFRecord shards (`make_batches`,
-ROADMAP Queue 1 item 5), a mesh over several devices (item 4), `s2d_stem`.
+Input: `train()` reads the TFRecord shards of `config.data` through
+`make_batches` (the ported `batch_iterator`), or takes host batches.
+
+Not ported yet, and raising: a mesh over several devices and the Grain
+pipeline (ROADMAP Queue 1 item 4), `s2d_stem`.
 """
 
 from __future__ import annotations
@@ -60,11 +63,12 @@ import torch
 
 from .. import resolve_device
 from ..config import TrainConfig, print_config
-from ..data.pipeline import DevicePrefetcher
+from ..data.pipeline import DevicePrefetcher, PipelineConfig, PrefetchIterator, batch_iterator
 from ..data.preprocess import PreprocessConfig, train_augment_batch, unwhiten
+from ..data.tfrecord import list_shards
 from ..kernels import fused_block1_supported
 from ..losses.ssd import SsdLossConfig
-from ..models import get_network
+from ..models import get_network, get_spec
 from ..ops.encode import TargetEncoder
 from ..utils.profiling import StepTimer
 from ..utils.summaries import MetricsWriter
@@ -105,7 +109,7 @@ def _not_ported(config: TrainConfig) -> Optional[str]:
     if config.s2d_stem:
         return "s2d_stem (measured slower on the TPU; to port only after a measurement on the card)"
     if config.data.use_grain:
-        return "the Grain input pipeline (ROADMAP Queue 1 item 5)"
+        return "the Grain input pipeline (ROADMAP Queue 1 item 4)"
     return None
 
 
@@ -121,7 +125,7 @@ class Trainer:
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if config.bfloat16 else torch.float32
         ssd = config.model.startswith("ssd")
-        _, spec = get_network(config.model)
+        spec = get_spec(config.model)
         fuse = (config.fuse_block1 and config.bfloat16 and self.device.type == "cuda"
                 and fused_block1_supported(*spec.img_shape))
         kwargs = {} if ssd else {"bn_fast_normalize": config.bn_fast_normalize}
@@ -195,8 +199,26 @@ class Trainer:
             state.params[name].copy_(value)
 
     def make_batches(self, epochs=None) -> Iterator[Dict[str, np.ndarray]]:
-        raise NotImplementedError("reading TFRecord shards is not ported yet (ROADMAP Queue 1 item 5); "
-                                  "pass host batches to Trainer.train(batches=...)")
+        """Host batches from the TFRecord shards of `data.file_pattern` in
+        `data.dataset_dir` (JAX `trainer.py:231-256`): uint8 working canvases
+        (a quarter of the upload), read and decoded on background threads."""
+        cfg = self.config
+        files = list_shards(cfg.data.dataset_dir, cfg.data.file_pattern)
+        if not files:
+            raise FileNotFoundError(f"no shards matching {cfg.data.file_pattern!r} in {cfg.data.dataset_dir!r}")
+        pcfg = PipelineConfig(
+            batch_size=cfg.data.batch_size,
+            working_shape=cfg.data.working_shape,
+            max_boxes=cfg.data.max_boxes,
+            shuffle=cfg.data.shuffle,
+            keep_difficult=cfg.data.keep_difficult,
+            num_workers=cfg.data.num_workers,
+            worker_index=cfg.data.worker_index,
+            seed=cfg.seed,
+            cache_decoded=cfg.data.cache_decoded,
+            output_dtype="uint8",
+        )
+        return PrefetchIterator(batch_iterator(files, pcfg, epochs=epochs))
 
     def generator(self, step: int) -> torch.Generator:
         """The step's generator: augmentation draws first, then the

@@ -329,6 +329,8 @@ def test_decode_jpeg_eval_matches_jax(jpeg_bytes, strategy):
 
 
 def test_decode_falls_back_to_pil(jpeg_bytes, monkeypatch):
+    """Without cv2 the port decodes as Pillow does: its own decoder needs
+    neither library."""
     import io
 
     from PIL import Image
@@ -339,11 +341,17 @@ def test_decode_falls_back_to_pil(jpeg_bytes, monkeypatch):
     assert decode.decode_jpeg(jpeg_bytes, (32, 48)).shape == (32, 48, 3)
 
 
-def test_decode_without_cv2_or_pil_raises(jpeg_bytes, monkeypatch):
+def test_decode_without_cv2_or_pil_uses_the_native_backend(jpeg_bytes, monkeypatch):
+    """A host with neither library decodes through the port's own decoder,
+    bit-equal to cv2 (JAX's decode, which runs cv2 here)."""
+    want_raw = jax_pipeline.decode_jpeg_raw(jpeg_bytes)
+    want_train = jax_pipeline.decode_jpeg(jpeg_bytes, (32, 48))
+    want_eval = jax_pipeline.decode_jpeg_eval(jpeg_bytes, (64, 64), "WARP_RESIZE")
     monkeypatch.setitem(sys.modules, "cv2", None)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="cv2.*PIL"):
-        decode.decode_jpeg_raw(jpeg_bytes)
+    np.testing.assert_array_equal(decode.decode_jpeg_raw(jpeg_bytes), want_raw)
+    np.testing.assert_array_equal(decode.decode_jpeg(jpeg_bytes, (32, 48)), want_train)
+    np.testing.assert_array_equal(decode.decode_jpeg_eval(jpeg_bytes, (64, 64), "WARP_RESIZE"), want_eval)
 
 
 def test_port_imports_without_cv2_and_pil():

@@ -28,7 +28,8 @@ def test_port_modules_found():
                  "train.optimizer", "train.state", "train.checkpoint", "train.trainer", "config",
                  "data.pipeline", "utils.summaries", "utils.profiling", "models.ssd", "models.testing",
                  "losses.ssd", "data.example", "data.tfrecord", "data.native", "utils.tensorboard",
-                 "train.tf_checkpoint", "train.caffe_import", "cli"):
+                 "train.tf_checkpoint", "train.caffe_import", "cli", "data.jpeg", "data.decode", "data.convert",
+                 "data.voc", "presets"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
     from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401

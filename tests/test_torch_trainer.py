@@ -8,6 +8,7 @@ each test removes its model directory.
 """
 
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -17,8 +18,11 @@ import pytest
 import torch
 
 from ron_tensorflow_tpu import config as jax_config
+from ron_tensorflow_tpu.data import pipeline as jax_pipeline
+from ron_tensorflow_tpu.data.tfrecord import list_shards as jax_list_shards
 
 from ron_tensorflow_tpu_torch.config import DataConfig, MatchConfig, TrainConfig, apply_overrides
+from ron_tensorflow_tpu_torch.data.convert import convert_voc
 from ron_tensorflow_tpu_torch.data.pipeline import DevicePrefetcher, PrefetchIterator
 from ron_tensorflow_tpu_torch.data.preprocess import PreprocessConfig
 from ron_tensorflow_tpu_torch.losses.ssd import SsdLossConfig
@@ -179,9 +183,6 @@ def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
                       (dict(data=DataConfig(use_grain=True)), "Grain")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(tiny_config(tmp_path, **kw), device="cpu")
-    t = Trainer(tiny_config(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        t.make_batches()
     # K-B only on a CUDA device: the CPU model keeps block 1 unfused
     t = Trainer(tiny_config(tmp_path, bfloat16=True, fuse_block1=True), device="cpu")
     assert not t.model.backbone.fuse_block1 and t.model.dtype == torch.bfloat16
@@ -193,6 +194,31 @@ def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
     assert t.preprocess_config == PreprocessConfig(out_shape=(300, 300), variant="ssd")
     assert Trainer(tiny_config(tmp_path, model="ssd_512_vgg", augment_variant="ron"),
                    device="cpu").preprocess_config.variant == "ron"
+
+
+def test_make_batches_reads_records(tmp_path):
+    """`make_batches` reads the TFRecord shards of `data` as JAX's
+    `Trainer.make_batches` does (`batch_iterator` with the trainer's
+    pipeline, uint8 canvases): the same samples in the same order, gts
+    exact, pixels bit-equal (the port's decoder against cv2's)."""
+    voc = os.path.join(os.path.dirname(__file__), "fixtures", "voc_mini", "VOC2007")
+    records = str(tmp_path / "records")
+    for name in ("voc_2007_train_0", "voc_2007_train_1"):
+        assert convert_voc(voc, records, name) == 8
+    data = DataConfig(dataset_dir=records, batch_size=3, working_shape=(48, 80), max_boxes=8, cache_decoded=True)
+    t = Trainer(tiny_config(tmp_path, data=data, seed=7), device="cpu")
+    got = list(itertools.islice(t.make_batches(epochs=1), 6))
+    pcfg = jax_pipeline.PipelineConfig(batch_size=3, working_shape=(48, 80), max_boxes=8, shuffle=True,
+                                       keep_difficult=False, seed=7, cache_decoded=True, output_dtype="uint8")
+    want = list(jax_pipeline.batch_iterator(jax_list_shards(records, data.file_pattern), pcfg, epochs=1))
+    assert len(got) == len(want) == 5  # 16 samples in full batches of 3
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and g["image01"].dtype == np.uint8
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    with pytest.raises(FileNotFoundError, match="no shards"):
+        Trainer(tiny_config(tmp_path, data=dataclasses.replace(data, dataset_dir=str(tmp_path))),
+                device="cpu").make_batches()
 
 
 def test_step_seeds_differ_by_step_and_seed():
