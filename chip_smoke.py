@@ -181,6 +181,23 @@ Phases, each ending with a line that gives its elapsed seconds:
               (K-C launched, K-A and K-B not): the detections it writes
               against JAX's rows: equal counts, classes and images, scores and
               boxes within 2e-3.
+ 26. dist     distribution on the one card, ranks in processes of their
+              own (`parallel.testing.run_ranks`, the kernels built by the
+              parent beforehand), gloo between them (NCCL takes one rank per
+              device): (a) one f32 RON-320 step on mesh (2, 1), global batch
+              14, against the one-process step on the same batch and draws
+              (losses and parts within 1e-4 relative, counts equal, updated
+              parameters and BN statistics within 1e-4, ranks bit-identical);
+              5 bf16 Trainer steps with K-B on (2, 1), K-B once a step in
+              each rank, losses finite, rank 0's checkpoint restored in one
+              process; (b) one f32 step on mesh (1, 2) at batch 2, the same
+              gates, grad_norm too; (c) `cli eval` on mesh [2, 1] as under
+              `python -m torch.distributed.run` (env://), 32 rows a rank:
+              mAP, APs and TP/FP equal to phase 24's, K-A and K-B in each
+              rank; (d) env:// at
+              world size 1 with NCCL: an all-reduce and one Trainer step on
+              mesh (1, 1). The 2-rank step's ms beside the one-process step
+              and the gradient all-reduce's ms are recorded.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -190,6 +207,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import hashlib
 import io
 import itertools
@@ -240,7 +258,7 @@ from ron_tensorflow_tpu_torch.kernels.nms import (
     suppression_matrix,
 )
 from ron_tensorflow_tpu_torch.losses.ssd import SsdLossConfig
-from ron_tensorflow_tpu_torch.models import get_network
+from ron_tensorflow_tpu_torch.models import get_network, shard_model
 from ron_tensorflow_tpu_torch.models.layers import max_pool_2x2
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC, SSD_300_SPEC
@@ -253,7 +271,24 @@ from ron_tensorflow_tpu_torch.ops.math import exact_top_k_chunked
 from ron_tensorflow_tpu_torch.tools.time_nms import device_ms
 from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
 from ron_tensorflow_tpu_torch.train.optimizer import global_norm, make_optimizer
-from ron_tensorflow_tpu_torch.train.state import create_train_state, detection_loss_fn, make_train_step, train_forward
+from ron_tensorflow_tpu_torch.parallel import (
+    GlobalBatch,
+    host_local_to_global,
+    initialize_distributed,
+    local_device,
+    make_mesh,
+    sharded_names,
+    take_rows,
+)
+from ron_tensorflow_tpu_torch.parallel.testing import run_ranks
+from ron_tensorflow_tpu_torch.train.state import (
+    all_reduce_flat,
+    create_train_state,
+    detection_loss_fn,
+    gathered_state_dict,
+    make_train_step,
+    train_forward,
+)
 from ron_tensorflow_tpu_torch.train.tf_checkpoint import slim_ron_to_flat
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
 from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
@@ -2669,7 +2704,7 @@ def cli_eval_phase(state, records, tmp, smi):
     return {"map07": map07, "map12": map12, "images": stats["images"], "padded_rows": padded, "tp": n_tp,
             "fp": n_fp, "launches": launches, "img_per_s_end_to_end": cli_ips, "img_per_s_in_memory": mem_ips,
             "timed_runs": timed_runs, "losses": {k: v for k, v in stats.items() if k.startswith("loss/")},
-            "model_dir": str(model_dir)}
+            "model_dir": str(model_dir), "aps": aps, "accumulator": acc}
 
 
 def cli_realtime_phase(model_dir, ref, tmp, smi):
@@ -2705,6 +2740,277 @@ def cli_realtime_phase(model_dir, ref, tmp, smi):
           f"restore ({smi})")
     return {"detections": len(rows), "max_abs_err": err, "launches": launches, "seconds": seconds,
             "mean_ap": mean_ap}
+
+
+# --------------------------------------------------------------------------- #
+# Distribution (phase "dist"): ranks on the one card
+
+DIST_RUN_TIMEOUT = 600  # s for one multi-process run, start-up included: run_ranks kills its ranks after it
+DIST_TIMEOUT = datetime.timedelta(seconds=300)  # every process group's init and collectives
+DIST_BATCH, DIST_TP_BATCH, DIST_STEPS = TRAIN_BATCH, 2, 5
+# (c)'s global eval batch: 32 rows a rank, so that each rank's forward is
+# phase "cli eval"'s forward of the same 32 rows. The card's bf16
+# convolutions pick their algorithm by batch size: a 16-row forward differs
+# in the last bits from the 32-row one, and the mAP moved (0.2061 on 2 ranks
+# of 16 rows against 0.2051; PERF.md, Findings).
+DIST_EVAL_BATCH = 2 * CLI_EVAL_BATCH
+DIST_DEVICE = "cuda:0"  # every rank on the one card
+
+
+def dist_start(rank, world, port, mesh_shape, backend="gloo"):
+    """This rank's process group (gloo: NCCL takes one rank per device) and
+    its mesh."""
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend, device=DIST_DEVICE, timeout=DIST_TIMEOUT)
+    return make_mesh(tuple(mesh_shape))
+
+
+def tensor_digest(tensors) -> str:
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_f32_run(state, host, batch, mesh):
+    """One f32 step of RON-320 (the TrainConfig optimizer) on the global
+    batch `batch` of `host`, with one augmentation's and the loss's draws of
+    the global batch: on `mesh` (this rank's rows) or in one process.
+    Returns (metrics, whole parameters and BN statistics on the CPU, step ms,
+    the step's gradient all-reduce alone ms or None)."""
+    model = RON(RON_320_SPEC)
+    model.load_state_dict(state, strict=True)
+    enc = TargetEncoder(RON_320_SPEC.anchor_layout(), RON_320_SPEC.img_shape, TRAIN_CFG.match.positive_threshold,
+                        TRAIN_CFG.match.ignore_threshold, RON_320_SPEC.prior_scaling)
+    tx = make_optimizer(TRAIN_CFG.optimizer, model)
+    if mesh is not None:
+        shard_model(model, mesh)
+    model.to(DIST_DEVICE)
+    st = create_train_state(model, tx)
+    step = make_train_step(model, enc, tx, TRAIN_CFG.loss, mesh=mesh)
+    host_t, aug_draws, loss_draws, pcfg = train_inputs(host, batch, seed=0)
+    if mesh is not None:
+        b = batch // mesh.data_size
+        off = mesh.data_index * b
+        local = {k: v[off:off + b] for k, v in host_t.items()}
+        inputs = GlobalBatch(augmented(local, take_rows(aug_draws, off, b), pcfg, DIST_DEVICE), off, batch)
+    else:
+        inputs = augmented(host_t, aug_draws, pcfg, DIST_DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = step(st, inputs, draws=loss_draws.to(DIST_DEVICE))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    sharded = sharded_names(model, mesh) if mesh is not None else {}
+    whole = gathered_state_dict(st, mesh, sharded) if mesh is not None else st.state_dict()
+    reduce_ms = None
+    if mesh is not None and mesh.data_group is not None:
+        grads = [torch.zeros_like(p) for p in st.params.values()]
+        reduce_ms = cuda_ms(lambda: all_reduce_flat(grads, mesh.data_group), reps=3, warmup=1)
+    return ({k: float(v) for k, v in metrics.items()}, {**whole["params"], **whole["batch_stats"]}, ms, reduce_ms)
+
+
+def dist_f32_worker(rank, world, port, mesh_shape, batch):
+    """Phase "dist" (a) and (b), one rank: the f32 step on the mesh; rank 0
+    then runs the one-process step on the same global batch and draws and
+    holds the mesh's to it."""
+    mesh = dist_start(rank, world, port, mesh_shape)
+    state = from_jax_params(*load_trained_fixture(str(TRAINED_FIXTURE)))
+    host = train_host_batch(np.load(TRAINED_FIXTURE, allow_pickle=False), batch)
+    metrics, whole, ms, reduce_ms = dist_f32_run(state, host, batch, mesh)
+    out = {"metrics": metrics, "digest": tensor_digest(whole), "ms": ms, "allreduce_ms": reduce_ms}
+    if rank == 0:
+        ref_metrics, ref, ref_ms, _ = dist_f32_run(state, host, batch, None)
+        out.update(ref_metrics=ref_metrics, ref_ms=ref_ms,
+                   state_err=max((float((whole[k] - r).abs().max()) / max(float(r.abs().max()), 1e-30), k)
+                                 for k, r in ref.items()))
+    return out
+
+
+def dist_trainer_worker(rank, world, port, model_dir, steps):
+    """Phase "dist" (a), one rank of the bf16 Trainer with K-B on a (2, 1)
+    mesh: its rows of the global batch of 14, `steps` steps from the
+    trained weights' step-0 checkpoint, then three more steps timed and the
+    gradient all-reduce alone timed. Counts K-B's launches in this rank."""
+    dist_start(rank, world, port, (world, 1))
+    local_b = DIST_BATCH // world
+    cfg = dataclasses.replace(TRAIN_CFG, model_dir=model_dir, mesh_shape=(world, 1), tensorboard=False,
+                              data=dataclasses.replace(TRAIN_CFG.data, batch_size=local_b))
+    trainer = Trainer(cfg, device=DIST_DEVICE)
+    if not trainer.model.backbone.fuse_block1:
+        raise AssertionError(f"rank {rank}: the bf16 trainer on the card did not take K-B")
+    host = train_host_batch(np.load(TRAINED_FIXTURE, allow_pickle=False), DIST_BATCH)
+    local = {k: v[rank * local_b:(rank + 1) * local_b] for k, v in host.items()}
+    kernels.reset_launch_counts()
+    st, _ = quietly(lambda: trainer.train(max_steps=steps, batches=itertools.repeat(local)))
+    torch.cuda.synchronize()
+    launches, trained_to = kernels.launch_counts(), st.step
+    placed = host_local_to_global(local, trainer.mesh, DIST_DEVICE)
+    step_ms = cuda_ms(lambda: trainer.step(st, placed), reps=3, warmup=1)
+    grads = [torch.zeros_like(p) for p in st.params.values()]
+    reduce_ms = cuda_ms(lambda: all_reduce_flat(grads, trainer.mesh.data_group), reps=3, warmup=1)
+    losses = None
+    if rank == 0:
+        losses = [json.loads(line)["loss/total"] for line in open(Path(model_dir) / "metrics.jsonl")]
+    return {"launches": launches, "step": trained_to, "losses": losses, "step_ms": step_ms, "allreduce_ms": reduce_ms,
+            "saved_digest": tensor_digest(trainer._ckpt.restore_eval(steps)[0]["params"]) if rank == 0 else None}
+
+
+def dist_eval_worker(rank, world, port, argv):
+    """Phase "dist" (c), one rank: the CLI's `eval` as it runs under
+    `python -m torch.distributed.run` (env:// variables), K-A and K-B
+    counted in this rank; rank 0's mAP, APs and per-class TP/FP."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    runs = []
+    real_run = StreamingEvaluator.run
+
+    def recorded(self, *a, **kw):
+        out = real_run(self, *a, **kw)
+        runs.append((self, out))
+        return out
+
+    kernels.reset_launch_counts()
+    with mock.patch.object(StreamingEvaluator, "run", recorded):
+        _, printed = quietly(lambda: cli_main(argv))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    ev, (map07, map12, aps, stats) = runs[0]
+    out = {"launches": launches, "fused": ev.detector.model.backbone.fuse_block1, "mesh": ev.mesh.shape}
+    if rank == 0:
+        acc = ev.accumulator
+        out.update(map07=map07, map12=map12, aps=aps, images=stats["images"], printed=printed,
+                   classes={c: (acc.n_gt[c], *acc.class_arrays(c)) for c in range(1, RON_320_SPEC.num_classes)},
+                   img_per_s=1.0 / stats["sec_per_image"])
+    return out
+
+
+def dist_nccl_worker(rank, world, port, model_dir):
+    """Phase "dist" (d): torch.distributed from env:// at world size 1 with
+    the backend a card gets by default (NCCL), one all-reduce, and one bf16
+    Trainer step through the mesh code path (mesh (1, 1))."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    device = local_device("cuda")
+    if not initialize_distributed(device=device, timeout=DIST_TIMEOUT):
+        raise AssertionError("initialize_distributed did not initialize from env://")
+    t = torch.full((4,), 3.0, device=device)
+    torch.distributed.all_reduce(t)
+    cfg = dataclasses.replace(TRAIN_CFG, model_dir=model_dir, mesh_shape=(1, 1), tensorboard=False,
+                              data=dataclasses.replace(TRAIN_CFG.data, batch_size=F32_STEP_BATCH))
+    host = train_host_batch(np.load(TRAINED_FIXTURE, allow_pickle=False), F32_STEP_BATCH)
+    trainer = Trainer(cfg, device=device)
+    kernels.reset_launch_counts()
+    st, _ = quietly(lambda: trainer.train(max_steps=1, batches=itertools.repeat(host)))
+    torch.cuda.synchronize()
+    loss = [json.loads(line)["loss/total"] for line in open(Path(model_dir) / "metrics.jsonl")]
+    return {"backend": torch.distributed.get_backend(), "device": str(device), "allreduce": t.tolist(),
+            "mesh": trainer.mesh.shape, "step": st.step, "loss": loss, "launches": kernels.launch_counts()}
+
+
+def run_dist(target, world, **kwargs):
+    return run_ranks(f"chip_smoke:{target}", world, kwargs, timeout=DIST_RUN_TIMEOUT)
+
+
+def dist_phase(state, records, cli_eval, eval_dir, tmp, train_times, smi):
+    """Phase "dist": distribution on the one card (gloo between ranks, all
+    on cuda:0). (a) DP: one f32 RON-320 step on mesh (2, 1) at global batch
+    14 (7 a rank) against the one-process f32 step on the same batch and
+    draws: losses and parts within 1e-4 relative, counts equal, updated
+    parameters and BN statistics within 1e-4 of each tensor's largest
+    magnitude, ranks bit-identical; then 5 bf16 Trainer steps with K-B on
+    (2, 1): K-B once a step in each rank, every loss finite, rank 0's
+    checkpoint restored by a one-process Trainer equal to it. (b) TP: one
+    f32 step on mesh (1, 2) at batch 2 against the one-process step, the same
+    tolerances, grad_norm within them too. (c) the CLI's eval over the
+    records on mesh [2, 1] at a global batch of 64 (phase "cli eval"'s 32
+    rows a rank; the last batch 8 images and 56 padded rows): mAP, APs and
+    every class's TP/FP equal to phase "cli eval"'s one-process run; K-A
+    and K-B launched in each rank. (d)
+    env:// at world size 1 with NCCL: an all-reduce and one Trainer step on
+    mesh (1, 1). Recorded: the 2-rank step's ms beside the one-process step
+    at batch 14, and the gradient all-reduce's."""
+    res = {}
+
+    def hold(label, r, world):
+        r0 = r[0]
+        if len({x["digest"] for x in r}) != 1 or any(x["metrics"] != r0["metrics"] for x in r):
+            raise AssertionError(f"{label}: the ranks' states or metrics differ")
+        m, ref = r0["metrics"], r0["ref_metrics"]
+        worst = {k: abs(m[k] - ref[k]) / abs(ref[k]) for k in ref if k.startswith("loss/") or k == "grad_norm"}
+        bad = [k for k, v in worst.items() if v > TRAIN_LOSS_RTOL]
+        bad += [k for k in ref if k.startswith("counts/") and m[k] != ref[k]]
+        if bad or r0["state_err"][0] > TRAIN_STATE_RTOL:
+            raise AssertionError(f"{label}: {bad} off, or the state {r0['state_err']} (tolerance {TRAIN_STATE_RTOL})")
+        print(f"  {label}: loss {ref['loss/total']:.6f}, worst part {max(worst.values()):.2e} relative (grad_norm "
+              f"{worst['grad_norm']:.2e}), counts equal, updated parameters and BN statistics within "
+              f"{r0['state_err'][0]:.2e} ({r0['state_err'][1]}), {world} ranks bit-identical; step "
+              f"{r0['ms']:.1f} ms on the mesh, {r0['ref_ms']:.1f} ms in one process (host clock, first step; {smi})")
+        return {"loss_rel_diff": worst, "state_err": r0["state_err"], "ms": r0["ms"], "ref_ms": r0["ref_ms"],
+                "allreduce_ms": r0["allreduce_ms"]}
+
+    res["dp_f32"] = hold(f"(a) f32 step on mesh (2, 1), global batch {DIST_BATCH}",
+                         run_dist("dist_f32_worker", 2, mesh_shape=[2, 1], batch=DIST_BATCH), 2)
+    model_dir = tmp / "dist_train"
+    seeded_model_dir(str(model_dir), state)
+    r = run_dist("dist_trainer_worker", 2, model_dir=str(model_dir), steps=DIST_STEPS)
+    for rank, x in enumerate(r):
+        check_counts(f"rank {rank}'s {DIST_STEPS} bf16 Trainer steps on mesh (2, 1)", x["launches"],
+                     ("fused_vgg_block1",))
+        if x["launches"]["fused_vgg_block1"] != DIST_STEPS or x["step"] != DIST_STEPS:
+            raise AssertionError(f"rank {rank}: step {x['step']}, K-B launched {x['launches']}")
+    losses = r[0]["losses"]
+    if len(losses) != DIST_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"dist trainer losses {losses}")
+    restored = Trainer(dataclasses.replace(TRAIN_CFG, model_dir=str(model_dir), tensorboard=False), device="cuda")
+    st, _ = quietly(restored.init_state)
+    if st.step != DIST_STEPS or tensor_digest({k: v for k, v in st.params.items()}) != r[0]["saved_digest"]:
+        raise AssertionError(f"the one-process restore of rank 0's checkpoint: step {st.step}, or other parameters")
+    one = train_times[f"b{TRAIN_BATCH}"]["ms"]
+    res["dp_trainer"] = {"launches_per_rank": [x["launches"]["fused_vgg_block1"] for x in r], "losses": losses,
+                         "step_ms": r[0]["step_ms"], "one_process_step_ms": one,
+                         "allreduce_ms": r[0]["allreduce_ms"]}
+    print(f"  (a) bf16 Trainer + K-B on mesh (2, 1), 7 rows a rank: {DIST_STEPS} steps, K-B launched "
+          f"{res['dp_trainer']['launches_per_rank']} times (each rank), losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"all finite; rank 0's checkpoint restored in one process at step {st.step}, parameters equal; step "
+          f"{r[0]['step_ms']:.1f} ms on 2 ranks of one card (gloo) against {one:.1f} ms in one process at batch "
+          f"{TRAIN_BATCH}; the gradient all-reduce alone {r[0]['allreduce_ms']:.1f} ms ({smi})")
+    del restored, st
+    res["tp_f32"] = hold(f"(b) f32 step on mesh (1, 2), batch {DIST_TP_BATCH}",
+                         run_dist("dist_f32_worker", 2, mesh_shape=[1, 2], batch=DIST_TP_BATCH), 2)
+
+    argv = ["--device", DIST_DEVICE, "--dist-backend", "gloo", "eval", "--model-dir", eval_dir, "--dataset-dir",
+            str(records), f"data.file_pattern={RECORD_PATTERN}", f"data.batch_size={DIST_EVAL_BATCH}",
+            "mesh_shape=[2, 1]"]
+    r = run_dist("dist_eval_worker", 2, argv=argv)
+    for rank, x in enumerate(r):
+        check_counts(f"rank {rank}'s CLI eval on mesh [2, 1]", x["launches"], MAIN_PATH)
+        if not x["fused"] or x["mesh"] != (2, 1):
+            raise AssertionError(f"rank {rank}: eval without K-B or on mesh {x['mesh']}")
+    r0, acc = r[0], cli_eval["accumulator"]
+    same = all(r0["classes"][c][0] == acc.n_gt[c] and all(np.array_equal(a, b) for a, b in
+                                                         zip(r0["classes"][c][1:], acc.class_arrays(c)))
+               for c in r0["classes"])
+    if (r0["map07"], r0["map12"]) != (cli_eval["map07"], cli_eval["map12"]) or r0["aps"] != cli_eval["aps"] \
+            or not same or r0["images"] != RECORD_COUNT:
+        raise AssertionError(f"(c) mesh eval: mAP {r0['map07']}/{r0['map12']} against one process's "
+                             f"{cli_eval['map07']}/{cli_eval['map12']}, TP/FP equal: {same}")
+    res["eval"] = {"map07": r0["map07"], "map12": r0["map12"], "img_per_s": r0["img_per_s"],
+                   "launches": [x["launches"] for x in r]}
+    print(f"  (c) CLI eval on mesh [2, 1], global batch {DIST_EVAL_BATCH}, over the {r0['images']} records: mAP07 "
+          f"{r0['map07']:.4f}, mAP12 "
+          f"{r0['map12']:.4f}, APs and every class's TP/FP equal to the one-process CLI run's; launches "
+          + "; ".join(f"rank {i}: K-A {x['launches']['nms_fixpoint_keep_mask']}, K-B "
+                      f"{x['launches']['fused_vgg_block1']}" for i, x in enumerate(r))
+          + f"; {r0['img_per_s']:.1f} img/s end to end ({smi})")
+
+    r = run_dist("dist_nccl_worker", 1, model_dir=str(tmp / "dist_nccl"))[0]
+    if (r["backend"] != "nccl" or r["allreduce"] != [3.0] * 4 or r["step"] != 1 or r["mesh"] != (1, 1)
+            or not np.isfinite(r["loss"]).all() or r["launches"]["fused_vgg_block1"] != 1):
+        raise AssertionError(f"(d) NCCL at world size 1: {r}")
+    res["nccl_world_1"] = r
+    print(f"  (d) env:// at world size 1 on {r['device']}: backend {r['backend']}, all-reduce {r['allreduce']}, one "
+          f"Trainer step on mesh {r['mesh']} (loss {r['loss'][0]:.4f}, K-B {r['launches']['fused_vgg_block1']})")
+    return res
 
 
 def main() -> int:
@@ -2930,8 +3236,12 @@ def main() -> int:
             cli_train = cli_train_phase(state, Path(records["path"]), fx, tmp, smi)
         with phase("cli eval"):
             cli_eval = cli_eval_phase(state, Path(records["path"]), tmp, smi)
+        eval_dir = cli_eval.pop("model_dir")
         with phase("cli realtime-eval"):
-            cli_rt = cli_realtime_phase(cli_eval.pop("model_dir"), ref, tmp, smi)
+            cli_rt = cli_realtime_phase(eval_dir, ref, tmp, smi)
+        with phase("dist"):
+            dist = dist_phase(state, Path(records["path"]), cli_eval, eval_dir, tmp, train_times, smi)
+        del cli_eval["accumulator"], cli_eval["aps"]
     kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
                               "eval": cli_eval["launches"]["fused_vgg_block1"]}
     results[0]["cli_eval_launches"] = cli_eval["launches"]["nms_fixpoint_keep_mask"]
@@ -2940,6 +3250,11 @@ def main() -> int:
                                      "ssd_300_caffe": warm["ssd_300_caffe"]["launches"]["fused_vgg_block1"],
                                      "reference_import_detector": ref_import["launches"]["fused_vgg_block1"]}
     results[0]["reference_import_launches"] = ref_import["launches"]["nms_fixpoint_keep_mask"]
+    # the dist path, counted in each rank: K-B in every rank's train step and eval, K-A in every rank's eval
+    kb_row["dist_launches"] = {"trainer_per_rank": dist["dp_trainer"]["launches_per_rank"],
+                               "eval_per_rank": [x["fused_vgg_block1"] for x in dist["eval"]["launches"]],
+                               "nccl_world_1_step": dist["nccl_world_1"]["launches"]["fused_vgg_block1"]}
+    results[0]["dist_launches"] = {"eval_per_rank": [x["nms_fixpoint_keep_mask"] for x in dist["eval"]["launches"]]}
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
@@ -2953,7 +3268,8 @@ def main() -> int:
                       "checkpoint_import": {"reference_import": ref_import, "warm_start": warm, "import_cli": imported,
                                             "tensorboard": tb},
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
-                                         "cli_eval": cli_eval, "cli_realtime_eval": cli_rt}}))
+                                         "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
+                      "dist": dist}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

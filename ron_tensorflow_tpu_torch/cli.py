@@ -20,6 +20,15 @@ rows masked), or with `wait_for_checkpoints=true` every new checkpoint until
 kernel (K-B), as the JAX CLI does on an accelerator; `realtime-eval` (one
 image at a time in the reference) and every CPU run keep it unfused.
 
+Several processes: under `python -m torch.distributed.run --nproc-per-node N
+-m ron_tensorflow_tpu_torch.cli train|eval ... mesh_shape=[N,1]`, `train`
+and `eval` initialize torch.distributed from its `env://` variables (NCCL
+on the card, gloo on the CPU, or `--dist-backend`), each rank on
+`cuda:LOCAL_RANK` (or the `--device` given with an index), and run on the
+config's `mesh_shape` ((world, 1) by default). Only rank 0 prints results.
+Two ranks on one card need `--device cuda:0 --dist-backend gloo` (NCCL
+takes one rank per device).
+
 `import-ckpt` turns a reference checkpoint (TF slim bundle, torch state
 dict, Caffe model) into a step-0 train state in `--model-dir`, from which
 the Trainer resumes (ref: tf_utils.py:186-244). A TF bundle that holds the
@@ -76,15 +85,25 @@ def fuse_block1_for_eval(spec, device, bfloat16: bool) -> bool:
     return bfloat16 and device.type == "cuda" and fused_block1_supported(*spec.img_shape)
 
 
-def restore_for_eval(model, model_dir: str, use_ema: bool = False) -> int:
-    """Inference-only restore (JAX `cli.py:44-64`): the newest checkpoint's
-    parameters (or EMA) and BatchNorm statistics into `model`, in place,
-    whatever optimizer trained it; returns the step."""
+def restore_for_eval(model, model_dir: str, use_ema: bool = False, step=None) -> int:
+    """Inference-only restore (JAX `cli.py:44-64`): the checkpoint's (the
+    newest by default) parameters (or EMA) and BatchNorm statistics into
+    `model`, in place, whatever optimizer trained it; returns the step."""
     from .train.checkpoint import CheckpointManager
 
-    variables, step = CheckpointManager(model_dir).restore_eval(use_ema=use_ema)
+    variables, step = CheckpointManager(model_dir).restore_eval(step, use_ema=use_ema)
     model.load_state_dict({**variables["params"], **variables["batch_stats"]}, strict=True)
     return step
+
+
+def distributed_device(args):
+    """This process's device, after torch.distributed is initialized from
+    a launcher's `env://` variables (nothing when there are none)."""
+    from .parallel import initialize_distributed, local_device
+
+    device = local_device(args.device)
+    initialize_distributed(backend=args.dist_backend, device=device)
+    return device
 
 
 def cmd_train(args):
@@ -97,7 +116,7 @@ def cmd_train(args):
     if args.dataset_dir:
         overrides.append(f"data.dataset_dir={args.dataset_dir}")
     cfg = load_config(TrainConfig, args.config, overrides, base=_preset("train", args.preset))
-    Trainer(cfg, device=args.device).train()
+    Trainer(cfg, device=distributed_device(args)).train()
 
 
 def cmd_eval(args):
@@ -112,12 +131,16 @@ def cmd_eval(args):
     from .losses.ron import RonLossConfig
     from .losses.ssd import SsdLossConfig
     from .models import get_network, get_spec
+    from .parallel.collectives import broadcast_int
+    from .parallel.mesh import make_mesh, world_size
     from .train.checkpoint import CheckpointManager
 
     cfg = load_config(EvalConfig, args.config, args.overrides, base=_preset("eval", args.preset))
     model_dir = args.model_dir or cfg.model_dir
     dataset_dir = args.dataset_dir or cfg.data.dataset_dir
-    device = resolve_device(args.device)
+    device = resolve_device(distributed_device(args))
+    mesh = make_mesh(cfg.mesh_shape) if cfg.mesh_shape or world_size() > 1 else None
+    primary = mesh is None or mesh.rank == 0
     fuse = fuse_block1_for_eval(get_spec(cfg.model), device, cfg.bfloat16)
     model, spec = get_network(cfg.model, dtype=torch.bfloat16 if cfg.bfloat16 else torch.float32, fuse_block1=fuse)
 
@@ -155,6 +178,7 @@ def cmd_eval(args):
         loss_config=loss_config,
         loss_match_threshold=cfg.match.positive_threshold,
         loss_ignore_threshold=cfg.match.ignore_threshold,
+        mesh=mesh,
     )
 
     # one-shot by default; with wait_for_checkpoints, every new checkpoint
@@ -164,21 +188,22 @@ def cmd_eval(args):
         raise FileNotFoundError(f"no checkpoint in {model_dir}")
     evaluated_step, n_done = None, 0
     while True:
-        latest = mgr.latest_step()
-        if latest is not None and latest != evaluated_step:
-            step = restore_for_eval(ev.detector.model, model_dir, cfg.use_ema)
-            print(f"[eval] restored step {step}")
+        latest = broadcast_int(-1 if mgr.latest_step() is None else mgr.latest_step())  # rank 0's on every rank
+        if latest >= 0 and latest != evaluated_step:
+            step = restore_for_eval(ev.detector.model, model_dir, cfg.use_ema, latest)
             map07, map12, aps07, stats = ev.run(eval_batches(), cfg.max_batches, debug_dir=cfg.debug_dir,
                                                 debug_max_images=cfg.debug_max_images)
-            for cls, ap in sorted(aps07.items()):
-                print(f"  AP07[class {cls:2d}] = {ap:.4f}")
-            print(f"mAP (VOC07 metric) = {map07:.4f}")
-            print(f"mAP (VOC12 metric) = {map12:.4f}")
-            for k in sorted(stats):
-                if k.startswith("loss/"):
-                    print(f"{k} = {stats[k]:.4f}")
-            print(f"eval speed: {stats['sec_per_image']:.4f} sec/image")
             evaluated_step, n_done = step, n_done + 1
+            if primary:
+                print(f"[eval] restored step {step}")
+                for cls, ap in sorted(aps07.items()):
+                    print(f"  AP07[class {cls:2d}] = {ap:.4f}")
+                print(f"mAP (VOC07 metric) = {map07:.4f}")
+                print(f"mAP (VOC12 metric) = {map12:.4f}")
+                for k in sorted(stats):
+                    if k.startswith("loss/"):
+                        print(f"{k} = {stats[k]:.4f}")
+                print(f"eval speed: {stats['sec_per_image']:.4f} sec/image")
         if not cfg.wait_for_checkpoints:
             break
         if cfg.max_evals is not None and n_done >= cfg.max_evals:
@@ -278,7 +303,10 @@ def cmd_inspect_ckpt(args):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ron", description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--device", default="cuda", help="torch device of train, eval and realtime-eval (default: cuda)")
+    p.add_argument("--device", default="cuda", help="torch device of train, eval and realtime-eval (default: cuda; "
+                   "cuda:LOCAL_RANK under torch.distributed.run)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="torch.distributed backend under torch.distributed.run (default: nccl on cuda, gloo on cpu)")
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="train a detector")
@@ -342,7 +370,12 @@ def main(argv=None):
     args, extra = parser.parse_known_args(argv)
     if extra and args.fn is not _not_ported:  # the JAX CLI's arguments of a subcommand not ported yet pass
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

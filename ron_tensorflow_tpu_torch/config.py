@@ -4,11 +4,14 @@ with `key=value` dotted overrides.
 A copy of `ron_tensorflow_tpu/config.py` (ref: ron_net.py:52-180,
 eval_ron_network.py:40-135): the same field names and defaults, so that the
 JAX package's config files load here. Options the port does not run raise:
-in `train.trainer.Trainer`, `s2d_stem`, a `mesh_shape` over more than one
-device and `data.use_grain`; in `EvalConfig`, a `mesh_shape` over more than
-one device (ROADMAP Queue 1 item 4) and a nonzero `shared_top_k`, the TPU's
-candidate preselection, which the port leaves out (0 is the JAX default
-and loads).
+`s2d_stem` (in `train.trainer.Trainer`) and a nonzero `shared_top_k`, the
+TPU's candidate preselection, which the port leaves out (0 is the JAX
+default and loads).
+
+`mesh_shape` is a (data, model) grid over the ranks of a multi-process
+run (`parallel.mesh`). In training, `data.batch_size` is each data rank's
+local batch; in eval it is the global batch, which must divide by the
+data-axis size (JAX `config.py:144-146`): each data rank scores its rows.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ class TrainConfig:
     checkpoint_exclude_scopes: Tuple[str, ...] = ("reverse",)
     checkpoint_model_scope: Optional[str] = None
     checkpoint_bgr_to_rgb: bool = False
-    mesh_shape: Optional[Tuple[int, int]] = None  # None => one device
+    mesh_shape: Optional[Tuple[int, int]] = None  # (data, model) over the world's ranks; None => (world, 1)
     # save a checkpoint and exit 75 (EX_TEMPFAIL) once the host RSS exceeds
     # this many GB, for a supervisor to restart; 0 = off
     max_host_rss_gb: float = 0.0
@@ -108,7 +111,9 @@ class EvalConfig:
     max_batches: Optional[int] = None
     use_ema: bool = False
     bfloat16: bool = True
-    mesh_shape: Optional[Tuple[int, int]] = None  # None => one device
+    # (data, model): each data rank scores its rows of every batch (model 1);
+    # None => one process
+    mesh_shape: Optional[Tuple[int, int]] = None
     # continuous eval: evaluate every new checkpoint in model_dir
     # (ref: eval_ssd_network.py:101,305-340)
     wait_for_checkpoints: bool = False
@@ -125,9 +130,9 @@ class EvalConfig:
         if self.shared_top_k:
             raise NotImplementedError(f"shared_top_k={self.shared_top_k}: the TPU's whole-image candidate "
                                       "preselection is not ported (0, the exact default, is)")
-        if self.mesh_shape and self.mesh_shape[0] * self.mesh_shape[1] > 1:
-            raise NotImplementedError(f"not ported yet: eval over a mesh {tuple(self.mesh_shape)} "
-                                      "(ROADMAP Queue 1 item 4)")
+        if self.mesh_shape and self.data.batch_size % self.mesh_shape[0]:
+            raise ValueError(f"eval batch_size {self.data.batch_size} does not divide over the data axis of "
+                             f"mesh {tuple(self.mesh_shape)}")
 
 
 def _coerce(value: str, field_type) -> Any:

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops import boxes as boxops
+from ..parallel.multihost import take_rows
 from .resize import tf1_bilinear_resize
 
 # VGG means, RGB order (ref: ssd_vgg_preprocessing.py:41-44).
@@ -406,9 +407,15 @@ def distort_color(draws: ColorDraws, image01):
 
 
 def train_augment_batch(generator: torch.Generator, images01, boxes, labels, valid,
-                        cfg: PreprocessConfig = PreprocessConfig()):
-    """Draw, then apply, for a batch: see `draw_augment`, `apply_augment`."""
-    return apply_augment(draw_augment(generator, images01.shape[0], cfg), images01, boxes, labels, valid, cfg)
+                        cfg: PreprocessConfig = PreprocessConfig(), rows=None):
+    """Draw, then apply, for a batch: see `draw_augment`, `apply_augment`.
+    rows: (offset, global batch) when the batch is a rank's rows of a global
+    one: the draws are made for the whole global batch and cut to these
+    rows, so that the rows augment as they would in one process."""
+    if rows is None:
+        return apply_augment(draw_augment(generator, images01.shape[0], cfg), images01, boxes, labels, valid, cfg)
+    draws = take_rows(draw_augment(generator, rows[1], cfg), rows[0], images01.shape[0])
+    return apply_augment(draws, images01, boxes, labels, valid, cfg)
 
 
 def train_augment(generator: torch.Generator, image01, boxes, labels, valid,

@@ -6,9 +6,16 @@ Port of `ron_tensorflow_tpu/eval/evaluator.py::StreamingEvaluator`
 per-class TP/FP matching; the small score and TP/FP arrays then go to the
 host accumulator `StreamingTpFp`. Per-class AP (VOC07 and VOC12) and mAP at
 the end. With `loss_config`, the model's losses of every batch too, from the
-same forward as its detections (ref: eval_ron_network.py:208-236). Not
-ported yet: the JAX evaluator's `mesh` (multi-device eval, ROADMAP Queue 1
-item 4).
+same forward as its detections (ref: eval_ron_network.py:208-236).
+
+Over a mesh (`mesh=`, JAX `evaluator.py:31-52`): every rank reads the same
+batches (the global batch) and runs the Detector, K-B and K-A included, on
+its data rank's rows; the fixed-shape scores and boxes are gathered over
+the data group in row order, and rank 0 matches and accumulates them, so
+`StreamingTpFp` sees the one-process order and AP ties break the same way.
+With `loss_config` the loss is the global batch's (each rank's share,
+summed over the data group). Only rank 0 returns the mAP (the others
+return None for it) and writes debug images.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from ..inference.detector import DetectionConfig, Detector
 from ..ops.ap import StreamingTpFp
 from ..ops.encode import TargetEncoder
 from ..ops.matching import match_all_classes
+from ..parallel.collectives import all_gather_rows
+from ..parallel.multihost import sum_over
 from ..train.state import detection_loss_fn
 
 
@@ -56,31 +65,40 @@ class StreamingEvaluator:
         loss_config=None,
         loss_match_threshold: float = 0.5,
         loss_ignore_threshold: float = 0.3,
+        mesh=None,
     ):
         """loss_config: a `RonLossConfig` or `SsdLossConfig` to report the
         model's `loss/*` metrics of every batch beside the detections
         (`evaluator.py:32-72`), its targets encoded from the batch's gts
-        (valid where the label is > 0) at the two thresholds."""
+        (valid where the label is > 0) at the two thresholds.
+        mesh: a `parallel.mesh.Mesh`; each batch's size must divide over its
+        data axis (see the module's docstring)."""
         self.detector = Detector(model, spec, config, device=device)
         self.device = self.detector.device
         self.spec = spec
         self.matching_threshold = matching_threshold
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
+        group = mesh.data_group if mesh is not None else None
         self.accumulator: Optional[StreamingTpFp] = None  # the last run's
         self.batch_losses: List[Dict[str, float]] = []  # the last run's, batch by batch
         self._loss = None
         if loss_config is not None:
             self._encoder = TargetEncoder(spec.anchor_layout(), spec.img_shape, loss_match_threshold,
                                           loss_ignore_threshold, spec.prior_scaling)
-            self._loss = detection_loss_fn(loss_config)
+            self._loss = detection_loss_fn(loss_config, group)
 
-    def batch_loss(self, out, gt_labels, gt_boxes, bi: int, draws=None) -> Dict[str, torch.Tensor]:
+    def batch_loss(self, out, gt_labels, gt_boxes, bi: int, draws=None, rows=None) -> Dict[str, torch.Tensor]:
         """The `loss/*` metrics of batch `bi`'s outputs. RON's loss samples
         its negatives with `draws`, else with a generator seeded `bi` (the
-        JAX evaluator's `PRNGKey(bi)`); SSD's draws nothing."""
+        JAX evaluator's `PRNGKey(bi)`); SSD's draws nothing. With `rows`
+        (offset, global batch), the outputs are a rank's rows, the draws the
+        global batch's, and the metrics the global batch's."""
         targets = self._encoder.batched(gt_labels, gt_boxes, gt_labels > 0)
         generator = None if draws is not None else torch.Generator(device=self.device).manual_seed(bi)
-        _, metrics = self._loss(out, targets, generator, draws)
-        return {k: v for k, v in metrics.items() if k.startswith("loss/")}
+        _, metrics = self._loss(out, targets, generator, draws, rows)
+        losses = {k: v for k, v in metrics.items() if k.startswith("loss/")}
+        return sum_over(losses, self.mesh.data_group) if self.mesh is not None else losses
 
     @torch.inference_mode()
     def run(
@@ -106,7 +124,8 @@ class StreamingEvaluator:
         Returns (map07, map12, {class: ap07}, stats); with `loss_config`,
         stats also holds each `loss/*` metric's mean over the batches, and
         `self.batch_losses` each batch's. `self.accumulator` keeps the run's
-        per-class scores and TP/FP marks."""
+        per-class scores and TP/FP marks. Over a mesh, ranks other than 0
+        return (None, None, {}, stats) and accumulate nothing."""
         acc = StreamingTpFp(self.spec.num_classes)
         self.accumulator = acc
         self.batch_losses = []
@@ -142,7 +161,16 @@ class StreamingEvaluator:
             """Queue one batch on the device, and the copies of its results
             to the host behind it; returns without waiting, so the device
             runs this batch while the host harvests the one before."""
-            image = torch.as_tensor(batch["image"]).to(self.device)
+            image = torch.as_tensor(batch["image"])
+            rows = None
+            if self.mesh is not None:  # this data rank's rows of the global batch
+                total = image.shape[0]
+                if total % self.mesh.data_size:
+                    raise ValueError(f"eval batch of {total} does not divide over {self.mesh.data_size} data ranks")
+                b = total // self.mesh.data_size
+                rows = (self.mesh.data_index * b, total)
+                image = image[rows[0]: rows[0] + b]
+            image = image.to(self.device)
             if image.dtype == torch.uint8:
                 # uint8 transport (4x less host -> device traffic): scale and
                 # whiten on the device
@@ -154,7 +182,13 @@ class StreamingEvaluator:
             else:  # one forward for the detections and the losses
                 out = self.detector.model(image)
                 scores, boxes = self.detector.postprocess(out)
-                losses = self.batch_loss(out, gt[0], gt[1], bi, None if loss_draws is None else loss_draws[bi])
+                local_gt = gt if rows is None else [g[rows[0]: rows[0] + image.shape[0]] for g in gt]
+                losses = self.batch_loss(out, local_gt[0], local_gt[1], bi,
+                                         None if loss_draws is None else loss_draws[bi], rows=rows)
+            if self.mesh is not None:  # the whole batch's detections, in row order
+                scores, boxes = (all_gather_rows(t, self.mesh.data_group) for t in (scores, boxes))
+            if not self.primary:
+                return bi, None, list(losses), None, None
             res = match_all_classes(self.spec.num_classes, scores, boxes, *gt, self.matching_threshold)
             debug = debug_dir is not None and n_debugged < debug_max_images
             copied = copy_to_host(scores, res.n_gt, res.tp, res.fp, *losses.values(), *((boxes,) if debug else ()))
@@ -166,6 +200,8 @@ class StreamingEvaluator:
             """Take one dispatched batch's results and accumulate TP/FP."""
             nonlocal n_images
             bi, copied, loss_names, sample_valid, debug_image = pending
+            if copied is None:  # a rank other than 0 of a mesh
+                return
             scores, n_gt, tp, fp, *rest = wait_host(copied)
             if loss_names:
                 self.batch_losses.append({k: float(v) for k, v in zip(loss_names, rest)})
@@ -195,9 +231,11 @@ class StreamingEvaluator:
         if pending is not None:
             harvest(pending)
 
+        stats = {"images": n_images, "sec_per_image": (time.time() - t_start) / max(n_images, 1)}
+        if not self.primary:
+            return None, None, {}, stats
         map07, aps07 = acc.mean_average_precision("voc07")
         map12, _ = acc.mean_average_precision("voc12")
-        stats = {"images": n_images, "sec_per_image": (time.time() - t_start) / max(n_images, 1)}
         for k in self.batch_losses[0] if self.batch_losses else ():
             stats[k] = sum(b[k] for b in self.batch_losses) / len(self.batch_losses)
         return map07, map12, aps07, stats

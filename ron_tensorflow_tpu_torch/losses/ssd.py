@@ -12,6 +12,12 @@ k-th value is the ascending-sorted candidates' [max(n_neg - 1, 0)], where
 non-candidates sort last at 1.0; a candidate is taken when its background
 probability is strictly below it. So n_neg = 0 takes nothing, the k-th
 candidate itself is never taken, and ties with it are left out.
+
+Over a mesh (`group` = the data group) the loss is the global batch's:
+`batch_size`, `n_positives` and `max_neg_entries` are summed over the
+group, and the threshold `kth` sorts the whole batch's candidates (their
+`nvalues`, which carry no gradient, gathered in rank order). Each rank's
+loss is its rows' share; the shares sum to the one-process loss.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops.math import abs_smooth, softmax_ce
+from ..parallel.collectives import Group, all_gather_rows, all_reduce_sum, group_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +46,7 @@ def ssd_losses(
     glocations,
     gscores,
     config: SsdLossConfig = SsdLossConfig(),
+    group: Group = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The SSD multibox loss.
 
@@ -47,7 +55,7 @@ def ssd_losses(
     Returns (total, metrics): "loss/total", "loss/ce_pos", "loss/ce_neg",
     "loss/localization" and "counts/positives", 0-dim tensors."""
     cfg = config
-    batch_size = logits.shape[0]
+    batch_size = logits.shape[0] * group_size(group)
     flat_logits = logits.reshape(-1, logits.shape[-1])
     flat_gclasses = gclasses.detach().reshape(-1)
     flat_gscores = gscores.detach().reshape(-1)
@@ -56,17 +64,17 @@ def ssd_losses(
 
     pmask = flat_gscores > cfg.match_threshold
     fpmask = pmask.float()
-    n_positives = fpmask.sum()
 
     # hard negative mining (ref: nets/ssd_vgg_300.py:616-636)
     background = torch.softmax(flat_logits.float(), dim=-1)[:, 0].detach()
     nmask = ~pmask & (flat_gscores > -0.5)
     fnmask = nmask.float()
     nvalues = torch.where(nmask, background, 1.0 - fnmask)
-    max_neg_entries = fnmask.sum().to(torch.int32)
+    n_positives, n_candidates = all_reduce_sum(torch.stack([fpmask.sum(), fnmask.sum()]), group).unbind()
+    max_neg_entries = n_candidates.to(torch.int32)
     n_neg = (cfg.negative_ratio * n_positives).to(torch.int32) + batch_size
     n_neg = torch.minimum(n_neg, max_neg_entries)
-    kth = torch.sort(nvalues).values[torch.clamp(n_neg - 1, min=0)]
+    kth = torch.sort(all_gather_rows(nvalues, group)).values[torch.clamp(n_neg - 1, min=0)]
     fnmask = (nmask & (nvalues < kth)).float()
 
     ce_pos = softmax_ce(flat_logits, flat_gclasses.clamp(0, cfg.num_classes - 1))

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from .layers import shard_model  # noqa: F401  (distribution over a parallel.mesh.Mesh)
+
 
 def _registry():
     from .ron import RON

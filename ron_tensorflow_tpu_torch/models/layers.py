@@ -9,16 +9,26 @@ Train mode is an explicit `train=False` argument of `forward`, passed down
 as the JAX modules' `train=` is, never `nn.Module.training`: a module is
 built with `training=True`, and every caller that never calls `.eval()`
 would otherwise normalize with batch statistics.
+
+Distribution (`shard_model`): every BatchNorm takes the mesh's data group
+and normalizes over the global batch in train mode (sync-BN, JAX
+`layers.py:84-88`'s `pmean`); the convs that the mesh's rules shard take
+its model group, hold their out-channel slice of the kernel, bias and
+BatchNorm, and gather the channels after their epilogue (BN, ReLU). A
+per-channel BatchNorm on a sharded conv needs no model-axis collective.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import Group, all_reduce_sum, gather_channels, group_size, reduce_grad
 
 BN_MOMENTUM = 0.997  # ref: nets/ron_vgg_320.py:618 (decay)
 BN_EPSILON = 1e-5  # ref: nets/ron_vgg_320.py:619
@@ -45,13 +55,16 @@ class BatchNorm(nn.Module):
     one and whose momentum is the complement). With `fast_normalize` and a
     non-f32 activation, the normalize runs as one scale/shift in the
     activation dtype (`_BN_FAST_NORMALIZE`, `layers.py:27-37`); f32 ignores
-    it."""
+    it. With a `data_group`, `[mean, mean2]` are averaged over the group's
+    ranks in one all-reduce (their gradients summed back over it), so the
+    statistics, and the running ones, are the global batch's on every rank."""
 
     def __init__(self, features: int, eps: float = BN_EPSILON, momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.fast_normalize = False
+        self.data_group: Group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -65,6 +78,9 @@ class BatchNorm(nn.Module):
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = x32.mean(dim=(0, 2, 3))
         mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+        if self.data_group is not None:
+            stats = all_reduce_sum(torch.stack([mean, mean2]), self.data_group) / group_size(self.data_group)
+            mean, mean2 = stats[0], stats[1]
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
@@ -82,7 +98,10 @@ class Conv(nn.Module):
     none ('VALID').
 
     With `norm=True` the conv has no bias (slim drops it when a normalizer
-    is set). `conv.weight` is OIHW."""
+    is set). `conv.weight` is OIHW. With a `model_group` (`shard_model`)
+    the conv holds its slice of the output channels and returns them all,
+    gathered after the epilogue; its input's gradient is summed over the
+    group (each slice computes its share)."""
 
     def __init__(
         self,
@@ -104,8 +123,11 @@ class Conv(nn.Module):
         self.bn = BatchNorm(features) if norm else None
         self.relu = relu
         self.padding = padding
+        self.model_group: Group = None
 
     def forward(self, x, train: bool = False):
+        if self.model_group is not None:
+            x = reduce_grad(x, self.model_group)
         c = self.conv
         (pt, pb), (pl, pr) = (
             _same_pads(x.shape[d], c.kernel_size[i], c.stride[i], c.dilation[i])
@@ -121,7 +143,30 @@ class Conv(nn.Module):
         )
         if self.bn is not None:
             x = self.bn(x, train)
-        return F.relu(x) if self.relu else x
+        x = F.relu(x) if self.relu else x
+        return gather_channels(x, self.model_group)
+
+    @torch.no_grad()
+    def shard_(self, mesh) -> None:
+        """Keep this model rank's slice of the output channels of the
+        kernel, bias and BatchNorm (parameters and statistics), and gather
+        over the mesh's model group in the forward."""
+        from ..parallel.mesh import local_slice
+
+        def cut(t):
+            return local_slice(t, mesh).clone()
+
+        c = self.conv
+        c.weight = nn.Parameter(cut(c.weight))
+        c.out_channels = c.weight.shape[0]
+        if c.bias is not None:
+            c.bias = nn.Parameter(cut(c.bias))
+        if self.bn is not None:
+            self.bn.weight = nn.Parameter(cut(self.bn.weight))
+            self.bn.bias = nn.Parameter(cut(self.bn.bias))
+            self.bn.running_mean = cut(self.bn.running_mean)
+            self.bn.running_var = cut(self.bn.running_var)
+        self.model_group = mesh.model_group
 
 
 class ConvTranspose(nn.Module):
@@ -166,11 +211,16 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x, train: bool = False, generator: torch.Generator = None):
+    def forward(self, x, train: bool = False, generator: torch.Generator = None, rows=None):
+        """rows: (offset, global batch) of a rank's rows: the mask is drawn
+        for the whole global batch and cut to them, as one process draws it."""
         if not train or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        shape = x.shape if rows is None else (rows[1], *x.shape[1:])
+        keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+        if rows is not None:
+            keep = keep.narrow(0, rows[0], x.shape[0])
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -230,3 +280,28 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator = None) -> nn.
         elif isinstance(m, L2Normalization):
             nn.init.constant_(m.gamma, m.scale_init)
     return module
+
+
+def shard_model(model: nn.Module, mesh) -> nn.Module:
+    """Distribute `model` over a `parallel.mesh.Mesh`, in place: every
+    BatchNorm syncs its train-mode statistics over the data group; each
+    conv whose kernel `partition_params` shards on 'model' (JAX's rules on
+    the flax names) keeps its slice of the output channels. Block 1 (K-B)
+    is never sharded. Call before building the optimizer state. The sliced
+    tensors are then exactly those the rules shard, or this raises."""
+    from ..parallel.mesh import sharded_names
+
+    want = {k for k, v in sharded_names(model, mesh).items() if v}
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.data_group = mesh.data_group
+    owners = set()
+    for name, m in model.named_modules():
+        if isinstance(m, Conv) and f"{name}.conv.weight" in want:
+            m.shard_(mesh)
+            owners.add(name)
+    sliced = {n for n, _ in itertools.chain(model.named_parameters(), model.named_buffers())
+              if n.rsplit(".", 2)[0] in owners}
+    if sliced != want:
+        raise AssertionError(f"sharded tensors differ from the rules': {sorted(sliced ^ want)}")
+    return model

@@ -99,21 +99,23 @@ class SSD(nn.Module):
             self.add_module(f"{layer}_box", MultiboxHead(
                 _FEATURE_CHANNELS[layer], spec.num_anchors_per_cell(i), spec.num_classes, spec.normalizations[i]))
 
-    def forward(self, images, train: bool = False, generator: torch.Generator = None) -> DetectorOutputs:
+    def forward(self, images, train: bool = False, generator: torch.Generator = None, rows=None) -> DetectorOutputs:
         """images: [B, H, W, 3] whitened pixels. train: the dropouts drop,
-        their masks drawn from `generator`. An f32 model runs its forward's
-        convolutions in full f32 whatever the caller's TF32 flag, as RON's."""
+        their masks drawn from `generator`, for the whole global batch and
+        cut to `rows` = (offset, global batch) when the images are a rank's
+        rows of one. An f32 model runs its forward's convolutions in full
+        f32 whatever the caller's TF32 flag, as RON's."""
         with full_f32_convs():
-            return self._forward(images, train, generator)
+            return self._forward(images, train, generator, rows)
 
-    def _forward(self, images, train: bool, generator) -> DetectorOutputs:
+    def _forward(self, images, train: bool, generator, rows) -> DetectorOutputs:
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         x, end_points = vgg16_body(self, vgg16_block1(self, x, self.fuse_block1), last_pool=max_pool_3x3_s1)
         x = self.conv6(x)
         end_points["block6"] = x
-        x = self.conv7(self.dropout(x, train, generator))
+        x = self.conv7(self.dropout(x, train, generator, rows))
         end_points["block7"] = x
-        x = self.dropout(x, train, generator)
+        x = self.dropout(x, train, generator, rows)
         for name in ("block8", "block9", "block10", "block11"):
             x = getattr(self, name)(x)
             end_points[name] = x

@@ -99,12 +99,12 @@ class CheckpointManager:
         return self.latest_step() is not None
 
     def save(self, step: int, state) -> None:
-        """Write `state` (a `TrainState`) as step `step`, then drop all but
-        the newest `max_to_keep` steps."""
+        """Write `state` (a `TrainState`, or its `state_dict()`) as step
+        `step`, then drop all but the newest `max_to_keep` steps."""
         step_dir = os.path.join(self._dir, str(int(step)))
         os.makedirs(step_dir, exist_ok=True)
         path = os.path.join(step_dir, STATE_FILE)
-        torch.save(state.state_dict(), path + ".tmp")
+        torch.save(state if isinstance(state, dict) else state.state_dict(), path + ".tmp")
         os.replace(path + ".tmp", path)
         if self.max_to_keep:
             for old in self.all_steps()[:-self.max_to_keep]:

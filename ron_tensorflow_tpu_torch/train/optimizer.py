@@ -21,11 +21,12 @@ happen in place on the parameters (`Optimizer.step`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_reduce_sum
 from ..weights import jax_names
 
 
@@ -120,11 +121,20 @@ def kernel_weight_decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
     return {n: names[n].rsplit("/", 1)[-1] == "kernel" for n, _ in model.named_parameters()}
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, sharded: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors (optax.global_norm), from
-    one multi-tensor norm."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    one multi-tensor norm, accumulated in float64 and returned as float32:
+    a float32 sum over a tensor of millions of values strays by 1e-4
+    relative on the CPU, and would differ between a whole tensor and its
+    slices. Over a mesh, the tensors marked in `sharded` are a model rank's
+    slices: their squares are summed over the model `group` (one
+    all-reduce), so the norm is the whole tensors' on every rank."""
+    squares = torch.stack(torch._foreach_norm(list(tensors), 2, dtype=torch.float64)) ** 2
+    if group is not None and any(sharded or ()):
+        mask = torch.tensor(list(sharded), device=squares.device)
+        squares = torch.cat([torch.where(mask, 0.0, squares),
+                             all_reduce_sum(torch.where(mask, squares, 0.0).sum()[None], group)])
+    return torch.sqrt(squares.sum()).float()
 
 
 def _moment(g, m, decay, order):
@@ -172,14 +182,17 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: Dict) -> None:
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: Dict,
+             norm: Optional[torch.Tensor] = None) -> None:
         """params += update, in place: clip, decay, the core (its state
         updated in place), then times -lr(count), added to the parameters
-        by multi-tensor kernels. FTRL's core output is the update itself."""
+        by multi-tensor kernels. FTRL's core output is the update itself.
+        `norm`: the gradients' global norm where the caller has it (over a
+        mesh only the caller can compute it); else computed here."""
         cfg = self.cfg
         u = [g.float() for g in grads]
         if cfg.clip_global_norm and cfg.optimizer != "ftrl":
-            norm = global_norm(u)
+            norm = global_norm(u) if norm is None else norm
             keep = norm < cfg.clip_global_norm
             u = [torch.where(keep, t, t / norm * cfg.clip_global_norm) for t in u]
         decayed = [i for i, d in enumerate(self.decay_mask) if d]

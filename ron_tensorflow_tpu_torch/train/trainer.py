@@ -1,6 +1,6 @@
 """The trainer: config in, trained checkpoints out.
 
-Port of `ron_tensorflow_tpu/train/trainer.py` for one device. Each step:
+Port of `ron_tensorflow_tpu/train/trainer.py`. Each step:
 host batch (uint8 or float [0, 1] images at the working canvas, padded gts)
 -> upload (`DevicePrefetcher`, one batch ahead) -> augmentation on the
 device -> `make_train_step` (encode, forward, loss, backward, update, EMA).
@@ -22,10 +22,29 @@ The SSD models train as in the JAX trainer (trainer.py:109-125): the
 loss `SsdLossConfig(num_classes, match_threshold=match.positive_threshold)`
 in place of `config.loss`; their dropout draws from the step's generator.
 
-K-B (the fused block-1 kernel, with its recompute backward) is on where the
-JAX trainer turns it on (trainer.py:84-100): `fuse_block1` asked for, a
-bf16 model, one device, a CUDA device and a shape `fused_block1_supported`
-takes (RON-320, SSD-300 and SSD-512 alike).
+K-B (the fused block-1 kernel, with its recompute backward) is on for
+`fuse_block1`, a bf16 model, a CUDA device and a shape
+`fused_block1_supported` takes (RON-320, SSD-300 and SSD-512 alike), in
+every rank of a multi-process run: a rank's forward is a one-device
+forward. (The JAX trainer turns it off under a mesh, trainer.py:84-100,
+only because Pallas calls do not partition under GSPMD.)
+
+Distribution (JAX trainer.py:258-300, 310-342, 390-438): in a run of
+several processes (torch.distributed initialized, e.g. by the CLI under
+`python -m torch.distributed.run`), or with `mesh_shape`, the model runs
+on a (data, model) mesh (`parallel.make_mesh(mesh_shape)`, whose size must
+be the world's). `data.batch_size` is each data rank's local batch; the
+input is sharded by data rank (`num_workers`, `worker_index` default to
+the data axis); images/s counts the global batch. The state is initialized
+(or restored, or warm-started) whole on every rank, rank 0's is broadcast
+and each rank keeps its 'model' slice. The step's draws are the global
+batch's, so N ranks train on what one process would. Only rank 0 writes
+metrics, TensorBoard and, with one process only, debug images; the
+host-RSS guard runs with one process only; the time-based save decision is
+rank 0's, broadcast every 16 steps; a save gathers the 'model' slices, rank
+0 writes the one-process checkpoint and every rank waits for it (a
+checkpoint from any mesh restores in one process). Each rank keeps its own
+`input_state_{rank}.json` for the Grain pipeline.
 
 Warm start (trainer.py:161-229, ref: tf_utils.py:186-244): when `model_dir`
 holds no checkpoint, `checkpoint_path` is read by the importer of
@@ -45,10 +64,11 @@ and the debug images too where PIL is installed; without PIL the trainer
 says once that it writes no images.
 
 Input: `train()` reads the TFRecord shards of `config.data` through
-`make_batches` (the ported `batch_iterator`), or takes host batches.
+`make_batches` (the ported `batch_iterator`, or with `data.use_grain` the
+Grain-equivalent `GrainBatches`, whose input position is saved beside each
+checkpoint and restored on resume), or takes host batches.
 
-Not ported yet, and raising: a mesh over several devices and the Grain
-pipeline (ROADMAP Queue 1 item 4), `s2d_stem`.
+Not ported, and raising: `s2d_stem`.
 """
 
 from __future__ import annotations
@@ -68,8 +88,11 @@ from ..data.preprocess import PreprocessConfig, train_augment_batch, unwhiten
 from ..data.tfrecord import list_shards
 from ..kernels import fused_block1_supported
 from ..losses.ssd import SsdLossConfig
-from ..models import get_network, get_spec
+from ..models import get_network, get_spec, shard_model
 from ..ops.encode import TargetEncoder
+from ..parallel.collectives import barrier, broadcast_int
+from ..parallel.mesh import make_mesh, sharded_names, world_size
+from ..parallel.multihost import batch_rows, host_local_to_global, process_info, with_rows
 from ..utils.profiling import StepTimer
 from ..utils.summaries import MetricsWriter
 from ..weights import from_jax_params, to_jax_params
@@ -81,7 +104,14 @@ from .checkpoint import (
     torch_vgg_to_flat,
 )
 from .optimizer import make_optimizer
-from .state import TrainState, create_train_state, make_eval_step, make_train_step
+from .state import (
+    TrainState,
+    create_train_state,
+    gathered_state_dict,
+    make_eval_step,
+    make_train_step,
+    shard_state_dict,
+)
 
 
 def _host_rss_gb() -> float:
@@ -103,26 +133,20 @@ def has_pil() -> bool:
     return importlib.util.find_spec("PIL") is not None
 
 
-def _not_ported(config: TrainConfig) -> Optional[str]:
-    if config.mesh_shape and config.mesh_shape[0] * config.mesh_shape[1] > 1:
-        return "a mesh over several devices (ROADMAP Queue 1 item 4)"
-    if config.s2d_stem:
-        return "s2d_stem (measured slower on the TPU; to port only after a measurement on the card)"
-    if config.data.use_grain:
-        return "the Grain input pipeline (ROADMAP Queue 1 item 4)"
-    return None
-
-
 class Trainer:
     """`Trainer(config, device="cuda")`: raises without a card unless the
-    caller asks for `device="cpu"`."""
+    caller asks for `device="cpu"`. In a multi-process run, `device` is
+    this rank's (the CLI gives `cuda:LOCAL_RANK`)."""
 
     def __init__(self, config: TrainConfig, device="cuda"):
-        missing = _not_ported(config)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {missing}")
+        if config.s2d_stem:
+            raise NotImplementedError("not ported yet: s2d_stem (measured slower on the TPU; to port only after "
+                                      "a measurement on the card)")
         self.config = config
         self.device = resolve_device(device)
+        self.rank, self.n_proc = process_info()
+        # a mesh for a multi-process run, or when one is asked for: (world, 1) by default
+        self.mesh = make_mesh(config.mesh_shape) if config.mesh_shape or world_size() > 1 else None
         dtype = torch.bfloat16 if config.bfloat16 else torch.float32
         ssd = config.model.startswith("ssd")
         spec = get_spec(config.model)
@@ -140,7 +164,9 @@ class Trainer:
         # SSD models train with the hard-negative-mining loss family
         self.loss_config = (SsdLossConfig(num_classes=spec.num_classes, match_threshold=config.match.positive_threshold)
                             if ssd else config.loss)
-        self._train_step = make_train_step(self.model, self.encoder, self.tx, self.loss_config, config.ema_decay)
+        self._train_step = make_train_step(self.model, self.encoder, self.tx, self.loss_config, config.ema_decay,
+                                           self.mesh)
+        self.sharded = sharded_names(self.model, self.mesh) if self.mesh is not None else {}
         self.eval_step = make_eval_step(self.model, self.encoder, self.loss_config)
         self._ckpt = CheckpointManager(config.model_dir, max_to_keep=config.max_to_keep)
         self.state: Optional[TrainState] = None
@@ -151,17 +177,36 @@ class Trainer:
     def init_state(self) -> TrainState:
         """Parameters initialized as flax does from `config.seed` (drawn on
         the CPU); then the newest checkpoint in `model_dir` if there is one,
-        else the warm start from `checkpoint_path` if one is given."""
+        else the warm start from `checkpoint_path` if one is given. On a
+        mesh: rank 0's state on every rank, each keeping its 'model' slice
+        (`shard_model`, `shard_state_dict`)."""
         self.model.to(self.device)
-        state = create_train_state(self.model, self.tx, torch.Generator().manual_seed(self.config.seed),
-                                   ema=self.config.ema_decay is not None)
+        ema = self.config.ema_decay is not None
+        state = create_train_state(self.model, self.tx, torch.Generator().manual_seed(self.config.seed), ema=ema)
         if self._ckpt.has_checkpoint():  # auto-resume (ref: tf_utils.py:198-203)
             self._ckpt.restore(state)
-            print(f"[trainer] resumed from step {state.step}")
+            if self.rank == 0:
+                print(f"[trainer] resumed from step {state.step}")
         elif self.config.checkpoint_path:
             self._warm_start(state)
+        if self.mesh is not None:
+            whole = state.state_dict()
+            shard_model(self.model, self.mesh)
+            state = create_train_state(self.model, self.tx, ema=ema)
+            state.load_state_dict(shard_state_dict(whole, self.mesh, self.sharded, self.device))
         self.state = state
         return state
+
+    def save(self, step: int, state: TrainState) -> None:
+        """Checkpoint `state` as step `step`: on a mesh of several processes,
+        the 'model' slices gathered, rank 0 writing, every rank waiting."""
+        if self.n_proc == 1:
+            self._ckpt.save(step, state)
+            return
+        whole = gathered_state_dict(state, self.mesh, self.sharded)
+        if self.rank == 0:
+            self._ckpt.save(step, whole)
+        barrier()
 
     def warm_start_source(self, backbone_prefix: str) -> Dict[str, np.ndarray]:
         """`checkpoint_path` through the importer of `checkpoint_format`:
@@ -206,18 +251,25 @@ class Trainer:
         files = list_shards(cfg.data.dataset_dir, cfg.data.file_pattern)
         if not files:
             raise FileNotFoundError(f"no shards matching {cfg.data.file_pattern!r} in {cfg.data.dataset_dir!r}")
+        workers, index = cfg.data.num_workers, cfg.data.worker_index
+        if self.n_proc > 1 and workers == 1:  # one input shard per data rank
+            workers, index = self.mesh.data_size, self.mesh.data_index
         pcfg = PipelineConfig(
             batch_size=cfg.data.batch_size,
             working_shape=cfg.data.working_shape,
             max_boxes=cfg.data.max_boxes,
             shuffle=cfg.data.shuffle,
             keep_difficult=cfg.data.keep_difficult,
-            num_workers=cfg.data.num_workers,
-            worker_index=cfg.data.worker_index,
+            num_workers=workers,
+            worker_index=index,
             seed=cfg.seed,
             cache_decoded=cfg.data.cache_decoded,
             output_dtype="uint8",
         )
+        if cfg.data.use_grain:
+            from ..data.grain_pipeline import GrainBatches
+
+            return GrainBatches(files, pcfg, epochs=epochs)
         return PrefetchIterator(batch_iterator(files, pcfg, epochs=epochs))
 
     def generator(self, step: int) -> torch.Generator:
@@ -226,14 +278,17 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(step_seed(self.config.seed, step))
 
     def augment(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """A device batch of the working canvas -> the train step's batch."""
+        """A device batch of the working canvas -> the train step's batch
+        (a rank's rows of a global batch stay those rows: the draws are the
+        global batch's)."""
         image01 = batch["image01"]
         if image01.dtype == torch.uint8:  # uint8 transport: 4x less to upload
             image01 = image01.float() / 255.0
+        offset, b, total = batch_rows(batch)
         image, boxes, labels, valid = train_augment_batch(
             generator, image01.float(), batch["gt_boxes"].float(), batch["gt_labels"], batch["gt_valid"],
-            self.preprocess_config)
-        return {"image": image, "gt_labels": labels, "gt_boxes": boxes, "gt_valid": valid}
+            self.preprocess_config, rows=None if b == total else (offset, total))
+        return with_rows({"image": image, "gt_labels": labels, "gt_boxes": boxes, "gt_valid": valid}, batch)
 
     def step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One step on a device batch of the working canvas, with the
@@ -244,11 +299,13 @@ class Trainer:
     def train(self, max_steps: Optional[int] = None, batches=None) -> TrainState:
         cfg = self.config
         max_steps = max_steps or cfg.max_steps
-        print_config(cfg)
+        primary = self.rank == 0
+        if primary:
+            print_config(cfg)
         state = self.init_state()
-        writer = MetricsWriter(cfg.model_dir)
+        writer = MetricsWriter(cfg.model_dir) if primary else None
         tb = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and primary:
             from ..utils.tensorboard import TensorBoardWriter
 
             tb = TensorBoardWriter(cfg.model_dir)
@@ -256,7 +313,34 @@ class Trainer:
                   + ("" if has_pil() else " (scalars only: PIL, which encodes the images, is not installed)"))
         timer = StepTimer()
         last_save_time = time.time()
-        it = DevicePrefetcher(batches if batches is not None else self.make_batches(), self.device)
+        it = batches if batches is not None else self.make_batches()
+        # Grain input position: each rank its own file (its shard's stream)
+        suffix = "" if self.n_proc == 1 else f"_{self.rank}"
+        input_state_path = os.path.join(cfg.model_dir, f"input_state{suffix}.json")
+        if state.step > 0 and hasattr(it, "restore_state_json") and os.path.exists(input_state_path):
+            with open(input_state_path) as f:
+                it.restore_state_json(f.read())
+            print(f"[trainer] rank {self.rank}: input pipeline position restored")
+        if self.n_proc == 1 and not hasattr(it, "state_json"):
+            # upload one batch ahead; not for a resumable input (read-ahead would
+            # put the saved position past the consumed one) nor for several processes
+            it = DevicePrefetcher(it, self.device)
+            place = None
+        else:
+            mesh = self.mesh
+
+            def place(host_batch):
+                keep = {k: host_batch[k] for k in ("image01", "gt_boxes", "gt_labels", "gt_valid")}
+                if mesh is None:
+                    return {k: torch.as_tensor(v).to(self.device) for k, v in keep.items()}
+                return host_local_to_global(keep, mesh, self.device)
+        global_batch = cfg.data.batch_size * (self.mesh.data_size if self.mesh is not None else 1)
+
+        def save_input_state():
+            if hasattr(it, "state_json"):  # every rank: its own shard's position
+                with open(input_state_path, "w") as f:
+                    f.write(it.state_json())
+
         try:
             while state.step < max_steps:
                 try:
@@ -264,6 +348,8 @@ class Trainer:
                 except StopIteration:
                     print("[trainer] input exhausted")
                     break
+                if place is not None:
+                    batch = place(batch)
                 state, metrics = self.step(state, batch)
                 timer.tick()
                 step = state.step
@@ -272,31 +358,39 @@ class Trainer:
                     loss = float(metrics["loss/total"])
                     if not np.isfinite(loss):
                         raise FloatingPointError(f"non-finite loss at step {step}: {loss}")
-                    scalars = {k: float(v) for k, v in metrics.items()}
-                    scalars["images_per_sec"] = timer.images_per_sec(cfg.data.batch_size)
-                    writer.write(step, scalars)
-                    if tb is not None:
-                        tb.scalars(scalars, step)
-                    print(f"[trainer] step {step} loss {loss:.4f} ({scalars['images_per_sec']:.1f} img/s)")
+                    if primary:
+                        scalars = {k: float(v) for k, v in metrics.items()}
+                        scalars["images_per_sec"] = timer.images_per_sec(global_batch)
+                        writer.write(step, scalars)
+                        if tb is not None:
+                            tb.scalars(scalars, step)
+                        print(f"[trainer] step {step} loss {loss:.4f} ({scalars['images_per_sec']:.1f} img/s)")
 
-                if cfg.dump_debug_images_every and step % cfg.dump_debug_images_every == 0:
+                if (cfg.dump_debug_images_every and primary and self.n_proc == 1
+                        and step % cfg.dump_debug_images_every == 0):
                     self._dump_debug_image(batch, step, tb)
 
-                if cfg.max_host_rss_gb and _host_rss_gb() > cfg.max_host_rss_gb:
+                if cfg.max_host_rss_gb and self.n_proc == 1 and _host_rss_gb() > cfg.max_host_rss_gb:
                     # a controlled restart point: save THIS step, exit 75 for a supervisor
                     self._ckpt.save(step, state)
+                    save_input_state()
                     self._ckpt.wait()
                     print(f"[trainer] host RSS {_host_rss_gb():.1f} GB > {cfg.max_host_rss_gb} GB limit: "
                           f"saved step {step}, exiting 75 (EX_TEMPFAIL) for supervisor restart")
                     raise SystemExit(75)
 
                 time_due = time.time() - last_save_time > cfg.save_interval_secs
+                if self.n_proc > 1:
+                    # every rank must take the same decision: rank 0's, broadcast every 16 steps
+                    time_due = bool(broadcast_int(time_due if primary else 0)) if step % 16 == 0 else False
                 if step % cfg.save_every_steps == 0 or time_due or step >= max_steps:
-                    self._ckpt.save(step, state)
+                    self.save(step, state)
+                    save_input_state()
                     last_save_time = time.time()
         finally:
             self._ckpt.wait()
-            writer.close()
+            if writer is not None:
+                writer.close()
             if tb is not None:
                 tb.close()
         return state

@@ -125,8 +125,8 @@ def recording(monkeypatch, cls, results):
 def same_loss_draws(monkeypatch):
     batch_loss = StreamingEvaluator.batch_loss
 
-    def with_jax_draws(self, out, gt_labels, gt_boxes, bi, draws=None):
-        return batch_loss(self, out, gt_labels, gt_boxes, bi, ron_eval_draws(bi, tuple(out.logits.shape[:2])))
+    def with_jax_draws(self, out, gt_labels, gt_boxes, bi, draws=None, **kw):
+        return batch_loss(self, out, gt_labels, gt_boxes, bi, ron_eval_draws(bi, tuple(out.logits.shape[:2])), **kw)
 
     monkeypatch.setattr(StreamingEvaluator, "batch_loss", with_jax_draws)
 

@@ -1,8 +1,8 @@
 """The port's configs (`config.py`: `EvalConfig`, `load_config`,
 `_from_dict`) and presets (`presets.py`) against the JAX package's: every
 field and default, JSON files with dotted overrides, every preset. The
-TPU-only `shared_top_k` loads at 0 and raises otherwise; an eval mesh over
-several devices raises (ROADMAP Queue 1 item 4)."""
+TPU-only `shared_top_k` loads at 0 and raises otherwise; an eval mesh
+loads, and its batch size must divide over the data axis."""
 
 import dataclasses
 import json
@@ -77,5 +77,6 @@ def test_tpu_only_and_distributed_eval_options_raise():
     with pytest.raises(NotImplementedError, match="shared_top_k=1000"):
         config.load_config(config.EvalConfig, None, ["shared_top_k=1000"])
     assert config.EvalConfig(mesh_shape=(1, 1)).mesh_shape == (1, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        config.load_config(config.EvalConfig, None, ["mesh_shape=[2, 1]"])
+    assert tuple(config.load_config(config.EvalConfig, None, ["mesh_shape=[2, 1]"]).mesh_shape) == (2, 1)
+    with pytest.raises(ValueError, match="does not divide over the data axis"):
+        config.load_config(config.EvalConfig, None, ["mesh_shape=[3, 1]"])  # the default batch of 8

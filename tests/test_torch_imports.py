@@ -1,7 +1,8 @@
 """The port and chip_smoke.py import neither JAX, flax, optax, ml_dtypes,
-orbax, TensorFlow nor the JAX package: a GPU host running the port need not
-have any of them. The orbax converter, which needs JAX, lives outside the
-package."""
+orbax, TensorFlow, grain nor the JAX package: a GPU host running the port
+need not have any of them (the card host has no grain: the port's
+Grain-equivalent pipeline carries its own sampler). The orbax converter,
+which needs JAX, lives outside the package."""
 
 import pkgutil
 import subprocess
@@ -11,7 +12,7 @@ from pathlib import Path
 import ron_tensorflow_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "orbax", "tensorflow", "ron_tensorflow_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "orbax", "tensorflow", "grain", "ron_tensorflow_tpu")
 
 
 def port_modules():
@@ -29,7 +30,8 @@ def test_port_modules_found():
                  "data.pipeline", "utils.summaries", "utils.profiling", "models.ssd", "models.testing",
                  "losses.ssd", "data.example", "data.tfrecord", "data.native", "utils.tensorboard",
                  "train.tf_checkpoint", "train.caffe_import", "cli", "data.jpeg", "data.decode", "data.convert",
-                 "data.voc", "presets"):
+                 "data.voc", "presets", "parallel", "parallel.mesh", "parallel.multihost", "parallel.collectives",
+                 "parallel.testing", "data.grain_pipeline"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
     from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401

@@ -179,10 +179,11 @@ def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(tiny_config(tmp_path))
-    for kw, match in ((dict(s2d_stem=True), "s2d_stem"), (dict(mesh_shape=(2, 1)), "Queue 1 item 4"),
-                      (dict(data=DataConfig(use_grain=True)), "Grain")):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(tiny_config(tmp_path, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="s2d_stem"):
+        Trainer(tiny_config(tmp_path, s2d_stem=True), device="cpu")
+    # a mesh over more ranks than the run has (one process here) raises JAX's message
+    with pytest.raises(ValueError, match=r"mesh shape \(2, 1\) needs 2 devices, have 1"):
+        Trainer(tiny_config(tmp_path, mesh_shape=(2, 1)), device="cpu")
     # K-B only on a CUDA device: the CPU model keeps block 1 unfused
     t = Trainer(tiny_config(tmp_path, bfloat16=True, fuse_block1=True), device="cpu")
     assert not t.model.backbone.fuse_block1 and t.model.dtype == torch.bfloat16
