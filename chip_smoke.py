@@ -198,6 +198,31 @@ Phases, each ending with a line that gives its elapsed seconds:
               world size 1 with NCCL: an all-reduce and one Trainer step on
               mesh (1, 1). The 2-rank step's ms beside the one-process step
               and the gradient all-reduce's ms are recorded.
+ 27. zoo      the classification networks at their published depth, with
+              seeded weights (He-scaled kernels, BN means N(0, 0.5),
+              variances U(0.5, 1.5)) on seeded images in [-1, 1]:
+              Inception-V3 (1001 classes, its weights read through
+              `inception_v3_from_torch` from a torchvision-layout state_dict
+              made in the script), Xception (8 middle blocks, 1000),
+              Inception-ResNet-V2 (10/20/9, 1001) at 299x299 and
+              VGG16Classifier (reduced, 1000) at 224x224: (a) f32 at batch 2
+              (full f32 convolutions) against the CPU's forward, logits and
+              every endpoint within 1e-4 of each one's largest magnitude;
+              (c) bf16 at batch 32, its logits against f32's (top-1
+              agreement and the largest gap, recorded), ms and images/s by
+              CUDA events and the device's busy share (torch.profiler);
+              (d) one train-mode forward at batch 8, f32: the updated BN
+              running statistics within 1e-4 of the CPU's; (e) launch
+              counts read around the phase: no port kernel; (f)
+              `profile_trace` around two bf16 Inception-V3 forwards writes
+              a trace that holds CUDA kernel events;
+ 28. cli infer  `cli infer` on the eight JPEGs of tests/fixtures/voc_mini,
+              f32 RON-320 with the trained weights at batch 1: K-C launched
+              once an image, K-A and K-B not; eight pictures and the JAX
+              CLI's lines; the detections bit-equal to `RealtimeDetector`
+              called directly on the same decoded, resized and whitened
+              images, and within phase 25's 2e-3 of the same CLI on the
+              CPU; ms an image (the CLI's run, then two warm runs).
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -230,7 +255,9 @@ import torch
 import torch.nn.functional as F
 
 from ron_tensorflow_tpu_torch import full_f32_convs, kernels
+from ron_tensorflow_tpu_torch.cli import infer_images as cli_infer_images
 from ron_tensorflow_tpu_torch.cli import main as cli_main
+from ron_tensorflow_tpu_torch.cli import restore_for_eval
 from ron_tensorflow_tpu_torch.config import MatchConfig, TrainConfig
 from ron_tensorflow_tpu_torch.data import decode, jpeg
 from ron_tensorflow_tpu_torch.data.example import _len_delimited, _varint
@@ -258,18 +285,30 @@ from ron_tensorflow_tpu_torch.kernels.nms import (
     suppression_matrix,
 )
 from ron_tensorflow_tpu_torch.losses.ssd import SsdLossConfig
-from ron_tensorflow_tpu_torch.models import get_network, shard_model
-from ron_tensorflow_tpu_torch.models.layers import max_pool_2x2
+from ron_tensorflow_tpu_torch.models import (
+    InceptionResnetV2,
+    InceptionV3,
+    VGG16Classifier,
+    Xception,
+    get_network,
+    shard_model,
+)
+from ron_tensorflow_tpu_torch.models.layers import BatchNorm, max_pool_2x2
+from ron_tensorflow_tpu_torch.models.zoo_import import inception_v3_from_torch
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC, SSD_300_SPEC
-from ron_tensorflow_tpu_torch.models.testing import scale_ssd_heads, seeded_flax_params
+from ron_tensorflow_tpu_torch.models.testing import (
+    scale_ssd_heads,
+    seeded_flax_params,
+    torchvision_inception_v3_state_dict,
+)
 from ron_tensorflow_tpu_torch.ops import nms as ops_nms
 from ron_tensorflow_tpu_torch.ops.ap import StreamingTpFp
 from ron_tensorflow_tpu_torch.ops.matching import match_all_classes
 from ron_tensorflow_tpu_torch.ops.encode import TargetEncoder
 from ron_tensorflow_tpu_torch.ops.math import exact_top_k_chunked
 from ron_tensorflow_tpu_torch.tools.time_nms import device_ms
-from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
+from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager, flatten_params
 from ron_tensorflow_tpu_torch.train.optimizer import global_norm, make_optimizer
 from ron_tensorflow_tpu_torch.parallel import (
     GlobalBatch,
@@ -291,6 +330,7 @@ from ron_tensorflow_tpu_torch.train.state import (
 )
 from ron_tensorflow_tpu_torch.train.tf_checkpoint import slim_ron_to_flat
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
+from ron_tensorflow_tpu_torch.utils.profiling import profile_trace
 from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
 from ron_tensorflow_tpu_torch.weights import from_jax_params, jax_names, load_trained_fixture
 
@@ -3013,6 +3053,237 @@ def dist_phase(state, records, cli_eval, eval_dir, tmp, train_times, smi):
     return res
 
 
+# Phase "zoo": the classification networks at their published depth and widths
+ZOO_SEED = 27
+ZOO_F32_BATCH, ZOO_BF16_BATCH, ZOO_TRAIN_BATCH = 2, 32, 8
+# (a) and (d): the card's f32 (full f32 convolutions, TF32 off) against the
+# CPU's forward of the same weights and images, summation order only, as
+# phase "ssd f32": each output within 1e-4 of its largest magnitude; the
+# running statistics a train-mode forward updates within 1e-4 of each
+# statistic's largest magnitude.
+ZOO_TOL = 1e-4
+
+
+def zoo_networks():
+    """name -> (constructor of the network in a dtype, input side): the JAX
+    package's published depths and class counts."""
+    return {
+        "inception_v3": (lambda d: InceptionV3(num_classes=1001, dtype=d), 299),
+        "xception": (lambda d: Xception(num_classes=1000, middle_blocks=8, dtype=d), 299),
+        "inception_resnet_v2": (lambda d: InceptionResnetV2(num_classes=1001, blocks35=10, blocks17=20, blocks8=9,
+                                                            dtype=d), 299),
+        "vgg16_classifier": (lambda d: VGG16Classifier(num_classes=1000, variant="reduced", dtype=d), 224),
+    }
+
+
+def zoo_state(name, model):
+    """The network's weights as a float32 state_dict: Inception-V3 through the
+    torchvision importer from a torchvision-layout state_dict (so the
+    importer's names are read on the card host), the others drawn under
+    their flax names (He-scaled kernels, BN means N(0, 0.5), variances
+    U(0.5, 1.5): a mean/variance swap shows)."""
+    if name == "inception_v3":
+        sd = torchvision_inception_v3_state_dict(ZOO_SEED, num_classes=1001)
+        variables = inception_v3_from_torch(sd)
+        state = from_jax_params(flatten_params(variables["params"]), flatten_params(variables["batch_stats"]))
+        for ours, theirs in (("mixed_5b.b0_1x1.conv.conv.weight", "Mixed_5b.branch1x1.conv.weight"),
+                             ("mixed_7c.b2_3x1.conv.bn.running_var", "Mixed_7c.branch3x3dbl_3b.bn.running_var"),
+                             ("logits.weight", "fc.weight")):
+            if not torch.equal(state[ours], sd[theirs]):
+                raise AssertionError(f"inception_v3_from_torch: {ours} is not torchvision's {theirs}")
+        return state
+    params, stats = seeded_flax_params(model, ZOO_SEED, gain=float(np.sqrt(2.0)), bn_mean_std=0.5)
+    return from_jax_params(params, stats)
+
+
+def rel_err(got, ref):
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def zoo_net(name, make, side, images, smi):
+    """One network through (a)-(d) of phase "zoo"."""
+    res = {"side": side}
+    cpu = make(torch.float32)
+    cpu.load_state_dict(zoo_state(name, cpu), strict=True)
+    state = cpu.state_dict()
+    card = make(torch.float32).cuda().eval()
+    card.load_state_dict(state, strict=True)
+    x = images[name]
+    # (a) f32 at batch 2: logits and every endpoint against the CPU's
+    with torch.no_grad():
+        want, want_eps = cpu(x[:ZOO_F32_BATCH])
+        got, got_eps = card(x[:ZOO_F32_BATCH].cuda())
+    errs = {"logits": rel_err(got, want), **{k: rel_err(got_eps[k], v) for k, v in want_eps.items()}}
+    res["f32_card_vs_cpu"] = errs
+    worst_out = max(errs, key=errs.get)
+    if errs[worst_out] > ZOO_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"{name} f32 card vs CPU: {worst_out} {errs[worst_out]:.3g} > {ZOO_TOL}")
+    # (c) bf16 at batch 32 against the f32 forward of the same images, then its rate
+    bf16 = make(torch.bfloat16).cuda().eval()
+    bf16.load_state_dict(state, strict=True)
+    xb = x[:ZOO_BF16_BATCH].cuda()
+    with torch.inference_mode():
+        f32_logits, _ = card(xb)
+        b_logits, _ = bf16(xb)
+        ms = cuda_ms(lambda: bf16(xb), reps=5, warmup=2)
+        f32_ms = cuda_ms(lambda: card(xb), reps=2, warmup=1)
+        busy = device_busy_ms(lambda: bf16(xb))
+    top1 = float((b_logits.argmax(-1) == f32_logits.argmax(-1)).float().mean())
+    res["bf16"] = {"batch": ZOO_BF16_BATCH, "top1_agreement_with_f32": top1,
+                   "max_logit_gap_rel": rel_err(b_logits, f32_logits), "ms": ms,
+                   "img_per_s": ZOO_BF16_BATCH * 1e3 / ms, "device_ms": busy, "device_busy_share": busy / ms,
+                   "f32_ms": f32_ms, "f32_img_per_s": ZOO_BF16_BATCH * 1e3 / f32_ms}
+    # (d) one train-mode forward at batch 8: the updated running statistics
+    if any(isinstance(m, BatchNorm) for m in cpu.modules()):
+        before = {k: v.clone() for k, v in cpu.named_buffers()}
+        with torch.no_grad():
+            cpu(x[:ZOO_TRAIN_BATCH], train=True)
+            card(x[:ZOO_TRAIN_BATCH].cuda(), train=True)
+        card_bufs = dict(card.named_buffers())
+        stat_err = {k: rel_err(card_bufs[k], v) for k, v in cpu.named_buffers()}
+        update_err = {k: rel_err(card_bufs[k] - before[k].cuda(), v - before[k]) for k, v in cpu.named_buffers()}
+        worst = max(stat_err, key=stat_err.get)
+        res["train_stats"] = {"count": len(stat_err), "worst": worst, "worst_rel": stat_err[worst],
+                              "worst_update_rel": max(update_err.values())}
+        if stat_err[worst] > ZOO_TOL:
+            raise AssertionError(f"{name} train-mode statistics card vs CPU: {worst} {stat_err[worst]:.3g}")
+        train_msg = (f"(d) train-mode forward b{ZOO_TRAIN_BATCH}: {len(stat_err)} running statistics within "
+                     f"{stat_err[worst]:.3g} of the CPU's (worst {worst}; their updates within "
+                     f"{res['train_stats']['worst_update_rel']:.3g})")
+    else:
+        train_msg = "(d) no BatchNorm: train mode is eval mode"
+    b = res["bf16"]
+    print(f"  {name} at {side}x{side}: (a) f32 b{ZOO_F32_BATCH} card vs CPU, worst {worst_out} "
+          f"{errs[worst_out]:.3g} (logits {errs['logits']:.3g}); (c) bf16 b{ZOO_BF16_BATCH} {ms:.3f} ms, "
+          f"{b['img_per_s']:.1f} img/s, device busy {b['device_busy_share']:.3f} ({busy:.3f} ms of kernels); f32 "
+          f"{f32_ms:.3f} ms; bf16 top-1 agrees with f32 on {top1:.3f}, largest logit gap {b['max_logit_gap_rel']:.3g} "
+          f"of the largest f32 logit; {train_msg} ({smi})")
+    del cpu, card
+    return res, bf16
+
+
+def zoo_phase(tmp, smi):
+    """Phase "zoo": Inception-V3, Xception, Inception-ResNet-V2 at 299x299 and
+    VGG16Classifier at 224x224 on seeded images in [-1, 1]: (a) f32 card vs
+    CPU, (b) Inception-V3 through its torchvision importer, (c) bf16 rate,
+    (d) train-mode statistics, (e) no port kernel launched, (f) a
+    profile_trace of two bf16 Inception-V3 forwards holds CUDA kernels."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(ZOO_SEED)
+    res, iv3 = {}, None
+    nets = zoo_networks()
+    images = {name: torch.from_numpy(rng.uniform(-1.0, 1.0, (ZOO_BF16_BATCH, side, side, 3)).astype(np.float32))
+              for name, (_, side) in nets.items()}
+    for name, (make, side) in nets.items():
+        res[name], bf16 = zoo_net(name, make, side, images, smi)
+        if name == "inception_v3":
+            iv3 = bf16
+        else:
+            del bf16
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts("zoo phase (no port kernel)", launches, ())
+    res["launches"] = launches
+    logdir = tmp / "zoo_trace"
+    xb = images["inception_v3"].cuda()
+    with torch.inference_mode(), profile_trace(str(logdir), device="cuda"):
+        iv3(xb)
+        iv3(xb)
+        torch.cuda.synchronize()
+    traces = list(logdir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile_trace wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    n_kernel = sum(e.get("cat") == "kernel" for e in events)
+    if n_kernel == 0:
+        raise AssertionError("profile_trace's trace holds no CUDA kernel event")
+    res["profile_trace"] = {"events": len(events), "kernel_events": n_kernel, "bytes": traces[0].stat().st_size}
+    print(f"  (e) launches of the port's kernels over the phase: {launches}; (f) profile_trace of two bf16 "
+          f"Inception-V3 forwards at batch {ZOO_BF16_BATCH}: {n_kernel} CUDA kernel events of {len(events)} in "
+          f"{traces[0].name}")
+    return res
+
+
+def cli_infer_phase(model_dir, tmp, smi):
+    """Phase "cli infer": `cli infer` on the eight JPEGs of voc_mini, f32
+    RON-320 with the trained weights at batch 1: K-C launched once an image
+    (K-A and K-B not), eight pictures written, the detections bit-equal to
+    `RealtimeDetector` called directly on the same decoded, resized and
+    whitened images, and within phase 25's 2e-3 of the same CLI on the CPU."""
+    paths = sorted(str(p) for p in (VOC_MINI / "VOC2007" / "JPEGImages").glob("*.jpg"))
+    runs = {}
+
+    def run(device, out_dir):
+        results, seconds = [], []
+        real = cli_infer_images
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(real(*a, **k))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return results[-1]
+
+        t0 = time.perf_counter()
+        with mock.patch("ron_tensorflow_tpu_torch.cli.infer_images", timed):
+            _, printed = quietly(lambda: cli_main(["--device", device, "infer", "--model-dir", model_dir,
+                                                   "--output-dir", str(out_dir), *paths]))
+        return results[0], printed, time.perf_counter() - t0, seconds[0]
+
+    kernels.reset_launch_counts()
+    got, printed, cmd_s, infer_s = run(CARD, tmp / "infer_out")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts("CLI infer (f32, batch 1)", launches, ("nms_scan_keep_mask",))
+    if launches["nms_scan_keep_mask"] != len(paths):
+        raise AssertionError(f"K-C launched {launches['nms_scan_keep_mask']} times for {len(paths)} images")
+    pictures = sorted((tmp / "infer_out").glob("*.jpg"))
+    if len(got) != len(paths) or len(pictures) != len(paths) or len(printed) != len(paths):
+        raise AssertionError(f"infer: {len(got)} results, {len(pictures)} pictures, {len(printed)} lines")
+    for line, (path, scores, _, _, out) in zip(printed, got):
+        if line != f"{path}: {len(scores)} detections -> {out}":
+            raise AssertionError(f"infer printed {line!r}")
+    # the same images through RealtimeDetector directly, in this process
+    model, spec = get_network("ron_320_vgg")
+    restore_for_eval(model, model_dir)
+    det = RealtimeDetector(model, spec, RealtimeConfig.for_spec(spec, objectness_threshold=0.95), device=CARD)
+    for path, scores, labels, boxes, _ in got:
+        raw = decode.decode_jpeg_raw(Path(path).read_bytes())
+        img = whiten(torch.from_numpy(tf1_bilinear_resize(raw, spec.img_shape) / 255.0).cuda())[None]
+        s, lab, b, v = (t[0].cpu().numpy() for t in det(img))
+        if not (np.array_equal(s[v], scores) and np.array_equal(lab[v], labels) and np.array_equal(b[v], boxes)):
+            raise AssertionError(f"infer's detections on {path} differ from RealtimeDetector's")
+    warm_s = []
+    for _ in range(2):  # warm runs of the same function the CLI calls, with the direct detector
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_infer_images(det, paths, str(tmp / "infer_warm"))
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+    del model, det
+    cpu, _, _, _ = run("cpu", tmp / "infer_cpu")
+    worst = 0.0
+    for (path, s, lab, b, _), (_, cs, clab, cb, _) in zip(got, cpu):
+        if len(s) != len(cs) or not np.array_equal(lab, clab):
+            raise AssertionError(f"infer on {path}: card {len(s)} detections {lab}, CPU {len(cs)} {clab}")
+        if len(s):
+            worst = max(worst, float(np.abs(s - cs).max()), float(np.abs(b - cb).max()))
+    if worst > PARITY_ATOL:
+        raise AssertionError(f"infer card vs CPU: {worst:.3g} > {PARITY_ATOL}")
+    n = len(paths)
+    res = {"images": n, "detections": [len(r[1]) for r in got], "launches": launches,
+           "card_vs_cpu_max_abs": worst, "command_s": cmd_s, "ms_per_image_cold": infer_s * 1e3 / n,
+           "ms_per_image_warm": [x * 1e3 / n for x in warm_s]}
+    print(f"  cli infer over {n} JPEGs (f32 RON-320, trained weights): detections {res['detections']}, K-C "
+          f"{launches['nms_scan_keep_mask']} launches, K-A and K-B none; {n} pictures; equal bit for bit to "
+          f"RealtimeDetector called directly; within {worst:.3g} of the CLI on the CPU; command {cmd_s:.2f} s, "
+          f"{res['ms_per_image_cold']:.2f} ms an image in the CLI (first run), warm "
+          + ", ".join(f"{x:.2f}" for x in res["ms_per_image_warm"]) + f" ms an image ({smi})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -3242,6 +3513,11 @@ def main() -> int:
         with phase("dist"):
             dist = dist_phase(state, Path(records["path"]), cli_eval, eval_dir, tmp, train_times, smi)
         del cli_eval["accumulator"], cli_eval["aps"]
+        with phase("zoo"):
+            zoo_res = zoo_phase(tmp, smi)
+        with phase("cli infer"):
+            cli_inf = cli_infer_phase(eval_dir, tmp, smi)
+    results[2]["cli_infer_launches"] = cli_inf["launches"]["nms_scan_keep_mask"]
     kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
                               "eval": cli_eval["launches"]["fused_vgg_block1"]}
     results[0]["cli_eval_launches"] = cli_eval["launches"]["nms_fixpoint_keep_mask"]
@@ -3269,7 +3545,7 @@ def main() -> int:
                                             "tensorboard": tb},
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
                                          "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
-                      "dist": dist}))
+                      "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

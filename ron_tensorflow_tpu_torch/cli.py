@@ -1,11 +1,12 @@
-"""`ron` CLI of the port: train / eval / realtime-eval / convert-data /
-import-ckpt / inspect-ckpt, the subcommands and arguments of
-`ron_tensorflow_tpu/cli.py`.
+"""`ron` CLI of the port: train / eval / realtime-eval / infer /
+convert-data / import-ckpt / inspect-ckpt, the subcommands and arguments
+of `ron_tensorflow_tpu/cli.py`.
 
   python -m ron_tensorflow_tpu_torch.cli convert-data --voc-root ./VOCdevkit/VOC2007 --output-dir ./records
   python -m ron_tensorflow_tpu_torch.cli train --config cfg.json --dataset-dir ./records data.batch_size=32
   python -m ron_tensorflow_tpu_torch.cli eval --model-dir ./model --dataset-dir ./records
   python -m ron_tensorflow_tpu_torch.cli realtime-eval --model-dir ./model --voc-root ./VOCdevkit
+  python -m ron_tensorflow_tpu_torch.cli infer --model-dir ./model --output-dir ./Debug a.jpg b.jpg
   python -m ron_tensorflow_tpu_torch.cli import-ckpt --format torch --source vgg16.pth --model-dir ./model
   python -m ron_tensorflow_tpu_torch.cli inspect-ckpt --model-dir ./model [--pattern conv1]
 
@@ -17,8 +18,17 @@ raises KeyError. `eval` scores the newest checkpoint of `--model-dir` over
 the TFRecord shards (every image: the last batch is padded and its padding
 rows masked), or with `wait_for_checkpoints=true` every new checkpoint until
 `max_evals`. A bf16 `eval` on the card runs block 1 through the fused
-kernel (K-B), as the JAX CLI does on an accelerator; `realtime-eval` (one
-image at a time in the reference) and every CPU run keep it unfused.
+kernel (K-B), as the JAX CLI does on an accelerator; `realtime-eval` and
+`infer` (one image at a time, as in the reference) and every CPU run keep
+it unfused.
+
+`infer` runs the realtime head (`RealtimeDetector`, K-C on the card) on
+each image, f32 at batch 1: decoded by the port's JPEG decoder (its only
+one: a file it does not take, a PNG say, raises ValueError naming the
+file, where JAX's PIL would open it), TF1-resized to the network's input,
+whitened on the device; it draws the detections on the resized image with
+PIL (`utils/visualization.py`) into `--output-dir/<i>.jpg` and prints
+`<path>: <n> detections -> <picture>`, as the JAX CLI does.
 
 Several processes: under `python -m torch.distributed.run --nproc-per-node N
 -m ron_tensorflow_tpu_torch.cli train|eval ... mesh_shape=[N,1]`, `train`
@@ -39,9 +49,8 @@ buffers; any other bundle is read as a VGG-16 under `--model-scope`
 `inspect-ckpt` (parameters by flax name in flax layout, ref:
 inspect_checkpoint.py:32-131) run on the CPU.
 
-`infer` (ROADMAP Queue 1 item 5: it draws its picture with PIL, which a
-card host may lack) and `bench` (ROADMAP Queue 2: the port's benchmark) are
-in the parser and raise NotImplementedError.
+`bench` (ROADMAP Queue 2: the port's benchmark) is in the parser and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,8 +60,6 @@ import sys
 import time
 
 NOT_PORTED = {
-    "infer": "not ported yet: the CLI's infer subcommand waits for ROADMAP Queue 1 item 5 "
-             "(it draws its output picture with PIL, which a card host may lack)",
     "bench": "not ported yet: the CLI's bench subcommand waits for the port's benchmark "
              "(ROADMAP Queue 2)",
 }
@@ -232,6 +239,51 @@ def cmd_realtime_eval(args):
     print(f"Mean AP = {mean_ap:.4f}")
 
 
+def infer_images(det, paths, output_dir):
+    """The realtime head `det` (a `RealtimeDetector`) on each JPEG of
+    `paths`, one at a time: decode, TF1 resize to the network's input,
+    /255, whiten on the device, detect, draw into `output_dir/<i>.jpg`.
+    Returns [(path, scores, labels, boxes, picture)], the valid detections
+    as numpy arrays, as drawn."""
+    import numpy as np
+    import torch
+
+    from .data.decode import decode_jpeg_raw
+    from .data.preprocess import whiten
+    from .data.resize import tf1_bilinear_resize
+    from .utils.visualization import save_image_with_boxes
+
+    results = []
+    for i, path in enumerate(paths):
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            raw = decode_jpeg_raw(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: the port's JPEG decoder does not take this file ({e})") from e
+        # TF1-legacy bilinear: the numerics the checkpoints expect
+        img01 = tf1_bilinear_resize(raw, det.spec.img_shape) / 255.0
+        image = whiten(torch.from_numpy(img01).to(det.device))[None]
+        scores, labels, boxes, valid = (t[0].cpu().numpy() for t in det(image))
+        out = save_image_with_boxes(img01, boxes[valid], labels[valid], scores[valid], directory=output_dir, index=i)
+        results.append((path, scores[valid], labels[valid], boxes[valid], out))
+    return results
+
+
+def cmd_infer(args):
+    from . import resolve_device
+    from .inference.detector import RealtimeConfig, RealtimeDetector
+    from .models import get_network
+
+    device = resolve_device(args.device)
+    model, spec = get_network(args.model)  # f32, block 1 unfused: the batch-1 path
+    restore_for_eval(model, args.model_dir, args.use_ema)
+    det = RealtimeDetector(model, spec, RealtimeConfig.for_spec(spec, objectness_threshold=args.objectness_threshold),
+                           device=device)
+    for path, scores, _, _, out in infer_images(det, args.images, args.output_dir):
+        print(f"{path}: {len(scores)} detections -> {out}")
+
+
 def cmd_convert_data(args):
     from .data.convert import convert_voc
 
@@ -303,8 +355,8 @@ def cmd_inspect_ckpt(args):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ron", description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--device", default="cuda", help="torch device of train, eval and realtime-eval (default: cuda; "
-                   "cuda:LOCAL_RANK under torch.distributed.run)")
+    p.add_argument("--device", default="cuda", help="torch device of train, eval, realtime-eval and infer "
+                   "(default: cuda; cuda:LOCAL_RANK under torch.distributed.run)")
     p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                    help="torch.distributed backend under torch.distributed.run (default: nccl on cuda, gloo on cpu)")
     sub = p.add_subparsers(dest="command", required=True)
@@ -337,7 +389,14 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--debug-dir", default=None, help="dump boxed JPEGs of the detections (ref: ron_eval.py:553-555)")
     r.set_defaults(fn=cmd_realtime_eval)
 
-    sub.add_parser("infer", help="detect objects in images (not ported yet)").set_defaults(fn=_not_ported)
+    i = sub.add_parser("infer", help="detect objects in images")
+    i.add_argument("images", nargs="+")
+    i.add_argument("--model", default="ron_320_vgg")
+    i.add_argument("--model-dir", required=True)
+    i.add_argument("--output-dir", default="./Debug")
+    i.add_argument("--objectness-threshold", type=float, default=0.95)
+    i.add_argument("--use-ema", action="store_true")
+    i.set_defaults(fn=cmd_infer)
 
     c = sub.add_parser("convert-data", help="VOC -> TFRecord shards")
     c.add_argument("--voc-root", required=True, help="VOCdevkit/VOC2007 style dir")

@@ -52,6 +52,13 @@ def unwhiten(image: torch.Tensor) -> torch.Tensor:
     return (image + means) / 255.0
 
 
+def whiten_np(image01):
+    """Host (numpy) version of `whiten` for input-pipeline code: float32."""
+    import numpy as np
+
+    return image01.astype(np.float32) * 255.0 - np.asarray(VGG_MEANS, np.float32)
+
+
 def eval_preprocess(image01: torch.Tensor, out_shape: Tuple[int, int] = (320, 320)):
     """Whiten + warp resize with TF1 legacy-bilinear numerics (the
     reference's default Resize.WARP_RESIZE). image01 [H, W, 3] -> (the

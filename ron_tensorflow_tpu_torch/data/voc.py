@@ -1,12 +1,12 @@
-"""Pascal VOC dataset definitions: label map and XML parsing.
+"""Pascal VOC dataset definitions: label map, split metadata, XML parsing.
 
-A copy of the label map, `VocObject`, `VocAnnotation`, `parse_annotation`
-and `voc_image_and_annotation_paths` of `ron_tensorflow_tpu/data/voc.py`
-(standard library only). JAX's split registry (`SPLITS`) and the dataset
-factory over it (`data/factory.py`) have no caller in either CLI and are
-left out: the CLI takes a records directory and a file pattern.
+A copy of `ron_tensorflow_tpu/data/voc.py` (standard library only): the
+label map, `SplitInfo` and the split registry `SPLITS` (read by
+`data/factory.py::get_dataset`), `VocObject`, `VocAnnotation`,
+`parse_annotation` and `voc_image_and_annotation_paths`.
 
 (ref: datasets/pascalvoc_common.py:24-53 label registry,
+datasets/pascalvoc_2007.py:78-81 / pascalvoc_2007_2012.py:79-82 split sizes,
 datasets/pascalvoc_to_tfrecords.py:70-125 XML annotation parsing — including
 the 'difficult attribute kept' fix, README.md:27.)
 """
@@ -49,6 +49,29 @@ VOC_CLASSES: Tuple[str, ...] = (
 )
 
 NUM_CLASSES = 21  # background + 20
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitInfo:
+    name: str
+    file_pattern: str  # fnmatch pattern over shard filenames
+    num_samples: int
+
+
+# Split registry (ref: pascalvoc_2007.py:20-23,78-81;
+# pascalvoc_2007_2012.py:22,79-82; pascalvoc_2012.py:76-82).
+SPLITS: Dict[str, Dict[str, SplitInfo]] = {
+    "pascalvoc_2007": {
+        "train": SplitInfo("train", "voc_2007_train_*.tfrecord", 5011),
+        "test": SplitInfo("test", "voc_2007_test_*.tfrecord", 4952),
+    },
+    "pascalvoc_2012": {
+        "train": SplitInfo("train", "voc_2012_train_*.tfrecord", 17125),
+    },
+    "pascalvoc_2007_2012": {
+        "train": SplitInfo("train", "voc_20??_train_*.tfrecord", 22136),
+    },
+}
 
 
 @dataclasses.dataclass

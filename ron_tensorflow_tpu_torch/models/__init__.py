@@ -1,10 +1,15 @@
-"""Detector modules (NCHW inside, the JAX layout at the outputs): RON and SSD."""
+"""Detector modules (NCHW inside, the JAX layout at the outputs): RON and
+SSD through `get_network`; the classification zoo (the VGG classifiers,
+Inception-V3, Xception, Inception-ResNet-V2) by class, outside the
+registry, as in the JAX package."""
 
 from __future__ import annotations
 
 import torch
 
 from .layers import shard_model  # noqa: F401  (distribution over a parallel.mesh.Mesh)
+from .vgg import VGG16Backbone, VGG16Classifier, VGGBackbone  # noqa: F401
+from .zoo import InceptionResnetV2, InceptionV3, Xception  # noqa: F401
 
 
 def _registry():

@@ -93,15 +93,99 @@ class BatchNorm(nn.Module):
         return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
 
+def _check_padding(padding: str) -> None:
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+
+
+def _window_pads(x, window, strides, dilation=(1, 1), padding: str = "SAME"):
+    """F.pad's (left, right, top, bottom) of XLA's padding of x's H and W."""
+    if padding == "VALID":
+        return (0, 0, 0, 0)
+    (pt, pb), (pl, pr) = (_same_pads(x.shape[d], window[i], strides[i], dilation[i]) for i, d in enumerate((2, 3)))
+    return (pl, pr, pt, pb)
+
+
+def conv2d(x, conv: nn.Conv2d, padding: str = "SAME"):
+    """`conv`'s convolution of x (parameters cast to x's dtype) with XLA's
+    'SAME' or 'VALID' padding: an uneven SAME pad (a stride-2 conv on an
+    even side pads after only) is applied before the conv."""
+    pl, pr, pt, pb = _window_pads(x, conv.kernel_size, conv.stride, conv.dilation, padding)
+    if pt != pb or pl != pr:
+        x = F.pad(x, (pl, pr, pt, pb))
+        pt = pl = 0
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, (pt, pl), conv.dilation, conv.groups)
+
+
+class BareConv(nn.Conv2d):
+    """flax `nn.Conv` alone (no BatchNorm, no activation), XLA 'SAME'
+    padding: its kernel and bias sit at the module's own path
+    (`name/kernel`), where `Conv` nests them under `name/conv`. flax's
+    default init: lecun-normal kernel, zero bias. `groups` = flax's
+    `feature_group_count` (the zoo's depthwise convs)."""
+
+    def forward(self, x):
+        return conv2d(x, self, "SAME")
+
+
+class Dense(nn.Linear):
+    """flax `nn.Dense` with float32 parameters computing in the activation
+    dtype: weight [out, in] = the flax kernel [in, out] transposed.
+    `kernel_init`: "lecun_normal" (flax's default) or "glorot_uniform"."""
+
+    def __init__(self, in_features: int, features: int, kernel_init: str = "lecun_normal"):
+        super().__init__(in_features, features)
+        if kernel_init not in ("lecun_normal", "glorot_uniform"):
+            raise ValueError(f"unknown kernel_init {kernel_init!r}")
+        self.kernel_init = kernel_init
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def max_pool(x, window=(3, 3), strides=(1, 1), padding: str = "SAME"):
+    """flax `nn.max_pool`: 'SAME' pads with -inf at `_same_pads`' (before,
+    after), which on an even side at stride 2 is (0, 1), not
+    `F.max_pool2d(padding=1)`'s (1, 1)."""
+    _check_padding(padding)
+    pads = _window_pads(x, window, strides, padding=padding)
+    if any(pads):
+        x = F.pad(x, pads, value=float("-inf"))
+    return F.max_pool2d(x, window, strides)
+
+
+def avg_pool(x, window=(3, 3), strides=(1, 1), padding: str = "SAME", count_include_pad: bool = True):
+    """flax `nn.avg_pool`: the window's sum over the zero-padded map,
+    divided by the window's size (`count_include_pad`, torchvision's
+    semantics) or by the count of real entries in it (TF/Keras/slim), that
+    division in float32 and cast back, as flax divides by float32 ones."""
+    _check_padding(padding)
+    pads = _window_pads(x, window, strides, padding=padding)
+    total = F.avg_pool2d(F.pad(x, pads), window, strides, divisor_override=1)
+    if count_include_pad:
+        return total / (window[0] * window[1])
+    ones = F.pad(torch.ones((1, 1, *x.shape[2:]), device=x.device), pads)
+    counts = F.avg_pool2d(ones, window, strides, divisor_override=1)
+    return (total / counts).to(x.dtype)
+
+
+def global_mean(x):
+    """Mean over H and W of an NCHW map, accumulated in float32 (or wider)
+    and cast back to x's dtype (`jnp.mean` of bf16)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32)).mean(dim=(2, 3)).to(x.dtype)
+
+
 class Conv(nn.Module):
     """slim.conv2d equivalent: conv [+ BN] [+ ReLU], XLA's 'SAME' padding or
     none ('VALID').
 
     With `norm=True` the conv has no bias (slim drops it when a normalizer
-    is set). `conv.weight` is OIHW. With a `model_group` (`shard_model`)
-    the conv holds its slice of the output channels and returns them all,
-    gathered after the epilogue; its input's gradient is summed over the
-    group (each slice computes its share)."""
+    is set); its BatchNorm's epsilon is `bn_epsilon` (1e-3 in the zoo).
+    `conv.weight` is OIHW. With a `model_group` (`shard_model`) the conv
+    holds its slice of the output channels and returns them all, gathered
+    after the epilogue; its input's gradient is summed over the group (each
+    slice computes its share)."""
 
     def __init__(
         self,
@@ -113,14 +197,14 @@ class Conv(nn.Module):
         norm: bool = False,
         relu: bool = True,
         padding: str = "SAME",
+        bn_epsilon: float = BN_EPSILON,
     ):
         super().__init__()
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+        _check_padding(padding)
         self.conv = nn.Conv2d(
             in_features, features, kernel, strides, dilation=dilation, bias=not norm
         )
-        self.bn = BatchNorm(features) if norm else None
+        self.bn = BatchNorm(features, eps=bn_epsilon) if norm else None
         self.relu = relu
         self.padding = padding
         self.model_group: Group = None
@@ -128,19 +212,7 @@ class Conv(nn.Module):
     def forward(self, x, train: bool = False):
         if self.model_group is not None:
             x = reduce_grad(x, self.model_group)
-        c = self.conv
-        (pt, pb), (pl, pr) = (
-            _same_pads(x.shape[d], c.kernel_size[i], c.stride[i], c.dilation[i])
-            if self.padding == "SAME" else (0, 0)
-            for i, d in enumerate((2, 3))
-        )
-        if pt != pb or pl != pr:
-            x = F.pad(x, (pl, pr, pt, pb))
-            pt = pl = 0
-        bias = None if c.bias is None else c.bias.to(x.dtype)
-        x = F.conv2d(
-            x, c.weight.to(x.dtype), bias, c.stride, (pt, pl), c.dilation
-        )
+        x = conv2d(x, self.conv, self.padding)
         if self.bn is not None:
             x = self.bn(x, train)
         x = F.relu(x) if self.relu else x
@@ -254,16 +326,41 @@ def _glorot_uniform_(weight, fan_in: int, fan_out: int, generator):
         weight.copy_(draw)
 
 
+def _lecun_normal_(weight, fan_in: int, generator):
+    """flax's default kernel init: a normal truncated at two deviations,
+    scaled so that its variance is 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    device = generator.device if generator is not None else "cpu"
+    draw = torch.empty(weight.shape, device=device)
+    torch.nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    with torch.no_grad():
+        weight.copy_(draw)
+
+
 def init_like_flax_(module: nn.Module, generator: torch.Generator = None) -> nn.Module:
     """Re-initialize `module`'s parameters as the flax modules do
     (`layers.py:125-136, 170-179, 227-232`): glorot-uniform conv kernels with
-    fan in kh*kw*in and fan out kh*kw*out, the 2x2 deconv's glorot on its
+    fan in kh*kw*in and fan out kh*kw*out, lecun-normal kernels of the bare
+    convs (fan in kh*kw*in per group) and of a `Dense` unless it asks for
+    glorot-uniform (fan in in, fan out out), the 2x2 deconv's glorot on its
     [2, 2, in, out] kernel, zero biases, BN scale 1 and bias 0 and running
     statistics 0 and 1, an L2 normalization's scale at its initial value.
     Not `nn.Conv2d`'s default (kaiming) init. The module may lie on any
     device."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, BareConv):
+            _, in_c, kh, kw = m.weight.shape
+            _lecun_normal_(m.weight, kh * kw * in_c, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, Dense):
+            out_c, in_c = m.weight.shape
+            if m.kernel_init == "glorot_uniform":
+                _glorot_uniform_(m.weight, in_c, out_c, generator)
+            else:
+                _lecun_normal_(m.weight, in_c, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
             out_c, in_c, kh, kw = m.weight.shape
             _glorot_uniform_(m.weight, kh * kw * in_c, kh * kw * out_c, generator)
             if m.bias is not None:

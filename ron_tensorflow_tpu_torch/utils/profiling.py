@@ -1,16 +1,43 @@
-"""A rolling step timer (sec/step, images/s).
+"""Profiling: traces of the enclosed steps and a rolling step timer.
 
-A copy of `StepTimer` from `ron_tensorflow_tpu/utils/profiling.py`. The
-card queues work asynchronously, so over a window the ticks measure the
-rate at which steps complete only where the loop waits for the card now and
-then (the trainer reads the loss at each log step).
+Port of `ron_tensorflow_tpu/utils/profiling.py`. `profile_trace` records
+with `torch.profiler` where JAX's records with `jax.profiler`, and writes a
+Chrome/Perfetto trace (`tensorboard_trace_handler`'s layout,
+`<host>_<pid>.<ms>.pt.trace.json`) under its `logdir` when the block
+exits, viewable in Perfetto, chrome://tracing or TensorBoard's profiler
+plugin. `StepTimer` is a copy: the card queues work asynchronously, so over
+a window the ticks measure the rate at which steps complete only where the
+loop waits for the card now and then (the trainer reads the loss at each
+log step).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Optional
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str, enabled: bool = True, device="cuda"):
+    """Record a torch.profiler trace of the enclosed steps into `logdir`:
+    host (CPU) activity, and the card's kernels and copies when `device` is
+    a CUDA device. Asking for CUDA where there is no card raises (it never
+    quietly records the host alone). With `enabled=False` it records and
+    writes nothing."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from .. import resolve_device
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
 
 
 class StepTimer:

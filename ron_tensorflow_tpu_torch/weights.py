@@ -1,4 +1,4 @@
-"""Carry flax RON and SSD weights into the port's modules, and name the
+"""Carry flax RON, SSD and zoo weights into the port's modules, and name the
 port's tensors by their flax paths.
 
 The JAX package names every variable by its flax path, joined with '/'
@@ -6,7 +6,9 @@ The JAX package names every variable by its flax path, joined with '/'
 `backbone/conv1_1/conv/kernel` or `block4_box/conv/bn/mean`. The port's
 modules use the same path with '.', and torch's leaf names:
 
-  conv  kernel [kh, kw, in, out] (HWIO)   -> weight [out, in, kh, kw] (OIHW)
+  conv  kernel [kh, kw, in, out] (HWIO)   -> weight [out, in, kh, kw] (OIHW);
+        a depthwise kernel [kh, kw, 1, C] -> [C, 1, kh, kw] (groups=C)
+  dense kernel [in, out]                  -> weight [out, in]
   2x2 deconv deconv_kernel [2, 2, in, out] -> weight [in, out, 2, 2], taps
         flipped (`layers.py:180-189`): weight[c, o, dy, dx] = kernel[1-dy, 1-dx, c, o]
   BN    scale / bias / mean / var          -> weight / bias / running_mean / running_var
@@ -24,6 +26,8 @@ import torch
 
 def _convert(path: str, value: torch.Tensor) -> Tuple[str, torch.Tensor]:
     *scope, leaf = path.split("/")
+    if leaf == "kernel" and value.dim() == 2:  # Dense [in, out]
+        return ".".join(scope + ["weight"]), value.t().contiguous()
     if leaf == "kernel":
         return ".".join(scope + ["weight"]), value.permute(3, 2, 0, 1).contiguous()
     if leaf == "deconv_kernel":
@@ -45,7 +49,8 @@ def from_jax_params(
     params_flat: Mapping[str, object], stats_flat: Mapping[str, object]
 ) -> Dict[str, torch.Tensor]:
     """Flax flat-name params and batch stats (numpy arrays or tensors) ->
-    a float32 `state_dict` for `models.ron.RON` or `models.ssd.SSD`."""
+    a float32 `state_dict` for any of the port's models (RON, SSD, the
+    zoo's classifiers)."""
     state = {}
     for path, value in list(params_flat.items()) + list(stats_flat.items()):
         if not torch.is_tensor(value):
@@ -79,6 +84,8 @@ def load_trained_fixture(path: str):
 _TORCH_TO_FLAX_LEAF = {
     # module type name -> {torch leaf: flax leaf}
     "Conv2d": {"weight": "kernel", "bias": "bias"},
+    "BareConv": {"weight": "kernel", "bias": "bias"},
+    "Dense": {"weight": "kernel", "bias": "bias"},
     "ConvTranspose": {"weight": "deconv_kernel", "bias": "deconv_bias"},
     "BatchNorm": {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"},
     "L2Normalization": {"gamma": "gamma"},
@@ -88,18 +95,16 @@ _TORCH_TO_FLAX_LEAF = {
 def jax_names(model: torch.nn.Module) -> Dict[str, str]:
     """{torch name: flax path} of every parameter and buffer of `model`,
     the inverse of `from_jax_params`'s renaming. The leaf follows the module
-    that owns the tensor: a conv's `weight` is flax's `kernel`, the 2x2
-    deconv's `deconv_kernel`, a BatchNorm's `scale`."""
+    that owns the tensor: a conv's or a dense layer's `weight` is flax's
+    `kernel`, the 2x2 deconv's `deconv_kernel`, a BatchNorm's `scale`. The
+    port's `Conv` holds its nn.Conv2d as `.conv`, as flax does."""
     names = {}
     for name, _ in list(model.named_parameters()) + list(model.named_buffers()):
         scope, _, leaf = name.rpartition(".")
         owner = type(model.get_submodule(scope)).__name__
         if owner not in _TORCH_TO_FLAX_LEAF or leaf not in _TORCH_TO_FLAX_LEAF[owner]:
             raise KeyError(f"no flax counterpart for {name!r} ({owner})")
-        parts = scope.split(".")
-        if owner == "Conv2d":  # the port's Conv holds its nn.Conv2d as `.conv`, as flax does
-            parts = parts[:-1] + ["conv"]
-        names[name] = "/".join(parts + [_TORCH_TO_FLAX_LEAF[owner][leaf]])
+        names[name] = "/".join(scope.split(".") + [_TORCH_TO_FLAX_LEAF[owner][leaf]])
     return names
 
 
@@ -107,7 +112,9 @@ def to_jax_layout(path: str, value: torch.Tensor) -> np.ndarray:
     """A port tensor in its flax variable's layout (the inverse of `_convert`)."""
     value = value.detach().float().cpu()
     leaf = path.rsplit("/", 1)[-1]
-    if leaf == "kernel":
+    if leaf == "kernel" and value.dim() == 2:
+        value = value.t()
+    elif leaf == "kernel":
         value = value.permute(2, 3, 1, 0)
     elif leaf == "deconv_kernel":
         value = value.permute(2, 3, 0, 1).flip(0, 1)

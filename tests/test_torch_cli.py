@@ -1,7 +1,7 @@
 """The port's CLI: `import-ckpt` (torch and TF sources) into a model dir that
 `inspect-ckpt`, `CheckpointManager.restore_eval` and a Trainer read, held
-against the JAX package's importers and `inspect_params`; `infer` and
-`bench`, not ported, raise.
+against the JAX package's importers and `inspect_params`; `bench`, not
+ported, raises (`infer`: `test_torch_infer.py`).
 
 The tiny RON keeps RON-320's widths: an imported model dir holds a ~750 MB
 step-0 state, removed when each test ends."""
@@ -161,8 +161,7 @@ def test_restore_eval_reads_parameters_and_statistics_only(tmp_path):
         CheckpointManager(str(tmp_path / "empty")).restore_eval()
 
 
-@pytest.mark.parametrize("argv,item", [(["infer", "--model-dir", "m", "a.jpg"], "ROADMAP Queue 1 item 5"),
-                                       (["bench"], "the port's benchmark \\(ROADMAP Queue 2\\)")],
+@pytest.mark.parametrize("argv,item", [(["bench"], "the port's benchmark \\(ROADMAP Queue 2\\)")],
                          ids=lambda a: a[0] if isinstance(a, list) else "")
 def test_subcommands_not_ported_yet_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"{argv[0]} subcommand waits for .*{item}"):

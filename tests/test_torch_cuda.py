@@ -573,3 +573,55 @@ def test_ssd300_fused_block1_through_the_detector_on_card(cuda):
     assert torch.equal((got[0] > 0).sum(-1), (ref[0] > 0).sum(-1))
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("side", [8, 9], ids=["even", "odd"])
+def test_zoo_pools_on_card_equal_cpu(cuda, side):
+    """The XLA-'SAME' pools (the -inf pad after only, on an even side at
+    stride 2; averages with and without the padding) on the card: max pools
+    equal, averages within float32 rounding."""
+    from ron_tensorflow_tpu_torch.models.layers import avg_pool, max_pool
+
+    x = torch.randn(2, 5, side, side + 1, generator=torch.Generator().manual_seed(side))
+    for stride in ((1, 1), (2, 2)):
+        assert torch.equal(max_pool(x.to(cuda), (3, 3), stride).cpu(), max_pool(x, (3, 3), stride))
+        for inc in (True, False):
+            torch.testing.assert_close(avg_pool(x.to(cuda), (3, 3), stride, count_include_pad=inc).cpu(),
+                                       avg_pool(x, (3, 3), stride, count_include_pad=inc), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_zoo_network_on_card_equals_cpu(cuda, train):
+    """Xception with one middle block at 75x75 (its pools see odd and even
+    sides), f32, seeded weights: logits and endpoints within 1e-4 of each
+    one's largest magnitude of the CPU's; in train mode the running
+    statistics too. No port kernel is launched."""
+    from ron_tensorflow_tpu_torch.models import Xception
+
+    model = Xception(num_classes=10, middle_blocks=1)
+    model.load_state_dict(from_jax_params(*seeded_flax_params(model, 3, gain=2 ** 0.5, bn_mean_std=0.5)))
+    card = Xception(num_classes=10, middle_blocks=1).to(cuda)
+    card.load_state_dict(model.state_dict())
+    x = torch.rand(2, 75, 75, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        want, want_eps = model(x, train=train)
+        got, got_eps = card(x.to(cuda), train=train)
+    assert sum(kernels.launch_counts().values()) == 0
+    for g, w in [(got, want)] + [(got_eps[k], v) for k, v in want_eps.items()]:
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    for (name, g), w in zip(card.named_buffers(), model.buffers()):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()), msg=name)
+
+
+def test_profile_trace_on_card_holds_kernels(cuda, tmp_path):
+    import json
+
+    from ron_tensorflow_tpu_torch.utils.profiling import profile_trace
+
+    a = torch.randn(256, 256, device=cuda)
+    with profile_trace(str(tmp_path)):
+        (a @ a).relu_()
+        torch.cuda.synchronize()
+    (trace,) = list(tmp_path.glob("*.pt.trace.json"))
+    assert any(e.get("cat") == "kernel" for e in json.loads(trace.read_text())["traceEvents"])

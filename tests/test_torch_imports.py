@@ -31,7 +31,8 @@ def test_port_modules_found():
                  "losses.ssd", "data.example", "data.tfrecord", "data.native", "utils.tensorboard",
                  "train.tf_checkpoint", "train.caffe_import", "cli", "data.jpeg", "data.decode", "data.convert",
                  "data.voc", "presets", "parallel", "parallel.mesh", "parallel.multihost", "parallel.collectives",
-                 "parallel.testing", "data.grain_pipeline"):
+                 "parallel.testing", "data.grain_pipeline", "models.zoo", "models.zoo_import", "data.classification",
+                 "data.factory"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
     from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401
