@@ -223,6 +223,28 @@ Phases, each ending with a line that gives its elapsed seconds:
               called directly on the same decoded, resized and whitened
               images, and within phase 25's 2e-3 of the same CLI on the
               CPU; ms an image (the CLI's run, then two warm runs).
+ 29. learn    the learning checks, the supervisor and `--debug-nans`:
+              (a) `tools/overfit_check.py`, RON-tiny overfit on its 8
+              images on the card (400 f32 steps, then the Detector through
+              K-A): mAP over the classes with gts >= 0.8, K-A launched and
+              no other kernel; (b) `tools/synthetic_e2e.py` at full width
+              with the verify recipe (RON-320, canvas 400, bf16, 2500 steps
+              at batch 32, fuse_block1): 800 training and 96 held-out
+              synthetic images written by the port's JPEG encoder; K-B once
+              a training step and no other kernel; the bf16 evaluator over
+              the held-out split (K-A and K-B, once a batch); held-out mAP07
+              over classes 1-6 >= 0.6; (c) `tools/train_supervised.py`
+              over `cli train --preset ron_320` on (b)'s records (Grain
+              input, bf16, K-B) with max_host_rss_gb=1e-6 and max_steps=3:
+              exactly four launches (exit 75 three times, then 0), the
+              supervisor's exit 0, checkpoints at steps 1, 2 and 3, each
+              step's record keys equal to those of one uninterrupted 3-step
+              CLI run and its loss within LEARN_LOSS_RTOL; (d) `cli
+              --debug-nans train` from a step-0 checkpoint with one NaN
+              weight raises FloatingPointError naming the weight's module;
+              the same command without the flag stops at the trainer's own
+              finite check. Each part prints its mAP or result, seconds and
+              launch counts.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -330,6 +352,8 @@ from ron_tensorflow_tpu_torch.train.state import (
 )
 from ron_tensorflow_tpu_torch.train.tf_checkpoint import slim_ron_to_flat
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
+from ron_tensorflow_tpu_torch.tools import overfit_check, synthetic_e2e
+from ron_tensorflow_tpu_torch.tools.synthetic_data import make_dataset
 from ron_tensorflow_tpu_torch.utils.profiling import profile_trace
 from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
 from ron_tensorflow_tpu_torch.weights import from_jax_params, jax_names, load_trained_fixture
@@ -3284,6 +3308,197 @@ def cli_infer_phase(model_dir, tmp, smi):
     return res
 
 
+LEARN_RECIPE = {"SYNTH_MODEL": "ron_320_vgg", "SYNTH_CANVAS": "400", "SYNTH_BF16": "true", "SYNTH_STEPS": "2500",
+                "SYNTH_FUSE_BLOCK1": "true"}  # the verify recipe at full width, the default batch of 32
+SUPERVISED_STEPS = 3
+SUPERVISOR = REPO / "ron_tensorflow_tpu_torch" / "tools" / "train_supervised.py"
+SUPERVISED_TIMEOUT = 900  # s for the supervised run, its four launches and probes included
+# each step's loss, supervised against one uninterrupted run: two processes whose cuDNN backward
+# need not agree in the last bits, which bf16 steps carry into the next loss (three processes gave
+# equal losses bit for bit on the H100); the record keys are held exactly
+LEARN_LOSS_RTOL = 1e-4
+NAN_WEIGHT = "backbone.conv4_1.conv.weight"  # the weight that --debug-nans' run sets to NaN
+
+
+def learn_overfit(smi):
+    """Phase "learn" (a): the overfit check on the card."""
+    kernels.reset_launch_counts()
+    res, printed = quietly(lambda: overfit_check.run(CARD))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts("overfit check (RON-tiny f32 training, then the Detector)", launches, ("nms_fixpoint_keep_mask",))
+    if not res["passed"] or res["map"] < overfit_check.PASS_MAP:
+        raise AssertionError(f"overfit check: mAP {res['map']:.4f} < {overfit_check.PASS_MAP}\n" + "\n".join(printed))
+    print(f"  (a) overfit check, RON-tiny f32, {res['steps']} steps: mAP07 over the classes with gts "
+          f"{res['map']:.4f} (APs {({c: round(v, 4) for c, v in res['aps'].items()})}; all 20 classes "
+          f"{res['map_all_classes']:.4f}); loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}; training "
+          f"{res['train_s']:.2f} s, {res['seconds']:.2f} s in all; K-A {launches['nms_fixpoint_keep_mask']} "
+          f"launch(es) ({smi})")
+    return {**{k: v for k, v in res.items() if k != "losses"}, "loss_first": res["losses"][0],
+            "loss_last": res["losses"][-1], "launches": launches}
+
+
+def learn_synthetic(tmp, smi):
+    """Phase "learn" (b): the synthetic check at full width. Returns its
+    numbers and the records' directory."""
+    s = synthetic_e2e.settings(LEARN_RECIPE)
+    steps, work = int(s["STEPS"]), tmp / "synthetic"
+    t0 = time.perf_counter()
+    data_dir = make_dataset(str(work / "records"), canvas=int(s["CANVAS"]))
+    data_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, printed = quietly(lambda: synthetic_e2e.train(s, data_dir, str(work), CARD))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = kernels.launch_counts()
+    check_counts(f"synthetic training (RON-320 bf16, fuse_block1, batch {s['BATCH']})", train_launches,
+                 ("fused_vgg_block1",))
+    rows = [json.loads(line) for line in open(work / "model" / "metrics.jsonl")]
+    losses = [r["loss/total"] for r in rows]
+    if (train_launches["fused_vgg_block1"] != steps or not rows or rows[-1]["step"] != steps
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"synthetic training: K-B {train_launches['fused_vgg_block1']} for {steps} steps, "
+                             f"logged steps {[r['step'] for r in rows]}, losses {losses}")
+    weights = trainer.model.state_dict()
+    del trainer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = synthetic_e2e.evaluate(s, weights, data_dir, CARD)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = kernels.launch_counts()
+    check_counts("held-out evaluation (bf16, fused block 1)", eval_launches, MAIN_PATH)
+    n_batches = -(-96 // 8)  # the held-out split's 96 images, 8 a batch
+    if eval_launches["fused_vgg_block1"] != n_batches or eval_launches["nms_fixpoint_keep_mask"] != n_batches:
+        raise AssertionError(f"held-out evaluation: {eval_launches} for {n_batches} batches")
+    if res["map"] < synthetic_e2e.PASS_MAP:
+        raise AssertionError(f"synthetic check: held-out mAP07 over classes 1-6 {res['map']:.4f} < "
+                             f"{synthetic_e2e.PASS_MAP}; APs {res['aps']}; losses every 100 steps {losses}")
+    print(f"  (b) synthetic check, {s['MODEL']} canvas {s['CANVAS']} bf16 fuse_block1, {steps} steps at batch "
+          f"{s['BATCH']}: held-out mAP07 over classes 1-6 {res['map']:.4f} (APs "
+          f"{({c: round(v, 4) for c, v in res['aps'].items()})}; all 21 classes {res['map07_all_classes']:.4f}, "
+          f"mAP12 {res['map12_all_classes']:.4f}); loss {losses[0]:.4f} (step {rows[0]['step']}) -> "
+          f"{losses[-1]:.4f}; data {data_s:.2f} s, training {train_s:.2f} s ({train_s * 1e3 / steps:.2f} ms a "
+          f"step), evaluation {eval_s:.2f} s; K-B {train_launches['fused_vgg_block1']} launches in training, "
+          f"{eval_launches['fused_vgg_block1']} in eval; K-A {eval_launches['nms_fixpoint_keep_mask']} in eval "
+          f"({smi})")
+    res = {**res, "steps": steps, "batch": int(s["BATCH"]), "losses_logged": losses, "data_s": data_s,
+           "train_s": train_s, "eval_s": eval_s, "train_launches": train_launches, "eval_launches": eval_launches}
+    return res, Path(data_dir)
+
+
+def cli_train_argv(model_dir, records, *extra):
+    return ["--device", CARD, "train", "--preset", "ron_320", "--model-dir", str(model_dir), "--dataset-dir",
+            str(records), "data.file_pattern=synth_train_*.tfrecord", "data.use_grain=true", "fuse_block1=true",
+            f"max_steps={SUPERVISED_STEPS}", "log_every_steps=1", "tensorboard=false", *extra]
+
+
+def run_logged(cmd, timeout):
+    """A subprocess from the repo's root with the package importable ->
+    (exit code, its output)."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def step_log(model_dir):
+    """{step: (loss, record keys)} of a CLI run's model dir."""
+    losses = {r["step"]: r["loss/total"] for r in map(json.loads, open(model_dir / "metrics.jsonl"))}
+    keys = {r["step"]: r["record_keys"] for r in map(json.loads, open(model_dir / "input_keys.jsonl"))}
+    return {k: (losses[k], keys[k]) for k in sorted(keys)}
+
+
+def learn_supervised(records, tmp, smi):
+    """Phase "learn" (c): the supervisor over the CLI's train with the
+    host-RSS guard at 1e-6 GB, against one uninterrupted run."""
+    sup_dir, ref_dir = tmp / "supervised", tmp / "uninterrupted"
+    cli = [sys.executable, "-m", "ron_tensorflow_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    rc, out = run_logged([sys.executable, str(SUPERVISOR), "--probe-interval", "1", "--",
+                          *cli, *cli_train_argv(sup_dir, records, "max_host_rss_gb=1e-6")], SUPERVISED_TIMEOUT)
+    sup_s = time.perf_counter() - t0
+    launches = out.count("[supervisor] launch #")
+    tempfails = out.count("EX_TEMPFAIL after")
+    steps = CheckpointManager(str(sup_dir)).all_steps()
+    if rc != 0 or launches != SUPERVISED_STEPS + 1 or tempfails != SUPERVISED_STEPS or "run completed" not in out:
+        raise AssertionError(f"supervised CLI train: exit {rc}, {launches} launches, {tempfails} exits 75\n"
+                             + out[-6000:])
+    if list(steps) != list(range(1, SUPERVISED_STEPS + 1)):
+        raise AssertionError(f"supervised CLI train: checkpoints at steps {steps}")
+    t0 = time.perf_counter()
+    rc, ref_out = run_logged([*cli, *cli_train_argv(ref_dir, records)], SUPERVISED_TIMEOUT)
+    ref_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"uninterrupted CLI train: exit {rc}\n" + ref_out[-6000:])
+    got, ref = step_log(sup_dir), step_log(ref_dir)
+    if list(got) != list(ref) or list(ref) != list(range(1, SUPERVISED_STEPS + 1)):
+        raise AssertionError(f"logged steps: supervised {list(got)}, uninterrupted {list(ref)}")
+    rel = [abs(got[k][0] - ref[k][0]) / abs(ref[k][0]) for k in ref]
+    keys_equal = all(got[k][1] == ref[k][1] for k in ref)
+    if not keys_equal or max(rel) > LEARN_LOSS_RTOL or not np.isfinite([g[0] for g in got.values()]).all():
+        raise AssertionError(f"supervised against uninterrupted: record keys equal {keys_equal}; losses "
+                             f"{[g[0] for g in got.values()]} against {[r[0] for r in ref.values()]} "
+                             f"(relative {rel}, tolerance {LEARN_LOSS_RTOL})")
+    print(f"  (c) supervisor over `cli train --preset ron_320` (bf16, K-B, Grain input, batch "
+          f"{len(ref[1][1])}) with max_host_rss_gb=1e-6: {launches} launches (exit 75 x{tempfails}, then 0), "
+          f"exit 0, checkpoints at steps {steps}, in {sup_s:.2f} s; the uninterrupted run in {ref_s:.2f} s; each "
+          f"step's record keys equal, losses {[round(g[0], 6) for g in got.values()]} against "
+          f"{[round(r[0], 6) for r in ref.values()]} (relative {max(rel):.3g}, tolerance {LEARN_LOSS_RTOL}) ({smi})")
+    shutil.rmtree(sup_dir)
+    shutil.rmtree(ref_dir)
+    return {"launches": launches, "exits_75": tempfails, "checkpoint_steps": list(steps), "supervised_s": sup_s,
+            "uninterrupted_s": ref_s, "losses": [g[0] for g in got.values()],
+            "uninterrupted_losses": [r[0] for r in ref.values()], "loss_rel_max": max(rel),
+            "record_keys": [g[1] for g in got.values()]}
+
+
+def nan_model_dir(model_dir):
+    """A step-0 checkpoint of the ron_320 preset's model, seeded, with
+    NAN_WEIGHT set to NaN."""
+    cfg = TrainConfig()
+    model, _ = get_network(cfg.model)
+    with torch.no_grad():
+        model.get_parameter(NAN_WEIGHT).fill_(float("nan"))
+    CheckpointManager(str(model_dir), cfg.max_to_keep).save(0, create_train_state(model, make_optimizer(
+        cfg.optimizer, model)))
+
+
+def learn_debug_nans(records, tmp, smi):
+    """Phase "learn" (d): `--debug-nans` on a NaN weight, and without it."""
+    module = NAN_WEIGHT.rsplit(".", 2)[0]  # the Conv that computes with the weight
+    caught = {}
+    for flag in (True, False):
+        model_dir = tmp / f"nan_{flag}"
+        nan_model_dir(model_dir)
+        argv = (["--debug-nans"] if flag else []) + cli_train_argv(model_dir, records)
+        try:
+            quietly(lambda: cli_main(argv))
+        except FloatingPointError as e:
+            caught[flag] = str(e)
+        else:
+            raise AssertionError(f"cli train {'with' if flag else 'without'} --debug-nans ran through a NaN weight")
+        if torch.is_anomaly_enabled():
+            raise AssertionError("--debug-nans left anomaly detection on")
+        shutil.rmtree(model_dir)
+    if f"{module!r}" not in caught[True]:
+        raise AssertionError(f"--debug-nans raised {caught[True]!r}, which does not name {module!r}")
+    if not caught[False].startswith("non-finite loss at step 1"):
+        raise AssertionError(f"without --debug-nans: {caught[False]!r}, not the trainer's finite check")
+    print(f"  (d) `cli --debug-nans train` with {NAN_WEIGHT} NaN: FloatingPointError({caught[True]!r}); "
+          f"without the flag: FloatingPointError({caught[False]!r}) ({smi})")
+    return {"with_flag": caught[True], "without_flag": caught[False]}
+
+
+def learn_phase(tmp, smi):
+    """Phase "learn": (a) to (d) above."""
+    res = {"overfit": learn_overfit(smi)}
+    res["synthetic"], records = learn_synthetic(tmp, smi)
+    res["supervised"] = learn_supervised(records, tmp, smi)
+    res["debug_nans"] = learn_debug_nans(records, tmp, smi)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -3517,6 +3732,8 @@ def main() -> int:
             zoo_res = zoo_phase(tmp, smi)
         with phase("cli infer"):
             cli_inf = cli_infer_phase(eval_dir, tmp, smi)
+        with phase("learn"):
+            learn = learn_phase(tmp, smi)
     results[2]["cli_infer_launches"] = cli_inf["launches"]["nms_scan_keep_mask"]
     kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
                               "eval": cli_eval["launches"]["fused_vgg_block1"]}
@@ -3531,6 +3748,10 @@ def main() -> int:
                                "eval_per_rank": [x["fused_vgg_block1"] for x in dist["eval"]["launches"]],
                                "nccl_world_1_step": dist["nccl_world_1"]["launches"]["fused_vgg_block1"]}
     results[0]["dist_launches"] = {"eval_per_rank": [x["nms_fixpoint_keep_mask"] for x in dist["eval"]["launches"]]}
+    results[0]["learn_launches"] = {"overfit": learn["overfit"]["launches"]["nms_fixpoint_keep_mask"],
+                                    "synthetic_eval": learn["synthetic"]["eval_launches"]["nms_fixpoint_keep_mask"]}
+    kb_row["learn_launches"] = {"synthetic_train": learn["synthetic"]["train_launches"]["fused_vgg_block1"],
+                                "synthetic_eval": learn["synthetic"]["eval_launches"]["fused_vgg_block1"]}
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
@@ -3545,7 +3766,7 @@ def main() -> int:
                                             "tensorboard": tb},
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
                                          "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
-                      "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf}))
+                      "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

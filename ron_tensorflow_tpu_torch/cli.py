@@ -49,6 +49,13 @@ buffers; any other bundle is read as a VGG-16 under `--model-scope`
 `inspect-ckpt` (parameters by flax name in flax layout, ref:
 inspect_checkpoint.py:32-131) run on the CPU.
 
+`--debug-nans` (before the subcommand, as in the JAX CLI, where it sets
+`jax_debug_nans`) turns on `torch.autograd.set_detect_anomaly` for the
+command and hooks every module of the model that `train`, `eval`,
+`realtime-eval` or `infer` runs: the first NaN in a module's output raises
+`FloatingPointError` naming the module (`utils/debug_nans.py`). Without the
+flag neither is on.
+
 `bench` (ROADMAP Queue 2: the port's benchmark) is in the parser and
 raises NotImplementedError.
 """
@@ -103,6 +110,14 @@ def restore_for_eval(model, model_dir: str, use_ema: bool = False, step=None) ->
     return step
 
 
+def watch_nans(args, model) -> None:
+    """Under `--debug-nans`: a NaN check on every module's output of `model`."""
+    if args.debug_nans:
+        from .utils.debug_nans import nan_hooks
+
+        nan_hooks(model)
+
+
 def distributed_device(args):
     """This process's device, after torch.distributed is initialized from
     a launcher's `env://` variables (nothing when there are none)."""
@@ -123,7 +138,9 @@ def cmd_train(args):
     if args.dataset_dir:
         overrides.append(f"data.dataset_dir={args.dataset_dir}")
     cfg = load_config(TrainConfig, args.config, overrides, base=_preset("train", args.preset))
-    Trainer(cfg, device=distributed_device(args)).train()
+    trainer = Trainer(cfg, device=distributed_device(args))
+    watch_nans(args, trainer.model)
+    trainer.train()
 
 
 def cmd_eval(args):
@@ -150,6 +167,7 @@ def cmd_eval(args):
     primary = mesh is None or mesh.rank == 0
     fuse = fuse_block1_for_eval(get_spec(cfg.model), device, cfg.bfloat16)
     model, spec = get_network(cfg.model, dtype=torch.bfloat16 if cfg.bfloat16 else torch.float32, fuse_block1=fuse)
+    watch_nans(args, model)
 
     files = list_shards(dataset_dir, cfg.data.file_pattern)
     if not files:
@@ -227,6 +245,7 @@ def cmd_realtime_eval(args):
 
     device = resolve_device(args.device)
     model, spec = get_network(args.model)  # f32, block 1 unfused: the batch-1 path
+    watch_nans(args, model)
     step = restore_for_eval(model, args.model_dir, args.use_ema)
     print(f"[ron-eval] restored step {step}")
     # SSD models get the streaming eval's class-wise settings (the objectness override does not apply)
@@ -277,6 +296,7 @@ def cmd_infer(args):
 
     device = resolve_device(args.device)
     model, spec = get_network(args.model)  # f32, block 1 unfused: the batch-1 path
+    watch_nans(args, model)
     restore_for_eval(model, args.model_dir, args.use_ema)
     det = RealtimeDetector(model, spec, RealtimeConfig.for_spec(spec, objectness_threshold=args.objectness_threshold),
                            device=device)
@@ -359,6 +379,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "(default: cuda; cuda:LOCAL_RANK under torch.distributed.run)")
     p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                    help="torch.distributed backend under torch.distributed.run (default: nccl on cuda, gloo on cpu)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="anomaly detection, and FloatingPointError at the first NaN a module of the model outputs, "
+                        "naming the module (jax_debug_nans in the JAX CLI; ref: ron_net.py:399-402)")
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="train a detector")
@@ -429,9 +452,17 @@ def main(argv=None):
     args, extra = parser.parse_known_args(argv)
     if extra and args.fn is not _not_ported:  # the JAX CLI's arguments of a subcommand not ported yet pass
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    anomaly = None
+    if args.debug_nans:
+        import torch
+
+        anomaly = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(True)
     try:
         return args.fn(args)
     finally:
+        if anomaly is not None:
+            torch.autograd.set_detect_anomaly(anomaly)
         dist = sys.modules.get("torch.distributed")
         if dist is not None and dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()

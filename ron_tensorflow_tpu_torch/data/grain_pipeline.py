@@ -216,7 +216,8 @@ class GrainBatches:
     shard `config.worker_index` of `config.num_workers`, shuffled with
     `config.seed` when `config.shuffle`; `state_json` / `restore_state_json`
     save and restore the input position. A batch's records decode on
-    `config.decode_workers` threads (order-preserving)."""
+    `config.decode_workers` threads (order-preserving). `last_keys` holds
+    the record keys (indices into the source) of the batch returned last."""
 
     def __init__(self, files, config: PipelineConfig, epochs=None):
         self.source = TFRecordVocSource(files, config)
@@ -224,6 +225,7 @@ class GrainBatches:
                                     epochs, config.seed)
         self.batch_size = config.batch_size
         self.next_index = 0  # records of this shard read so far
+        self.last_keys: List[int] = []
         workers = config.decode_workers if config.decode_workers != -1 else min(8, (os.cpu_count() or 2) - 1)
         self._pool = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
 
@@ -238,6 +240,7 @@ class GrainBatches:
         samples = list(self._pool.map(self.source.__getitem__, keys) if self._pool else map(self.source.__getitem__,
                                                                                            keys))
         self.next_index = j0 + self.batch_size
+        self.last_keys = keys
         batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
         batch["sample_valid"] = np.ones((self.batch_size,), bool)
         return batch

@@ -1,6 +1,7 @@
-"""The port's JPEG decoder and uint8 bilinear resize: the input pipeline,
-the CLI and the realtime evaluator decode with it, and need neither OpenCV
-nor Pillow.
+"""The port's JPEG decoder, its encoder and a uint8 bilinear resize: the
+input pipeline, the CLI and the realtime evaluator decode with it, the
+synthetic dataset (`tools/synthetic_data.py`) encodes with it, and none of
+them needs OpenCV or Pillow.
 
 `_native/jpeg_decode.c` is built with the host C compiler at first use into
 the package's `_build/` (as `data/native.py` builds crc32c.c) and bound with
@@ -16,6 +17,11 @@ thread pool runs decodes in parallel. The C code keeps no global state.
 - `jpeg_size`: (height, width) from the frame header, for any frame type.
 - `resize_bilinear`: `cv2.resize(image, (w, h), interpolation=INTER_LINEAR)`
   on uint8 images, bit for bit.
+- `encode_jpeg`: uint8 RGB [H, W, 3] or gray [H, W] -> a baseline JFIF, as
+  `PIL.Image.save(format="JPEG", quality=q)` writes it with Pillow's
+  defaults (libjpeg-turbo's path: 4:2:0, ISLOW DCT, Annex K tables scaled
+  to q, no optimized Huffman codes). `_native/jpeg_encode.c`, built as the
+  decoder is.
 
 Unlike `native.crc32c`, nothing here falls back: a failed build raises.
 """
@@ -31,11 +37,14 @@ import numpy as np
 
 from .native import build_shared
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native", "jpeg_decode.c")
+_NATIVE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native")
+_SRC = os.path.join(_NATIVE, "jpeg_decode.c")
+_ENC_SRC = os.path.join(_NATIVE, "jpeg_encode.c")
 # the resize computes its coefficients in float, rounded as OpenCV's are: no FMA contraction
 _FLAGS = ("-ffp-contract=off",)
 _ERR_LEN = 256
 _lib: Optional[ctypes.CDLL] = None
+_enc_lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
@@ -110,3 +119,40 @@ def resize_bilinear(image: np.ndarray, out_hw) -> np.ndarray:
                                     src.shape[2]):
         raise ValueError(f"cannot resize {src.shape} to {(oh, ow)}")
     return out
+
+
+def encoder_library() -> ctypes.CDLL:
+    """The built encoder library (built and loaded at the first call)."""
+    global _enc_lib
+    with _lock:
+        if _enc_lib is None:
+            lib = ctypes.CDLL(build_shared(_ENC_SRC, "jpeg_encode"))
+            lib.jpeg_encode.restype = ctypes.c_int
+            lib.jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
+                                        ctypes.c_char_p, ctypes.c_size_t]
+            lib.jpeg_free.restype = None
+            lib.jpeg_free.argtypes = [ctypes.c_void_p]
+            _enc_lib = lib
+        return _enc_lib
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 90) -> bytes:
+    """uint8 [H, W, 3] RGB, or [H, W] / [H, W, 1] gray -> baseline JPEG bytes."""
+    image = np.asarray(image)
+    if image.ndim == 3 and image.shape[2] == 1:
+        image = image[..., 0]
+    if image.dtype != np.uint8 or not (image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes uint8 [H, W, 3] or [H, W], got {image.dtype} {image.shape}")
+    src = np.ascontiguousarray(image)
+    channels = 1 if src.ndim == 2 else 3
+    out, n = ctypes.c_void_p(), ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    lib = encoder_library()
+    if lib.jpeg_encode(src.ctypes.data, src.shape[0], src.shape[1], channels, int(quality), ctypes.byref(out),
+                       ctypes.byref(n), err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.jpeg_free(out)

@@ -66,7 +66,11 @@ says once that it writes no images.
 Input: `train()` reads the TFRecord shards of `config.data` through
 `make_batches` (the ported `batch_iterator`, or with `data.use_grain` the
 Grain-equivalent `GrainBatches`, whose input position is saved beside each
-checkpoint and restored on resume), or takes host batches.
+checkpoint and restored on resume), or takes host batches. With the Grain
+input, each step's record keys (indices into the shards' records) go to
+`input_keys.jsonl` in `model_dir` (`input_keys_{rank}.jsonl` for each rank
+of several processes), one line a step, appended across restarts: what a
+resumed run read can be checked against an unbroken run.
 
 Not ported, and raising: `s2d_stem`.
 """
@@ -74,6 +78,7 @@ Not ported, and raising: `s2d_stem`.
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import time
 from typing import Dict, Iterator, Optional
@@ -317,6 +322,7 @@ class Trainer:
         # Grain input position: each rank its own file (its shard's stream)
         suffix = "" if self.n_proc == 1 else f"_{self.rank}"
         input_state_path = os.path.join(cfg.model_dir, f"input_state{suffix}.json")
+        keys_log = None
         if state.step > 0 and hasattr(it, "restore_state_json") and os.path.exists(input_state_path):
             with open(input_state_path) as f:
                 it.restore_state_json(f.read())
@@ -342,6 +348,9 @@ class Trainer:
                     f.write(it.state_json())
 
         try:
+            if hasattr(it, "last_keys"):
+                os.makedirs(cfg.model_dir, exist_ok=True)
+                keys_log = open(os.path.join(cfg.model_dir, f"input_keys{suffix}.jsonl"), "a", buffering=1)
             while state.step < max_steps:
                 try:
                     batch = next(it)
@@ -353,6 +362,8 @@ class Trainer:
                 state, metrics = self.step(state, batch)
                 timer.tick()
                 step = state.step
+                if keys_log is not None:
+                    keys_log.write(json.dumps({"step": step, "record_keys": [int(k) for k in it.last_keys]}) + "\n")
 
                 if cfg.log_every_steps and step % cfg.log_every_steps == 0:
                     loss = float(metrics["loss/total"])
@@ -389,6 +400,8 @@ class Trainer:
                     last_save_time = time.time()
         finally:
             self._ckpt.wait()
+            if keys_log is not None:
+                keys_log.close()
             if writer is not None:
                 writer.close()
             if tb is not None:

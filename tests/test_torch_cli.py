@@ -1,12 +1,17 @@
 """The port's CLI: `import-ckpt` (torch and TF sources) into a model dir that
 `inspect-ckpt`, `CheckpointManager.restore_eval` and a Trainer read, held
 against the JAX package's importers and `inspect_params`; `bench`, not
-ported, raises (`infer`: `test_torch_infer.py`).
+ported, raises (`infer`: `test_torch_infer.py`). `--debug-nans` parses in
+both CLIs; under it a tiny CPU train step from a checkpoint with one NaN
+weight raises FloatingPointError naming the weight's module, and without
+it no hook is installed, anomaly detection stays off and the same step
+stops at the trainer's finite check.
 
 The tiny RON keeps RON-320's widths: an imported model dir holds a ~750 MB
 step-0 state, removed when each test ends."""
 
 import dataclasses
+import re
 import shutil
 import sys
 from pathlib import Path
@@ -15,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from ron_tensorflow_tpu import cli as jax_cli
 from ron_tensorflow_tpu.train import checkpoint as jax_ckpt
 from ron_tensorflow_tpu.train import tf_checkpoint as jax_tf
 
@@ -24,6 +30,7 @@ from ron_tensorflow_tpu_torch.models import get_network, layers
 from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
 from ron_tensorflow_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from ron_tensorflow_tpu_torch.train.state import create_train_state
+from ron_tensorflow_tpu_torch.tools.synthetic_data import make_dataset
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
 from ron_tensorflow_tpu_torch.weights import jax_names, to_jax_params
 
@@ -166,3 +173,52 @@ def test_restore_eval_reads_parameters_and_statistics_only(tmp_path):
 def test_subcommands_not_ported_yet_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"{argv[0]} subcommand waits for .*{item}"):
         cli.main(argv)
+
+
+NAN_WEIGHT = "backbone.conv4_1.conv.weight"
+
+
+def test_debug_nans_parses_in_both_clis():
+    argv = ["--debug-nans", "train", "--preset", "ron_320", "--model-dir", "m", "data.batch_size=2"]
+    for parser in (jax_cli.build_parser(), cli.build_parser()):
+        args = parser.parse_args(argv)
+        assert args.debug_nans and args.command == "train" and args.overrides == ["data.batch_size=2"]
+        assert not parser.parse_args(argv[1:]).debug_nans
+
+
+def nan_train_argv(tmp_path, flag):
+    """A one-step CPU `train` of the tiny RON on synthetic records, from a
+    step-0 checkpoint whose NAN_WEIGHT is NaN."""
+    records = make_dataset(str(tmp_path / "records"), n_train=4, n_test=1, canvas=64)
+    model_dir = tmp_path / f"nan_{flag}"
+    model, _ = get_network(MODEL)
+    with torch.no_grad():
+        model.get_parameter(NAN_WEIGHT).fill_(float("nan"))
+    CheckpointManager(str(model_dir)).save(0, create_train_state(model, make_optimizer(TrainConfig().optimizer,
+                                                                                        model)))
+    return (["--device", "cpu"] + (["--debug-nans"] if flag else [])
+            + ["train", "--model-dir", str(model_dir), "--dataset-dir", records, f"model={MODEL}",
+               "data.file_pattern=synth_train_*.tfrecord", "data.batch_size=2", "data.working_shape=[64, 64]",
+               "bfloat16=false", "max_steps=1", "log_every_steps=1", "tensorboard=false"])
+
+
+@pytest.mark.parametrize("flag", [True, False], ids=["--debug-nans", "without the flag"])
+def test_nan_weight_in_a_train_step(tmp_path, flag):
+    msg = "NaN in the output of module 'backbone.conv4_1' (Conv)" if flag else "non-finite loss at step 1: nan"
+    with pytest.raises(FloatingPointError, match=re.escape(msg)):
+        cli.main(nan_train_argv(tmp_path, flag))
+    assert not torch.is_anomaly_enabled()
+
+
+@pytest.mark.parametrize("flag", [True, False], ids=["--debug-nans", "without the flag"])
+def test_debug_nans_hooks_only_under_the_flag(tmp_path, monkeypatch, flag):
+    seen = {}
+
+    def train(self, *a, **k):
+        seen["hooked"] = [bool(m._forward_hooks) for m in self.model.modules()]
+        seen["anomaly"] = torch.is_anomaly_enabled()
+
+    monkeypatch.setattr(Trainer, "train", train)
+    cli.main(nan_train_argv(tmp_path, flag))
+    assert seen["anomaly"] == flag and not torch.is_anomaly_enabled()
+    assert len(seen["hooked"]) > 50 and set(seen["hooked"]) == {flag}

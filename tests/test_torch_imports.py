@@ -32,7 +32,8 @@ def test_port_modules_found():
                  "train.tf_checkpoint", "train.caffe_import", "cli", "data.jpeg", "data.decode", "data.convert",
                  "data.voc", "presets", "parallel", "parallel.mesh", "parallel.multihost", "parallel.collectives",
                  "parallel.testing", "data.grain_pipeline", "models.zoo", "models.zoo_import", "data.classification",
-                 "data.factory"):
+                 "data.factory", "tools.overfit_check", "tools.synthetic_e2e", "tools.synthetic_data",
+                 "tools.train_supervised", "utils.debug_nans"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
     from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401
@@ -66,3 +67,36 @@ def test_orbax_converter_lives_outside_the_package():
     assert package not in converter.resolve().parents
     assert not any(m.endswith("orbax_to_npz") for m in port_modules())
     assert "orbax" in converter.read_text()
+
+
+LEARNING_TOOLS = ["ron_tensorflow_tpu_torch.tools.overfit_check", "ron_tensorflow_tpu_torch.tools.synthetic_e2e",
+                  "ron_tensorflow_tpu_torch.tools.synthetic_data", "ron_tensorflow_tpu_torch.utils.debug_nans"]
+
+
+def test_learning_tools_import_without_pil():
+    """The learning checks draw and encode their images themselves: they
+    need no PIL (nor JAX). The supervisor needs only the standard library."""
+    blocked = BLOCKED + ("PIL",)
+    code = "\n".join(
+        [
+            "import importlib, subprocess, sys",
+            f"for name in {blocked!r}:",
+            "    sys.modules[name] = None",
+            f"for name in {LEARNING_TOOLS!r}:",
+            "    importlib.import_module(name)",
+            f"leaked = [m for m in sys.modules if m.split('.')[0] in {blocked!r} and sys.modules[m] is not None]",
+            "assert not leaked, leaked",
+            "print('ok')",
+        ]
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+    script = REPO / "ron_tensorflow_tpu_torch" / "tools" / "train_supervised.py"
+    stdlib_only = ("import runpy, sys\n"
+                   "for name in ('torch', 'numpy', 'ron_tensorflow_tpu_torch') + " + repr(blocked) + ":\n"
+                   "    sys.modules[name] = None\n"
+                   f"sys.argv = [{str(script)!r}, '--help']\n"
+                   f"runpy.run_path({str(script)!r}, run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", stdlib_only], cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and "--probe-timeout" in proc.stdout, proc.stderr
