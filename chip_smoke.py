@@ -245,6 +245,20 @@ Phases, each ending with a line that gives its elapsed seconds:
               the same command without the flag stops at the trainer's own
               finite check. Each part prints its mAP or result, seconds and
               launch counts.
+ 30. bench    (a) `cli bench` in this process at the JAX `bench.py`'s
+              constants (RON-320: the Detector at batch 32 with K-B and
+              K-A, twice, and with shared_top_k=1000 + approx_top_k,
+              which selects exactly; bf16 train steps at batch 14 and
+              twice at 32; the realtime head's
+              batch-1 latency, K-C), its output captured: one JSON line
+              whose keys are the JAX record's (read from bench.py's
+              source), no null, every number finite and > 0, two inference
+              and two batch-32 train runs; K-A, K-B and K-C launched, no
+              other kernel (counted around the call); the line printed
+              beside the nvidia-smi line; (b) the f32 trained RON-320
+              through a Detector with shared_top_k=1000, the card (K-A)
+              against the CPU (plain version) on the four images: keep
+              counts equal, scores and boxes within 2e-3.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -276,6 +290,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ron_tensorflow_tpu_torch import bench as bench_mod
 from ron_tensorflow_tpu_torch import full_f32_convs, kernels
 from ron_tensorflow_tpu_torch.cli import infer_images as cli_infer_images
 from ron_tensorflow_tpu_torch.cli import main as cli_main
@@ -290,7 +305,6 @@ from ron_tensorflow_tpu_torch.data.tfrecord import list_shards, read_records
 from ron_tensorflow_tpu_torch.data.voc import VOC_CLASSES, parse_annotation
 from ron_tensorflow_tpu_torch.eval import PascalVocEvaluator, RealtimeEvaluator, StreamingEvaluator
 from ron_tensorflow_tpu_torch.inference.detector import (
-    TOPK_CHUNKS,
     DetectionConfig,
     Detector,
     RealtimeConfig,
@@ -1664,10 +1678,11 @@ def forward_errors(label, got, ref, fields=("logits", "locations", "predictions"
     return errs
 
 
-def compare_dets(label, got, ref, valid=None):
-    """Card detections against the CPU's on the same outputs: equal keep
-    counts per (image, class) (or valid flags and labels, realtime), scores
-    and boxes within DET_TOL. Returns (detections, max |diff|)."""
+def compare_dets(label, got, ref, valid=None, tol=DET_TOL):
+    """Card detections against the CPU's (on the same outputs, at the
+    default `tol`): equal keep counts per (image, class) (or valid flags and
+    labels, realtime), scores and boxes within `tol`. Returns (detections,
+    max |diff|)."""
     got = [t.cpu() for t in got]
     if valid is None:  # Detector: (scores [B, C-1, K], boxes)
         counts = (got[0] > 0).sum(-1), (ref[0] > 0).sum(-1)
@@ -1681,8 +1696,8 @@ def compare_dets(label, got, ref, valid=None):
         pairs = ((got[0], ref[0]), (got[2], ref[2]))
         n = int(ref[3].sum())
     worst = max(float((a - b).abs().max()) for a, b in pairs)
-    print(f"  {label}: {n} detections, keep counts equal; max |score or box diff| {worst:.3g} (tolerance {DET_TOL})")
-    if worst > DET_TOL or n == 0:
+    print(f"  {label}: {n} detections, keep counts equal; max |score or box diff| {worst:.3g} (tolerance {tol})")
+    if worst > tol or n == 0:
         raise AssertionError(f"{label}: {n} detections, max diff {worst}")
     return n, worst
 
@@ -3499,6 +3514,61 @@ def learn_phase(tmp, smi):
     return res
 
 
+BENCH_PATH = ("nms_fixpoint_keep_mask", "fused_vgg_block1", "nms_scan_keep_mask")
+BENCH_SHARED_TOP_K = 1000  # the JAX bench.py's fast-knobs condition
+
+
+def bench_cli(smi):
+    """Phase "bench" (a): `cli bench` in this process, its standard output
+    captured, launch counts read around it."""
+    kernels.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_main(["bench"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"cli bench printed {len(lines)} lines, not one: {lines[:3]}")
+    print(f"  cli bench in {seconds:.2f} s on {smi}: {lines[0]}")
+    record = json.loads(lines[0])
+    keys = bench_mod.jax_record_keys()
+    if list(record) != keys:
+        raise AssertionError(f"bench keys {list(record)} are not the JAX record's {keys}")
+    if any(v is None for v in record.values()):
+        raise AssertionError(f"null bench values: {[k for k, v in record.items() if v is None]}")
+    bad = [x for x in bench_mod.record_numbers(list(record.values())) if not (np.isfinite(x) and x > 0)]
+    if bad:
+        raise AssertionError(f"bench numbers not finite and > 0: {bad}")
+    if len(record["inference_runs_images_per_sec"]) != 2 or len(record["train_bs32_runs"]) != 2:
+        raise AssertionError("bench: two inference runs and two batch-32 train runs expected")
+    check_counts("bench", launches, BENCH_PATH)
+    return {"record": record, "launches": launches, "seconds": seconds}
+
+
+def bench_shared_top_k(state, images):
+    """Phase "bench" (b): the f32 trained RON-320 through a Detector with
+    the bench's preselection on the card (K-A) against the same on the CPU
+    (K-A's plain version): keep counts equal, scores and boxes within
+    PARITY_ATOL."""
+    cfg = dataclasses.replace(NMS_CFG, shared_top_k=BENCH_SHARED_TOP_K)
+    dets = {}
+    for device in ("cuda", "cpu"):
+        model = RON(RON_320_SPEC, dtype=torch.float32)
+        model.load_state_dict(state, strict=True)
+        kernels.reset_launch_counts()
+        dets[device] = Detector(model, RON_320_SPEC, cfg, device=device)(images.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check_counts(f"f32 Detector, shared_top_k={BENCH_SHARED_TOP_K}", kernels.launch_counts(),
+                         ("nms_fixpoint_keep_mask",))
+    n, worst = compare_dets(f"shared_top_k={BENCH_SHARED_TOP_K}, card (K-A) vs CPU (plain)", dets["cuda"],
+                            dets["cpu"], tol=PARITY_ATOL)
+    return {"detections": n, "max_abs_diff": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -3637,17 +3707,18 @@ def main() -> int:
             # stable sort of each whole row, on the main path's scores
             cls_scores, _ = det.class_scores(out)
             k_top = NMS_CFG.top_k
-            chunked = exact_top_k_chunked(cls_scores, k_top, TOPK_CHUNKS)
+            chunks = NMS_CFG.topk_chunks
+            chunked = exact_top_k_chunked(cls_scores, k_top, chunks)
             one_sort = [t[..., :k_top] for t in torch.sort(cls_scores, dim=-1, descending=True, stable=True)]
             if not all(torch.equal(a, b) for a, b in zip(chunked, one_sort)):
                 raise AssertionError("chunked top-k differs from one stable sort")
             topk_ms = {
-                "chunked": cuda_ms(lambda: exact_top_k_chunked(cls_scores, k_top, TOPK_CHUNKS), reps=20),
+                "chunked": cuda_ms(lambda: exact_top_k_chunked(cls_scores, k_top, chunks), reps=20),
                 "one_sort": cuda_ms(lambda: torch.sort(cls_scores, dim=-1, descending=True, stable=True), reps=20),
             }
             print(f"  Detector bf16 batch {BATCH}: {ms_det:.3f} ms/batch, {BATCH * 1e3 / ms_det:.1f} img/s; "
                   f"stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()))
-            print(f"  top-k of {list(cls_scores.shape)}, k={k_top}: {TOPK_CHUNKS} chunks {topk_ms['chunked']:.4f} ms, "
+            print(f"  top-k of {list(cls_scores.shape)}, k={k_top}: {chunks} chunks {topk_ms['chunked']:.4f} ms, "
                   f"one stable sort {topk_ms['one_sort']:.4f} ms")
         realtime, rt_rows = realtime_timing(model, batch, fx)
         evaluators = {"streaming": evaluator_timing(stream_ev, stream_batches), **stream_eval,
@@ -3734,6 +3805,8 @@ def main() -> int:
             cli_inf = cli_infer_phase(eval_dir, tmp, smi)
         with phase("learn"):
             learn = learn_phase(tmp, smi)
+    with phase("bench"):
+        bench = {**bench_cli(smi), "shared_top_k": bench_shared_top_k(state, images)}
     results[2]["cli_infer_launches"] = cli_inf["launches"]["nms_scan_keep_mask"]
     kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
                               "eval": cli_eval["launches"]["fused_vgg_block1"]}
@@ -3752,6 +3825,9 @@ def main() -> int:
                                     "synthetic_eval": learn["synthetic"]["eval_launches"]["nms_fixpoint_keep_mask"]}
     kb_row["learn_launches"] = {"synthetic_train": learn["synthetic"]["train_launches"]["fused_vgg_block1"],
                                 "synthetic_eval": learn["synthetic"]["eval_launches"]["fused_vgg_block1"]}
+    results[0]["bench_launches"] = bench["launches"]["nms_fixpoint_keep_mask"]
+    kb_row["bench_launches"] = bench["launches"]["fused_vgg_block1"]
+    results[2]["bench_launches"] = bench["launches"]["nms_scan_keep_mask"]
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
@@ -3766,7 +3842,7 @@ def main() -> int:
                                             "tensorboard": tb},
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
                                          "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
-                      "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn}))
+                      "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn, "bench": bench}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -3821,26 +3897,10 @@ def realtime_timing(model, batch, fx):
     rng = np.random.default_rng(0)
     pixels = rng.integers(0, 256, (LAT_ITERS, 1, *RON_320_SPEC.img_shape, 3)).astype(np.float32)
     host = [whiten(torch.from_numpy(p) / 255.0) for p in pixels]
-
-    def fetch(out):
-        return [t.cpu() for t in out]
-
-    for _ in range(3):
-        fetch(det(host[0]))
-    lat = []
-    for x in host:
-        t0 = time.perf_counter()
-        fetch(det(x))
-        lat.append((time.perf_counter() - t0) * 1e3)
-    on_card = [x.cuda() for x in host]
-    fetch(det(on_card[0]))
-    t0 = time.perf_counter()
-    for x in on_card:
-        out = det(x)
-    fetch(out)
-    pipelined = (time.perf_counter() - t0) * 1e3 / LAT_ITERS
-    b1_device = device_busy_ms(lambda: det(on_card[0]))
-    res = {"b1_p50_ms": float(np.percentile(lat, 50)), "b1_p90_ms": float(np.percentile(lat, 90)),
+    p50, p90, pipelined = bench_mod.latency_ms(det, host, "cuda")
+    x0 = host[0].cuda()
+    b1_device = device_busy_ms(lambda: det(x0))
+    res = {"b1_p50_ms": p50, "b1_p90_ms": p90,
            "b1_pipelined_ms": pipelined, "b1_device_ms": b1_device, "b1_device_share": b1_device / pipelined}
     ms1 = frame_min_sizes(RT_SHIPPED, frame_shapes(fx))
     ms32 = ms1.repeat(BATCH // len(IMAGES))

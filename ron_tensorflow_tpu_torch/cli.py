@@ -1,6 +1,6 @@
 """`ron` CLI of the port: train / eval / realtime-eval / infer /
-convert-data / import-ckpt / inspect-ckpt, the subcommands and arguments
-of `ron_tensorflow_tpu/cli.py`.
+convert-data / import-ckpt / inspect-ckpt / bench, the subcommands and
+arguments of `ron_tensorflow_tpu/cli.py`.
 
   python -m ron_tensorflow_tpu_torch.cli convert-data --voc-root ./VOCdevkit/VOC2007 --output-dir ./records
   python -m ron_tensorflow_tpu_torch.cli train --config cfg.json --dataset-dir ./records data.batch_size=32
@@ -9,6 +9,7 @@ of `ron_tensorflow_tpu/cli.py`.
   python -m ron_tensorflow_tpu_torch.cli infer --model-dir ./model --output-dir ./Debug a.jpg b.jpg
   python -m ron_tensorflow_tpu_torch.cli import-ckpt --format torch --source vgg16.pth --model-dir ./model
   python -m ron_tensorflow_tpu_torch.cli inspect-ckpt --model-dir ./model [--pattern conv1]
+  python -m ron_tensorflow_tpu_torch.cli bench
 
 `--device` (before the subcommand) replaces the JAX CLI's `--platform`:
 "cuda" by default, "cpu" only when asked for; without a card the default
@@ -56,8 +57,10 @@ command and hooks every module of the model that `train`, `eval`,
 `FloatingPointError` naming the module (`utils/debug_nans.py`). Without the
 flag neither is on.
 
-`bench` (ROADMAP Queue 2: the port's benchmark) is in the parser and
-raises NotImplementedError.
+`bench` runs `bench.main` on `--device`: the JAX `bench.py`'s workload
+(the Detector at batch 32, train steps at batch 14 and 32, the realtime
+head's batch-1 latency) at RON-320, printed as one JSON line with the keys
+of that script's record.
 """
 
 from __future__ import annotations
@@ -65,16 +68,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-NOT_PORTED = {
-    "bench": "not ported yet: the CLI's bench subcommand waits for the port's benchmark "
-             "(ROADMAP Queue 2)",
-}
-
-
-def _not_ported(args):
-    raise NotImplementedError(NOT_PORTED[args.command])
-
 
 def _preset(kind: str, name):
     if not name:
@@ -197,7 +190,8 @@ def cmd_eval(args):
         model,
         spec,
         DetectionConfig(select_threshold=cfg.select_threshold, objectness_threshold=cfg.objectness_threshold,
-                        top_k=cfg.select_top_k, keep_top_k=cfg.keep_top_k, nms_threshold=cfg.nms_threshold),
+                        top_k=cfg.select_top_k, keep_top_k=cfg.keep_top_k, nms_threshold=cfg.nms_threshold,
+                        shared_top_k=cfg.shared_top_k),
         cfg.matching_threshold,
         device=device,
         loss_config=loss_config,
@@ -373,9 +367,15 @@ def cmd_inspect_ckpt(args):
         print(line)
 
 
+def cmd_bench(args):
+    from . import bench
+
+    bench.main(device=args.device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ron", description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--device", default="cuda", help="torch device of train, eval, realtime-eval and infer "
+    p.add_argument("--device", default="cuda", help="torch device of train, eval, realtime-eval, infer and bench "
                    "(default: cuda; cuda:LOCAL_RANK under torch.distributed.run)")
     p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                    help="torch.distributed backend under torch.distributed.run (default: nccl on cuda, gloo on cpu)")
@@ -443,15 +443,12 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--pattern", default=None)
     k.set_defaults(fn=cmd_inspect_ckpt)
 
-    sub.add_parser("bench", help="run the repo benchmark (not ported yet)").set_defaults(fn=_not_ported)
+    sub.add_parser("bench", help="run the repo benchmark").set_defaults(fn=cmd_bench)
     return p
 
 
 def main(argv=None):
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.fn is not _not_ported:  # the JAX CLI's arguments of a subcommand not ported yet pass
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     anomaly = None
     if args.debug_nans:
         import torch

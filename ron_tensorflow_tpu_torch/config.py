@@ -3,10 +3,8 @@ with `key=value` dotted overrides.
 
 A copy of `ron_tensorflow_tpu/config.py` (ref: ron_net.py:52-180,
 eval_ron_network.py:40-135): the same field names and defaults, so that the
-JAX package's config files load here. Options the port does not run raise:
-`s2d_stem` (in `train.trainer.Trainer`) and a nonzero `shared_top_k`, the
-TPU's candidate preselection, which the port leaves out (0 is the JAX
-default and loads).
+JAX package's config files load here. The one option the port does not run
+raises: `s2d_stem` (in `train.trainer.Trainer`).
 
 `mesh_shape` is a (data, model) grid over the ranks of a multi-process
 run (`parallel.mesh`). In training, `data.batch_size` is each data rank's
@@ -103,7 +101,7 @@ class EvalConfig:
     select_top_k: int = 200
     keep_top_k: int = 100
     nms_threshold: float = 0.4
-    shared_top_k: int = 0  # the TPU's candidate preselection: not ported, 0 only
+    shared_top_k: int = 0  # whole-image candidate preselection (DetectionConfig.shared_top_k); 0 = off
     matching_threshold: float = 0.5
     # the model's losses on eval batches beside the mAP (ref: eval_ron_network.py:212-220),
     # gts encoded at match.positive_threshold
@@ -127,9 +125,6 @@ class EvalConfig:
     resize: str = "WARP_RESIZE"
 
     def __post_init__(self):
-        if self.shared_top_k:
-            raise NotImplementedError(f"shared_top_k={self.shared_top_k}: the TPU's whole-image candidate "
-                                      "preselection is not ported (0, the exact default, is)")
         if self.mesh_shape and self.data.batch_size % self.mesh_shape[0]:
             raise ValueError(f"eval batch_size {self.data.batch_size} does not divide over the data axis of "
                              f"mesh {tuple(self.mesh_shape)}")

@@ -5,8 +5,9 @@ Port of `ron_tensorflow_tpu/inference/detector.py`:
 - `Detector`, the streaming-eval head (the reference's
   eval_ron_network.py:224-236 + nets/ron_vgg_320.py:234-256
   `detected_bboxes`): binary objectness gate -> per-class select -> clip ->
-  min-size filter -> exact per-class top-k -> class-wise 'min'-mode NMS
-  (K-A) -> [B, C-1, keep_top_k].
+  min-size filter -> (optional whole-image preselection, `shared_top_k`)
+  -> exact per-class top-k -> class-wise 'min'-mode NMS (K-A) ->
+  [B, C-1, keep_top_k].
 - `RealtimeDetector`, the realtime head that produced the published mAP
   (ref: ron_eval.py:428-594): score = objectness x class probability,
   argmax label, objectness gate 0.95 -> clip -> min-size and centre
@@ -34,21 +35,21 @@ from ..models.spec import DetectorSpec
 from ..ops import boxes as boxops
 from ..ops.decode import decode_boxes
 from ..ops.math import exact_top_k_chunked, flush_subnormal
-from ..ops.nms import nms_per_class, nms_sorted_with_labels, top_k_with_labels
-from ..ops.select import masked_class_scores
-
-# Chunks of the per-class top-k: exact for any value. 16 chunks of ~1330
-# anchors each sort faster on the H100 than one sort of all 21 250
-# (PERF.md, Findings, PR 4).
-TOPK_CHUNKS = 16
+from ..ops.nms import TOPK_CHUNKS, nms_per_class, nms_sorted_with_labels, top_k_with_labels
+from ..ops.select import masked_class_scores, top_k_per_class
 
 
 @dataclasses.dataclass(frozen=True)
 class DetectionConfig:
-    """Streaming-eval defaults (ref: eval_ron_network.py:64-75). NMS runs
-    the fixpoint keep-mask kernel for CUDA tensors and its plain version for
-    CPU tensors: the choice follows the tensors' device, never a global
-    default."""
+    """Streaming-eval defaults (ref: eval_ron_network.py:64-75), and JAX's
+    selection knobs with its names and defaults (`detector.py:60-88`). NMS
+    runs the fixpoint keep-mask kernel for CUDA tensors and its plain
+    version for CPU tensors: the choice follows the tensors' device, never
+    a global default.
+
+    Selection is exact for any `approx_top_k`: the field is kept so that
+    JAX's configs load, and has no effect, as JAX's `lax.approx_max_k`
+    selects exactly off the TPU."""
 
     select_threshold: float = 0.01
     objectness_threshold: float = 0.03
@@ -57,6 +58,16 @@ class DetectionConfig:
     nms_threshold: float = 0.4
     nms_mode: str = "min"
     min_size: float = 0.03
+    approx_top_k: bool = False  # no effect: selection is exact
+    # chunks of the exact top-k, bit-identical for any value (0 and 1: one
+    # whole-row selection); 16 chunks of ~1330 anchors each sort faster on
+    # the H100 than one sort of all 21 250 (PERF.md, Findings)
+    topk_chunks: int = TOPK_CHUNKS
+    # Whole-image preselection (0: off, the reference's semantics): one
+    # top-K of each anchor's largest class probability behind the gate,
+    # then every class selects among those K anchors only. An anchor outside
+    # them is dropped for every class.
+    shared_top_k: int = 0
 
 
 class Detector:
@@ -83,15 +94,27 @@ class Detector:
         return self.postprocess(self.model(images))
 
     def class_scores(self, out: DetectorOutputs) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Decode and gate: -> (per-class scores [B, C-1, N], 0 where
-        gated out; decoded boxes [B, N, 4], shared by all classes)."""
+        """Decode, gate and preselect: -> (per-class scores [B, C-1, N],
+        0 where gated out; decoded boxes [B, N, 4], shared by all classes),
+        N the anchors, or the `shared_top_k` preselected ones (JAX
+        `detector.py:184-223`: the gate is gathered with them, and the
+        select threshold masks the scores after the gather)."""
         cfg = self.config
         decoded = decode_boxes(out.locations, self.anchors, self.spec.prior_scaling)
         decoded = boxops.clip_to_ref(decoded)
         base = (out.objness_pred > cfg.objectness_threshold) & boxops.min_size_mask(
             decoded, cfg.min_size
         )
-        return masked_class_scores(out.predictions, base, cfg.select_threshold), decoded
+        predictions = out.predictions
+        b, n, c = predictions.shape
+        if 0 < cfg.shared_top_k < n:
+            zero = torch.zeros((), dtype=predictions.dtype, device=predictions.device)
+            m = torch.where(base, predictions[..., 1:].amax(dim=-1), zero)  # [B, N]
+            _, cand = exact_top_k_chunked(m, cfg.shared_top_k, cfg.topk_chunks)  # [B, K], ties to the lower index
+            predictions = torch.gather(predictions, 1, cand[..., None].expand(b, -1, c))
+            decoded = torch.gather(decoded, 1, cand[..., None].expand(b, -1, 4))
+            base = torch.gather(base, 1, cand)
+        return masked_class_scores(predictions, base, cfg.select_threshold), decoded
 
     def candidates(self, out: DetectorOutputs) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decode, gate and select: -> per-class top-k candidates, score
@@ -101,10 +124,7 @@ class Detector:
         scores, decoded = self.class_scores(out)
         b, c, n = scores.shape
         k = min(cfg.top_k, n)
-        top_scores, top_idx = exact_top_k_chunked(scores, k, TOPK_CHUNKS)
-        top_boxes = torch.gather(
-            decoded[:, None].expand(b, c, n, 4), 2, top_idx[..., None].expand(b, c, k, 4)
-        )
+        top_scores, top_boxes = top_k_per_class(scores, decoded, k, cfg.topk_chunks)
         if k < cfg.top_k:
             pad = cfg.top_k - k
             top_scores = torch.nn.functional.pad(top_scores, (0, pad))
@@ -226,10 +246,7 @@ class RealtimeDetector:
             scores = masked_class_scores(flush_subnormal(out.predictions), base, cfg.select_threshold)  # [B, C-1, N]
             _, c, n = scores.shape
             k = min(cfg.top_k, n)
-            top_scores, top_idx = exact_top_k_chunked(scores, k, TOPK_CHUNKS)
-            top_boxes = torch.gather(
-                boxes[:, None].expand(b, c, n, 4), 2, top_idx[..., None].expand(b, c, k, 4)
-            )
+            top_scores, top_boxes = top_k_per_class(scores, boxes, k, TOPK_CHUNKS)
             return top_scores.reshape(b * c, k), top_boxes.reshape(b * c, k, 4)
         # score = objectness x class probability; the label is the argmax
         # class, the first of equal maxima (ref: ron_eval.py:111-144

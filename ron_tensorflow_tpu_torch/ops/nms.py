@@ -18,7 +18,8 @@ from ..kernels.nms import compact_keep_labelled, nms_scan_keep_mask, nms_sorted_
 from .math import exact_top_k_chunked
 
 # Chunks of the exact top-k, as `sort_by_score` and the realtime head use
-# in the JAX package (`ops/nms.py:58`, `detector.py:387`).
+# in the JAX package (`ops/nms.py:58`, `detector.py:387`); also the
+# default of `DetectionConfig.topk_chunks`.
 TOPK_CHUNKS = 16
 
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .math import exact_top_k_chunked
+
 
 def masked_class_scores(
     predictions: torch.Tensor, base: torch.Tensor, select_threshold: float
@@ -20,3 +22,14 @@ def masked_class_scores(
     scores = predictions[..., 1:].transpose(-1, -2)
     keep = base[:, None, :] & (scores > select_threshold)
     return torch.where(keep, scores, torch.zeros((), dtype=scores.dtype, device=scores.device))
+
+
+def top_k_per_class(scores: torch.Tensor, boxes: torch.Tensor, k: int, num_chunks: int):
+    """Each class's k best anchors and their boxes: scores [B, C, N], boxes
+    [B, N, 4] shared by the classes -> (scores [B, C, k] sorted, boxes
+    [B, C, k, 4]). The exact chunked top-k, so ties go to the lower anchor
+    index as with `lax.top_k`, for any `num_chunks`."""
+    b, c, n = scores.shape
+    top_scores, top_idx = exact_top_k_chunked(scores, k, num_chunks)
+    top_boxes = torch.gather(boxes[:, None].expand(b, c, n, 4), 2, top_idx[..., None].expand(b, c, k, 4))
+    return top_scores, top_boxes

@@ -1,7 +1,7 @@
 """The port's CLI: `import-ckpt` (torch and TF sources) into a model dir that
 `inspect-ckpt`, `CheckpointManager.restore_eval` and a Trainer read, held
-against the JAX package's importers and `inspect_params`; `bench`, not
-ported, raises (`infer`: `test_torch_infer.py`). `--debug-nans` parses in
+against the JAX package's importers and `inspect_params` (`infer`:
+`test_torch_infer.py`; `bench`: `test_torch_bench.py`). `--debug-nans` parses in
 both CLIs; under it a tiny CPU train step from a checkpoint with one NaN
 weight raises FloatingPointError naming the weight's module, and without
 it no hook is installed, anomaly detection stays off and the same step
@@ -166,13 +166,6 @@ def test_restore_eval_reads_parameters_and_statistics_only(tmp_path):
     assert set(jax_names(model).values()) >= {"0/conv/kernel", "1/deconv_kernel"}
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore_eval()
-
-
-@pytest.mark.parametrize("argv,item", [(["bench"], "the port's benchmark \\(ROADMAP Queue 2\\)")],
-                         ids=lambda a: a[0] if isinstance(a, list) else "")
-def test_subcommands_not_ported_yet_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"{argv[0]} subcommand waits for .*{item}"):
-        cli.main(argv)
 
 
 NAN_WEIGHT = "backbone.conv4_1.conv.weight"

@@ -1,8 +1,8 @@
 """The port's configs (`config.py`: `EvalConfig`, `load_config`,
 `_from_dict`) and presets (`presets.py`) against the JAX package's: every
-field and default, JSON files with dotted overrides, every preset. The
-TPU-only `shared_top_k` loads at 0 and raises otherwise; an eval mesh
-loads, and its batch size must divide over the data axis."""
+field and default, JSON files with dotted overrides, every preset. A
+nonzero `shared_top_k` loads as JAX's does; an eval mesh loads, and its
+batch size must divide over the data axis."""
 
 import dataclasses
 import json
@@ -74,8 +74,9 @@ def test_every_preset_matches_jax(kind):
 
 def test_tpu_only_and_distributed_eval_options_raise():
     assert config.EvalConfig(shared_top_k=0).shared_top_k == 0  # JAX's default, in its config files
-    with pytest.raises(NotImplementedError, match="shared_top_k=1000"):
-        config.load_config(config.EvalConfig, None, ["shared_top_k=1000"])
+    got = config.load_config(config.EvalConfig, None, ["shared_top_k=1000"])
+    assert got.shared_top_k == 1000
+    assert as_dict(got) == as_dict(jax_config.load_config(jax_config.EvalConfig, None, ["shared_top_k=1000"]))
     assert config.EvalConfig(mesh_shape=(1, 1)).mesh_shape == (1, 1)
     assert tuple(config.load_config(config.EvalConfig, None, ["mesh_shape=[2, 1]"]).mesh_shape) == (2, 1)
     with pytest.raises(ValueError, match="does not divide over the data axis"):

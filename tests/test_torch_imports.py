@@ -33,7 +33,7 @@ def test_port_modules_found():
                  "data.voc", "presets", "parallel", "parallel.mesh", "parallel.multihost", "parallel.collectives",
                  "parallel.testing", "data.grain_pipeline", "models.zoo", "models.zoo_import", "data.classification",
                  "data.factory", "tools.overfit_check", "tools.synthetic_e2e", "tools.synthetic_data",
-                 "tools.train_supervised", "utils.debug_nans"):
+                 "tools.train_supervised", "utils.debug_nans", "bench"):
         assert f"ron_tensorflow_tpu_torch.{name}" in mods
     from ron_tensorflow_tpu_torch.inference.detector import RealtimeDetector  # noqa: F401
     from ron_tensorflow_tpu_torch.train.trainer import Trainer  # noqa: F401
