@@ -91,14 +91,33 @@ Phases, each ending with a line that gives its elapsed seconds:
               the repo's from-scratch SSD optimizer recipe, batch 32: 10
               steps, K-B once a step and no other kernel, every loss finite,
               the train-mode loss of a fixed batch lower after than before;
- 14. heavy    ron_320_vgg_heavy (fc6 7x7 with 4096 channels, fc7 1x1 with
+ 14. stem     the JAX package's other training forms of VGG block 1:
+              (a) f32 on the card, RON-320 (trained weights, the four demo
+              images) and SSD-300 (phase "ssd f32"'s weights, two images)
+              with s2d_stem against plain: outputs within 1e-4 of each
+              one's largest magnitude; one f32 RON-320 train step at batch
+              2 with s2d_stem and one with remat_blocks12 against the plain
+              step: loss within 1e-5 relative, each gradient within 1e-4 of
+              its tensor's largest magnitude (a pre-BN conv bias: of its
+              kernel's); (b) in a child process (`--stem-timing`, so that
+              its profiler windows leave this process's host timings
+              alone), bf16 Trainer steps with TrainConfig.s2d_stem on, the
+              model switched through K-B, plain, s2d_stem and
+              remat_blocks12, RON-320 at batch 14 and 32 (K-B counted in
+              its steps, no kernel in the others), SSD-300 at 32 plain and
+              s2d_stem: ms (CUDA events, two runs), peak memory, device
+              busy share; (c) the f32 RON-320 Detector at batch 32 with
+              nms_method='loop': K-C launched once and no other kernel, its
+              keep mask on the Detector's rows bit-equal to the plain
+              version, the detections against 'pallas' (K-A; recorded);
+ 15. heavy    ron_320_vgg_heavy (fc6 7x7 with 4096 channels, fc7 1x1 with
               4096) from seeded weights: f32 batch 2, card vs CPU within
               1e-4; bf16 batch 32 through the Detector with K-B and K-A;
- 15. eval losses  `StreamingEvaluator(loss_config=...)` on SSD-300 (bf16,
+ 16. eval losses  `StreamingEvaluator(loss_config=...)` on SSD-300 (bf16,
               `SsdLossConfig`) and on the trained RON-320 (bf16,
               `RonLossConfig`, fixed draws): each batch's loss/* metrics
               against the CPU loss on the same outputs within 1e-5 relative;
- 16. timing   the bf16 batch-32 Detector's images/s and stage split; the
+ 17. timing   the bf16 batch-32 Detector's images/s and stage split; the
               realtime head's batch-1 latency (p50, p90, pipelined) and
               device-idle share, its batch-32 images/s and stage split; the
               streaming evaluator's images/s and the matcher's time; each
@@ -121,7 +140,7 @@ Phases, each ending with a line that gives its elapsed seconds:
               [8, 512, 512, 3] and [32, 512, 512, 3] beside its bound, plain
               version and cuDNN; K-A on the SSD Detectors' rows and K-C on
               SSD-300's class-wise realtime rows.
- 17. reference import  the reference's RON-320: the 184 slim tensors named in
+ 18. reference import  the reference's RON-320: the 184 slim tensors named in
               tests/fixtures/reference_forward.npz, regenerated by name as
               tools/reference_forward.py does (`weight_for`, a copy), mapped
               by the port's `slim_ron_to_flat` and loaded with
@@ -133,7 +152,7 @@ Phases, each ending with a line that gives its elapsed seconds:
               the graph and through cuDNN recorded; the bf16 Detector with
               K-B at batch 32 on the same weights (K-B and K-A once each),
               its detections against the f32 Detector's recorded;
- 18. warm start  a seeded ssd.pytorch VGG-16 `.pth` (`vgg.N`, fc6/fc7 at
+ 19. warm start  a seeded ssd.pytorch VGG-16 `.pth` (`vgg.N`, fc6/fc7 at
               31/33) saved with torch.save; a bf16 RON-320 Trainer with K-B,
               checkpoint_format "torch", BGR -> RGB, TensorBoard on: the 30
               backbone tensors equal the source exactly (conv1_1's input
@@ -146,14 +165,14 @@ Phases, each ending with a line that gives its elapsed seconds:
               port's protobuf primitives, conv4_3's norm scale included):
               its 26 conv tensors restored exactly, the rest at the seeded
               init, 3 steps at batch 32 with K-B;
- 19. import cli  `import-ckpt --format torch` of the same `.pth` into a fresh
+ 20. import cli  `import-ckpt --format torch` of the same `.pth` into a fresh
               model dir, `inspect-ckpt` listing every parameter, and a bf16
               Trainer resuming there at step 0 with the warm start's
               backbone;
- 20. tensorboard  phase 18's event file read back with every record's CRCs
+ 21. tensorboard  phase 19's event file read back with every record's CRCs
               verified: each scalar of metrics.jsonl at each log step, as
               float32.
- 21. jpeg     the port's JPEG decoder (its only one), built from
+ 22. jpeg     the port's JPEG decoder (its only one), built from
               data/_native/jpeg_decode.c: where the card host has cv2 or
               PIL, bit-equal to them on the fixture JPEGs, and its resize to
               512x512 within 1 level of cv2's; the eight images of
@@ -163,25 +182,25 @@ Phases, each ending with a line that gives its elapsed seconds:
               (tests/fixtures/voc_mini_ref.npz, tools/make_voc_mini.py); the
               resize within 1 level of the fixture's cv2 resizes; decode ms
               per image on one thread and on the pipeline's thread pool;
- 22. records  `cli convert-data` of the eight images under 264 ids in two
+ 23. records  `cli convert-data` of the eight images under 264 ids in two
               shards; every record parses back to its XML and JPEG;
               `Trainer.make_batches`' first batch (seed 0, batch 4) against
               JAX's: gts exact, pixels within 1 level;
- 23. cli train  `cli train` from those records: RON-320, bf16, K-B, batch 14,
+ 24. cli train  `cli train` from those records: RON-320, bf16, K-B, batch 14,
               5 steps from a step-0 checkpoint of the trained weights (K-B 5
               times, no other kernel; finite losses; a checkpoint at step 5);
               its step ms beside a Trainer's on in-memory batches (warm runs
               of 12 steps in turns: records, memory, memory, records);
- 24. cli eval  `cli eval`, RON-320 bf16 with the trained weights, batch 32,
+ 25. cli eval  `cli eval`, RON-320 bf16 with the trained weights, batch 32,
               over the 264 records, the last batch padded (K-A and K-B
               launched): mAP, APs and TP/FP equal to `StreamingEvaluator.run`
               on the same batches decoded beforehand; img/s of both (warm
               runs in turns: CLI, direct, direct, CLI);
- 25. cli realtime-eval  `cli realtime-eval`, f32, over tests/fixtures/voc_mini
+ 26. cli realtime-eval  `cli realtime-eval`, f32, over tests/fixtures/voc_mini
               (K-C launched, K-A and K-B not): the detections it writes
               against JAX's rows: equal counts, classes and images, scores and
               boxes within 2e-3.
- 26. dist     distribution on the one card, ranks in processes of their
+ 27. dist     distribution on the one card, ranks in processes of their
               own (`parallel.testing.run_ranks`, the kernels built by the
               parent beforehand), gloo between them (NCCL takes one rank per
               device): (a) one f32 RON-320 step on mesh (2, 1), global batch
@@ -193,12 +212,12 @@ Phases, each ending with a line that gives its elapsed seconds:
               process; (b) one f32 step on mesh (1, 2) at batch 2, the same
               gates, grad_norm too; (c) `cli eval` on mesh [2, 1] as under
               `python -m torch.distributed.run` (env://), 32 rows a rank:
-              mAP, APs and TP/FP equal to phase 24's, K-A and K-B in each
+              mAP, APs and TP/FP equal to phase 25's, K-A and K-B in each
               rank; (d) env:// at
               world size 1 with NCCL: an all-reduce and one Trainer step on
               mesh (1, 1). The 2-rank step's ms beside the one-process step
               and the gradient all-reduce's ms are recorded.
- 27. zoo      the classification networks at their published depth, with
+ 28. zoo      the classification networks at their published depth, with
               seeded weights (He-scaled kernels, BN means N(0, 0.5),
               variances U(0.5, 1.5)) on seeded images in [-1, 1]:
               Inception-V3 (1001 classes, its weights read through
@@ -216,14 +235,14 @@ Phases, each ending with a line that gives its elapsed seconds:
               counts read around the phase: no port kernel; (f)
               `profile_trace` around two bf16 Inception-V3 forwards writes
               a trace that holds CUDA kernel events;
- 28. cli infer  `cli infer` on the eight JPEGs of tests/fixtures/voc_mini,
+ 29. cli infer  `cli infer` on the eight JPEGs of tests/fixtures/voc_mini,
               f32 RON-320 with the trained weights at batch 1: K-C launched
               once an image, K-A and K-B not; eight pictures and the JAX
               CLI's lines; the detections bit-equal to `RealtimeDetector`
               called directly on the same decoded, resized and whitened
-              images, and within phase 25's 2e-3 of the same CLI on the
+              images, and within phase 26's 2e-3 of the same CLI on the
               CPU; ms an image (the CLI's run, then two warm runs).
- 29. learn    the learning checks, the supervisor and `--debug-nans`:
+ 30. learn    the learning checks, the supervisor and `--debug-nans`:
               (a) `tools/overfit_check.py`, RON-tiny overfit on its 8
               images on the card (400 f32 steps, then the Detector through
               K-A): mAP over the classes with gts >= 0.8, K-A launched and
@@ -245,7 +264,7 @@ Phases, each ending with a line that gives its elapsed seconds:
               the same command without the flag stops at the trainer's own
               finite check. Each part prints its mAP or result, seconds and
               launch counts.
- 30. bench    (a) `cli bench` in this process at the JAX `bench.py`'s
+ 31. bench    (a) `cli bench` in this process at the JAX `bench.py`'s
               constants (RON-320: the Detector at batch 32 with K-B and
               K-A, twice, and with shared_top_k=1000 + approx_top_k,
               which selects exactly; bf16 train steps at batch 14 and
@@ -333,6 +352,7 @@ from ron_tensorflow_tpu_torch.models.layers import BatchNorm, max_pool_2x2
 from ron_tensorflow_tpu_torch.models.zoo_import import inception_v3_from_torch
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC, SSD_300_SPEC
+from ron_tensorflow_tpu_torch.models.vgg import check_block1_forms
 from ron_tensorflow_tpu_torch.models.testing import (
     scale_ssd_heads,
     seeded_flax_params,
@@ -376,7 +396,9 @@ REPO = Path(__file__).resolve().parent
 TRAINED_FIXTURE = REPO / "tests" / "fixtures" / "e2e_parity_trained.npz"
 IMAGES = ("1", "2", "3", "4")
 BATCH = 32
-NMS_CFG = DetectionConfig()  # the streaming-eval defaults: thr 0.4, 'min', top_k 200
+# the streaming-eval defaults (thr 0.4, 'min', top_k 200), with K-A named: 'auto' runs K-A on the card and
+# K-C's plain version on the CPU, and the CPU references here are K-A's plain version
+NMS_CFG = DetectionConfig(nms_method="pallas")
 # The realtime head: the published flags (select 0.6, objectness 0.95, union
 # NMS 0.4, keep 20) with the shipped top_k 400, and with
 # tests/test_e2e_parity.py's top_k 2048; its class-wise mode with the
@@ -1216,10 +1238,11 @@ def augmented(host, aug_draws, pcfg, device):
     return {"image": image, "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
 
 
-def train_model(state, device, dtype=torch.float32, fuse_block1=False):
-    """RON-320 with the trained weights, its encoder, optimizer (the
+def train_model(state, device, dtype=torch.float32, **flags):
+    """RON-320 with the trained weights (and the block-1 form of `flags`:
+    fuse_block1, s2d_stem or remat_blocks12), its encoder, optimizer (the
     TrainConfig defaults), train state and train step, on `device`."""
-    model = RON(RON_320_SPEC, dtype=dtype, fuse_block1=fuse_block1)
+    model = RON(RON_320_SPEC, dtype=dtype, **flags)
     model.load_state_dict(state, strict=True)
     model.to(device)
     enc = TargetEncoder(RON_320_SPEC.anchor_layout(), RON_320_SPEC.img_shape, TRAIN_CFG.match.positive_threshold,
@@ -1568,7 +1591,7 @@ def train_timing(state, fx):
 SSD_NAMES = ("ssd_300_vgg", "ssd_512_vgg")
 # the SSD eval preset's detection values (ron_tensorflow_tpu/presets.py:18-41)
 SSD_DET = DetectionConfig(select_threshold=0.01, objectness_threshold=0.0, top_k=400, keep_top_k=200,
-                          nms_threshold=0.45)
+                          nms_threshold=0.45, nms_method="pallas")
 SSD_BATCH = {"ssd_300_vgg": BATCH, "ssd_512_vgg": 8}
 SSD_SEED = {"ssd_300_vgg": 300, "ssd_512_vgg": 512, "ron_320_vgg_heavy": 4096}
 SSD_F32_BATCH = 2
@@ -1936,6 +1959,226 @@ def ssd_trainer_run(state, host_batch):
     return {"steps": SSD_TRAIN_STEPS, "seconds": seconds, "losses": losses, "fixed_loss_before": before,
             "fixed_loss_after": after, "eval_step_loss_before": eval_before, "eval_step_loss_after": eval_after,
             "launches": launches}
+
+
+# --------------------------------------------------------------------------- #
+# Phase "stem": the JAX package's other training forms of VGG block 1
+# (`s2d_stem`, the phase-output conv; `remat_blocks12`, blocks 1-2
+# recomputed in the backward) against the plain form and K-B, and the
+# Detector with nms_method="loop" (K-C on the Detector's own rows)
+
+STEM_FORWARD_TOL = 1e-4  # s2d vs plain f32 forward, of each output's largest magnitude
+STEM_LOSS_RTOL = 1e-5  # a form's f32 step loss against the plain step's
+STEM_GRAD_TOL = 1e-4  # each gradient against the plain step's, of the tensor's largest magnitude
+STEM_FORMS = ("K-B", "plain", "s2d_stem", "remat_blocks12")
+STEM_SSD_FORMS = ("plain", "s2d_stem")
+STEM_STEPS = 4  # CUDA-event steps a run, two runs a form and batch, after one warm-up step
+STEM_TIMEOUT = 300  # seconds for the timing process
+
+
+def block1_flags(form):
+    """The model keywords of a block-1 form."""
+    return {"fuse_block1": form == "K-B", "s2d_stem": form == "s2d_stem", "remat_blocks12": form == "remat_blocks12"}
+
+
+def stem_forwards(state, images, ssd_300_state, fx):
+    """Phase "stem" (a), forwards: f32 RON-320 (trained weights, the four
+    demo images) and SSD-300 (phase "ssd f32"'s weights, two images) with
+    s2d_stem against the same model without it, on the card."""
+    res = {}
+    for name, st, x in (("ron_320_vgg", state, images),
+                        ("ssd_300_vgg", ssd_300_state, demo_images(fx, SSD_300_SPEC)[:SSD_F32_BATCH].cuda())):
+        outs = []
+        for s2d in (False, True):
+            model, _ = get_network(name, s2d_stem=s2d)
+            model.load_state_dict(st, strict=True)
+            with torch.inference_mode():
+                outs.append(model.cuda()(x))
+        ref, got = outs
+        errs = {f: float((getattr(got, f) - getattr(ref, f)).abs().max()) / float(getattr(ref, f).abs().max())
+                for f in ("logits", "locations", "predictions")}
+        print(f"  {name} f32 batch {len(x)}, s2d_stem vs plain: max |diff| / max |plain| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tolerance {STEM_FORWARD_TOL})")
+        if max(errs.values()) > STEM_FORWARD_TOL:
+            raise AssertionError(f"{name}: the s2d_stem forward is off the plain one: {errs}")
+        res[name] = errs
+    return res
+
+
+def stem_f32_steps(state, host):
+    """Phase "stem" (a), steps: one f32 RON-320 train step at batch 2 with
+    s2d_stem and one with remat_blocks12 against the plain step, on the
+    card, the same weights, batch and draws: the loss within STEM_LOSS_RTOL,
+    each gradient within STEM_GRAD_TOL of the plain one's largest magnitude
+    (a conv bias right before a train-mode BatchNorm, whose gradient is
+    exactly 0 up to roundoff: of its kernel's)."""
+    host2, aug_draws, loss_draws, pcfg = train_inputs(host, F32_STEP_BATCH, seed=0)
+    runs = {}
+    for form in ("plain", "s2d_stem", "remat_blocks12"):
+        model, _, _, st, step = train_model(state, "cuda", torch.float32, **block1_flags(form))
+        grads = grad_recorder(model)
+        _, metrics = step(st, augmented(host2, aug_draws, pcfg, "cuda"), draws=loss_draws.cuda())
+        runs[form] = (float(metrics["loss/total"]), grads)
+        del model, st, step
+    loss, ref = runs["plain"]
+    res = {}
+    for form in ("s2d_stem", "remat_blocks12"):
+        f_loss, grads = runs[form]
+        if grads.keys() != ref.keys():
+            raise AssertionError(f"f32 step with {form}: not every parameter got a gradient")
+        errs = {}
+        for n, r in ref.items():
+            scale = float(ref[n[:-len("bias")] + "weight"].abs().max() if PRE_BN_BIAS.search(n) else r.abs().max())
+            diff = float((grads[n] - r).abs().max())
+            errs[n] = diff / scale if scale else diff
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        loss_err = abs(f_loss - loss) / abs(loss)
+        print(f"  f32 step, batch {F32_STEP_BATCH}, {form} vs plain: loss {f_loss:.7f} vs {loss:.7f} "
+              f"({loss_err:.2e} relative, tolerance {STEM_LOSS_RTOL}); gradients ({len(errs)} tensors): largest "
+              f"max|diff|/max|plain| {worst[1]:.2e} ({worst[0]}), median {float(np.median(list(errs.values()))):.2e} "
+              f"(tolerance {STEM_GRAD_TOL})")
+        if loss_err > STEM_LOSS_RTOL or worst[1] > STEM_GRAD_TOL:
+            raise AssertionError(f"f32 step with {form}: loss {loss_err:.3g}, gradient {worst}")
+        res[form] = {"loss": f_loss, "plain_loss": loss, "loss_rel_diff": loss_err, "grad_max_err": worst,
+                     "grad_median_err": float(np.median(list(errs.values())))}
+    return res
+
+
+def set_block1_form(model, form):
+    """Switch a RON's backbone (or an SSD) to a block-1 form: the forward
+    reads the flags at each call, so one model (and one train step) serves
+    every form, as the JAX package's tools/perf_train_experiments.py clones
+    one model with remat_blocks12."""
+    target = getattr(model, "backbone", model)
+    flags = block1_flags(form)
+    check_block1_forms(**flags)
+    for k, v in flags.items():
+        if v or hasattr(target, k):
+            setattr(target, k, v)
+
+
+def stem_form_timing(trainer, st, fx, form, batches):
+    """One block-1 form's bf16 Trainer step at each batch: ms (CUDA events,
+    two runs of STEM_STEPS after a warm-up step), peak memory (reset before
+    the batch's first step) and the device's busy share of a step
+    (torch.profiler), with the launches of the port's kernels."""
+    set_block1_form(trainer.model, form)
+    res = {}
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    for b in batches:
+        batch = to_device(train_host_batch(fx, b), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [cuda_ms(lambda: trainer.step(st, batch), reps=STEM_STEPS, warmup=1 if i == 0 else 0)
+                for i in range(2)]
+        peak = torch.cuda.max_memory_allocated()
+        busy = device_busy_ms(lambda: trainer.step(st, batch))
+        res[f"b{b}"] = {"ms_runs": runs, "img_per_s": b * 1e3 / min(runs), "peak_bytes": peak,
+                        "busy_share": busy / min(runs), "device_busy_ms": busy}
+    torch.cuda.synchronize()
+    res["launches"] = kernels.launch_counts()
+    res["steps"] = (1 + 2 * STEM_STEPS + 2) * len(batches)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def stem_timing_main() -> int:
+    """Phase "stem" (b) in a process of its own (`chip_smoke.py
+    --stem-timing`), so that its torch.profiler windows do not slow the
+    host side of the parent's later phases: bf16 Trainer steps of RON-320
+    (trained weights; TrainConfig.s2d_stem on, the model then switched
+    through the four block-1 forms: K-B, plain, s2d_stem, remat_blocks12)
+    at batch 14 and 32, and of SSD-300 (seeded init, phase "ssd train"'s
+    recipe, s2d_stem on) at batch 32, plain and s2d_stem. Prints one JSON
+    line last."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = from_jax_params(*load_trained_fixture(str(TRAINED_FIXTURE)))
+    fx = np.load(TRAINED_FIXTURE, allow_pickle=False)
+    out = {}
+    for name, base, forms, batches in (("ron_320_vgg", TRAIN_CFG, STEM_FORMS, (TRAIN_BATCH, BATCH)),
+                                       ("ssd_300_vgg", SSD_TRAIN_CFG, STEM_SSD_FORMS, (BATCH,))):
+        with tempfile.TemporaryDirectory() as model_dir:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(base, model_dir=model_dir, s2d_stem=True)
+            trainer, _ = quietly(lambda: Trainer(cfg, device="cuda"))
+            if not getattr(trainer.model, "backbone", trainer.model).s2d_stem:
+                raise AssertionError(f"{name}: TrainConfig(s2d_stem=True) gave no s2d_stem model")
+            st, _ = quietly(trainer.init_state)
+            if name.startswith("ron"):
+                trainer.model.load_state_dict(state, strict=True)
+            print(f"  {name} Trainer(s2d_stem=True) and its state: {time.perf_counter() - t0:.2f} s", flush=True)
+            for form in forms:
+                res = stem_form_timing(trainer, st, fx, form, batches)
+                check_counts(f"{name} {form} train steps", res["launches"],
+                             ("fused_vgg_block1",) if form == "K-B" else ())
+                out[f"{name} {form}"] = res
+                print(f"  {name} bf16 train step, {form}: " + "; ".join(
+                    f"batch {k[1:]} {'/'.join(f'{m:.3f}' for m in v['ms_runs'])} ms ({v['img_per_s']:.1f} img/s), "
+                    f"peak {v['peak_bytes'] / 2 ** 30:.3f} GiB, device busy {v['busy_share']:.3f}"
+                    for k, v in res.items() if k.startswith("b")) + f" ({res['seconds']:.2f} s)", flush=True)
+            del trainer, st
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def stem_timing(smi):
+    """Phase "stem" (b): `stem_timing_main` in a child process; its lines
+    shown, its JSON line returned."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--stem-timing"], capture_output=True,
+                          text=True, timeout=STEM_TIMEOUT, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    print(f"  the timing process took {time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"the stem timing process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    kb = res["ron_320_vgg K-B"]
+    print(f"  ({smi}) K-B launched {kb['launches']['fused_vgg_block1']} times in {kb['steps']} K-B steps; the "
+          f"other forms launched no port kernel")
+    return res
+
+
+def stem_detector_loop(state, images):
+    """Phase "stem" (c): the f32 trained RON-320 at batch 32 through a
+    Detector with nms_method="loop" (K-C, launches read around the call),
+    K-C's keep mask on the same rows bit-equal to its plain version, and
+    the detections against nms_method="pallas" (K-A; recorded)."""
+    model = RON(RON_320_SPEC)
+    model.load_state_dict(state, strict=True)
+    batch = images.repeat(BATCH // len(IMAGES), 1, 1, 1).contiguous()
+    cfg = DetectionConfig(nms_method="loop")
+    det = Detector(model, RON_320_SPEC, cfg, device="cuda")
+    kernels.reset_launch_counts()
+    loop_dets = det(batch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts("f32 Detector, nms_method='loop'", launches, ("nms_scan_keep_mask",))
+    with torch.inference_mode():
+        flat_s, flat_b = (t.contiguous() for t in det.candidates(det.model(batch)))
+        keep = kernels.nms_scan_keep_mask(flat_s, flat_b, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode).cpu()
+    plain = kernels.nms_scan_keep_mask_plain(flat_s.cpu(), flat_b.cpu(), cfg.nms_threshold, cfg.keep_top_k,
+                                             cfg.nms_mode)
+    if not torch.equal(keep, plain):
+        raise AssertionError(f"K-C on the Detector's rows differs from its plain version in "
+                             f"{int((keep != plain).sum())} slots")
+    pallas = [t.cpu() for t in Detector(model, RON_320_SPEC, NMS_CFG, device="cuda")(batch)]
+    loop = [t.cpu() for t in loop_dets]
+    counts = (loop[0] > 0).sum(-1), (pallas[0] > 0).sum(-1)
+    same = counts[0] == counts[1]
+    worst = max(float((a - b).abs()[same].max()) for a, b in zip(loop, pallas))
+    res = {"launches": launches, "rows": list(flat_s.shape), "kept": int(keep.sum()),
+           "keep_count_pairs_differing": int((~same).sum()), "detections": int(counts[0].sum()),
+           "max_abs_diff_vs_pallas": worst}
+    print(f"  f32 Detector batch {BATCH}, nms_method='loop': K-C launched {launches['nms_scan_keep_mask']} time(s), "
+          f"no other kernel; its keep mask on the {list(flat_s.shape)} rows bit-equal to the plain version "
+          f"({res['kept']} kept); against 'pallas' (K-A): {res['detections']} detections, keep counts differ in "
+          f"{res['keep_count_pairs_differing']} (image, class) pairs, max |score or box diff| {worst:.3g} (recorded)")
+    return res
 
 
 def heavy_phase(fx):
@@ -3574,6 +3817,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--stem-timing"]:
+        return stem_timing_main()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3675,6 +3920,11 @@ def main() -> int:
         host32 = train_host_batch(fx, BATCH)
         ssd_train = {"f32_card_vs_cpu": ssd_f32_train_parity(ssd_states["ssd_300_vgg"], host32),
                      "trainer_bf16": ssd_trainer_run(ssd_states["ssd_300_vgg"], host32)}
+
+    with phase("stem"):
+        stem = {"f32_forward": stem_forwards(state, images, ssd_states["ssd_300_vgg"], fx),
+                "f32_step": stem_f32_steps(state, host), "bf16_train": stem_timing(smi),
+                "detector_loop": stem_detector_loop(state, images)}
 
     with phase("heavy"):
         heavy, heavy_det, heavy_batch = heavy_phase(fx)
@@ -3828,6 +4078,8 @@ def main() -> int:
     results[0]["bench_launches"] = bench["launches"]["nms_fixpoint_keep_mask"]
     kb_row["bench_launches"] = bench["launches"]["fused_vgg_block1"]
     results[2]["bench_launches"] = bench["launches"]["nms_scan_keep_mask"]
+    results[2]["detector_loop_launches"] = stem["detector_loop"]["launches"]["nms_scan_keep_mask"]
+    kb_row["stem_train_launches"] = stem["bf16_train"]["ron_320_vgg K-B"]["launches"]["fused_vgg_block1"]
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
@@ -3842,7 +4094,8 @@ def main() -> int:
                                             "tensorboard": tb},
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
                                          "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
-                      "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn, "bench": bench}))
+                      "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn, "bench": bench,
+                      "stem": stem}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

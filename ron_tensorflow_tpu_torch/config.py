@@ -3,8 +3,7 @@ with `key=value` dotted overrides.
 
 A copy of `ron_tensorflow_tpu/config.py` (ref: ron_net.py:52-180,
 eval_ron_network.py:40-135): the same field names and defaults, so that the
-JAX package's config files load here. The one option the port does not run
-raises: `s2d_stem` (in `train.trainer.Trainer`).
+JAX package's config files load here.
 
 `mesh_shape` is a (data, model) grid over the ranks of a multi-process
 run (`parallel.mesh`). In training, `data.batch_size` is each data rank's

@@ -216,7 +216,8 @@ class GrainBatches:
     shard `config.worker_index` of `config.num_workers`, shuffled with
     `config.seed` when `config.shuffle`; `state_json` / `restore_state_json`
     save and restore the input position. A batch's records decode on
-    `config.decode_workers` threads (order-preserving). `last_keys` holds
+    `config.grain_workers` threads, or `config.decode_workers` when that is
+    0 (order-preserving: the batches do not depend on it). `last_keys` holds
     the record keys (indices into the source) of the batch returned last."""
 
     def __init__(self, files, config: PipelineConfig, epochs=None):
@@ -227,6 +228,8 @@ class GrainBatches:
         self.next_index = 0  # records of this shard read so far
         self.last_keys: List[int] = []
         workers = config.decode_workers if config.decode_workers != -1 else min(8, (os.cpu_count() or 2) - 1)
+        if config.grain_workers > 0:
+            workers = config.grain_workers
         self._pool = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -266,3 +269,11 @@ class GrainBatches:
                              f"{state['sampler']}, {state['data_source']}")
         s = self.sampler
         self.next_index = (state["last_seen_indices"]["0"] + s.shard_count - s.shard_index) // s.shard_count
+
+
+def grain_batch_iterator(files: Sequence[str], config: PipelineConfig, epochs: Optional[int] = None) -> GrainBatches:
+    """The deterministic batched iterator of `grain_pipeline.py:129-159`:
+    here `GrainBatches`, whose `state_json` / `restore_state_json` stand for
+    grain's `get_state` / `set_state`. Its batches are JAX's iterator's with
+    `sample_valid` added, as JAX's `GrainBatches` adds it."""
+    return GrainBatches(files, config, epochs)

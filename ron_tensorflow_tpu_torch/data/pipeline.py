@@ -8,9 +8,11 @@ from `np.random.default_rng(seed + worker_index)`, the same padding of a
 short final batch with `sample_valid`), with two differences: JPEGs decode
 through the package's own decoder (`data/decode.py`), and a record without
 `image/shape` takes its size from the JPEG header (`data/jpeg.py`) where
-the JAX package opens PIL (pipeline.py:277). `PipelineConfig` leaves out
-JAX's `prefetch`, which nothing reads, and `grain_workers`, which belongs
-to the Grain pipeline (not ported: ROADMAP Queue 1 item 4). The host work
+the JAX package opens PIL (pipeline.py:277). `PipelineConfig` takes JAX's
+`prefetch`, which nothing reads, in the port as in the JAX package, and
+`grain_workers`, which sizes the decode threads of the Grain-equivalent
+pipeline (`grain_pipeline.GrainBatches`); `decode_jpeg_raw` is
+`data/decode.py`'s. The host work
 is IO, JPEG decode and one resize to the working canvas; the augmentation
 runs on the device in the train step. `PrefetchIterator` is a copy of
 `pipeline.py:317`.
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from . import example as pb
-from .decode import decode_jpeg, decode_jpeg_eval
+from .decode import decode_jpeg, decode_jpeg_eval, decode_jpeg_raw  # noqa: F401  (decode_jpeg_raw: JAX's name here)
 from .jpeg import jpeg_size
 from .resize import remap_boxes_for_eval
 from .tfrecord import read_records, shard_for_worker
@@ -54,6 +56,7 @@ class PipelineConfig:
     max_boxes: int = 56
     shuffle: bool = True
     shuffle_buffer: int = 512
+    prefetch: int = 4  # read by nothing, as in the JAX package (PrefetchIterator has its own depth)
     keep_difficult: bool = False  # training drops difficult (with fallback)
     num_workers: int = 1
     worker_index: int = 0
@@ -71,6 +74,10 @@ class PipelineConfig:
     # threads); the decoder releases the GIL; order-preserving and equal to
     # serial. -1 = auto (min(8, cpu_count - 1)); 0/1 = serial.
     decode_workers: int = -1
+    # decode threads of the Grain-equivalent pipeline when > 0 (where JAX
+    # runs grain child processes); order-preserving: the batches are the
+    # same for any value
+    grain_workers: int = 0
 
 
 def parse_voc_example(record: bytes) -> Dict:

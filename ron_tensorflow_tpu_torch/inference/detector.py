@@ -6,8 +6,8 @@ Port of `ron_tensorflow_tpu/inference/detector.py`:
   eval_ron_network.py:224-236 + nets/ron_vgg_320.py:234-256
   `detected_bboxes`): binary objectness gate -> per-class select -> clip ->
   min-size filter -> (optional whole-image preselection, `shared_top_k`)
-  -> exact per-class top-k -> class-wise 'min'-mode NMS (K-A) ->
-  [B, C-1, keep_top_k].
+  -> exact per-class top-k -> class-wise 'min'-mode NMS (`nms_method`:
+  K-A or K-C) -> [B, C-1, keep_top_k].
 - `RealtimeDetector`, the realtime head that produced the published mAP
   (ref: ron_eval.py:428-594): score = objectness x class probability,
   argmax label, objectness gate 0.95 -> clip -> min-size and centre
@@ -19,6 +19,28 @@ Both heads take any detector module whose forward maps whitened images
 [B, H, W, 3] to `DetectorOutputs` (RON, SSD); SSD's constant objectness of
 1 passes the gates (the SSD eval preset sets its objectness threshold to 0,
 and `RealtimeConfig.for_spec` picks class-wise mode for it).
+
+The Detector's `nms_method` takes JAX's names (`detector.py:71`, `:246-310`),
+which are not the port's kernel names: JAX's 'fixpoint' is its XLA
+suppression fixpoint with the dividing predicate, which keeps what its
+sequential 'loop' keeps; the port's `method="fixpoint"` is K-A.
+
+| nms_method          | CUDA rows | CPU rows              |
+|---------------------|-----------|-----------------------|
+| 'loop', 'fixpoint'  | K-C       | K-C's plain version   |
+| 'pallas'            | K-A       | K-A's plain version   |
+| 'auto'              | K-A       | K-C's plain version   |
+
+K-C (`kernels.nms.nms_scan_keep_mask`) divides, `inter / denom >= t`, as
+JAX's 'loop' and 'fixpoint' do; K-A (`nms_fixpoint_keep_mask`) compares
+`inter >= t * denom`, as JAX's Pallas kernel does. The two can part on a
+pair whose overlap lies within one rounding of the threshold. JAX's
+'auto' runs the loop on the CPU and the Pallas kernel elsewhere, so the
+port's 'auto' runs K-C's plain version for CPU rows: then a CPU Detector
+keeps what JAX's CPU Detector keeps on such a pair too
+(tests/test_torch_nms_method.py holds one). The choice follows the rows'
+device, never a global default, on one device and in each rank of a mesh
+eval alike.
 """
 
 from __future__ import annotations
@@ -36,16 +58,18 @@ from ..ops import boxes as boxops
 from ..ops.decode import decode_boxes
 from ..ops.math import exact_top_k_chunked, flush_subnormal
 from ..ops.nms import TOPK_CHUNKS, nms_per_class, nms_sorted_with_labels, top_k_with_labels
+
+NMS_METHODS = ("auto", "loop", "fixpoint", "pallas")
 from ..ops.select import masked_class_scores, top_k_per_class
 
 
 @dataclasses.dataclass(frozen=True)
 class DetectionConfig:
     """Streaming-eval defaults (ref: eval_ron_network.py:64-75), and JAX's
-    selection knobs with its names and defaults (`detector.py:60-88`). NMS
-    runs the fixpoint keep-mask kernel for CUDA tensors and its plain
-    version for CPU tensors: the choice follows the tensors' device, never
-    a global default.
+    selection and NMS knobs with its names and defaults
+    (`detector.py:60-88`). `nms_method` picks the keep-mask kernel by the
+    module docstring's table; every method keeps the same set on rows with
+    no overlap at the threshold.
 
     Selection is exact for any `approx_top_k`: the field is kept so that
     JAX's configs load, and has no effect, as JAX's `lax.approx_max_k`
@@ -63,6 +87,10 @@ class DetectionConfig:
     # whole-row selection); 16 chunks of ~1330 anchors each sort faster on
     # the H100 than one sort of all 21 250 (PERF.md, Findings)
     topk_chunks: int = TOPK_CHUNKS
+    nms_method: str = "auto"  # 'auto' | 'loop' | 'fixpoint' | 'pallas'
+    # no effect: JAX's split into two XLA programs works around a libtpu
+    # crash; the port's forward and postprocess already run as separate calls
+    split_apply: bool = False
     # Whole-image preselection (0: off, the reference's semantics): one
     # top-K of each anchor's largest class probability behind the gate,
     # then every class selects among those K anchors only. An anchor outside
@@ -80,6 +108,8 @@ class Detector:
         config: DetectionConfig = DetectionConfig(),
         device="cuda",
     ):
+        if config.nms_method not in NMS_METHODS:
+            raise ValueError(f"unknown nms_method {config.nms_method!r}; options: {NMS_METHODS}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.spec = spec
@@ -131,11 +161,20 @@ class Detector:
             top_boxes = torch.nn.functional.pad(top_boxes, (0, 0, 0, pad))
         return top_scores.reshape(b * c, -1), top_boxes.reshape(b * c, -1, 4)
 
+    def keep_mask_kernel(self, rows: torch.Tensor) -> str:
+        """The port's keep-mask method for `nms_method` on rows on
+        `rows.device`: 'fixpoint' (K-A) or 'scan' (K-C)."""
+        method = self.config.nms_method
+        if method == "auto":
+            method = "pallas" if rows.device.type == "cuda" else "loop"
+        return "fixpoint" if method == "pallas" else "scan"
+
     def postprocess(self, out: DetectorOutputs) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         b, c = out.predictions.shape[0], out.predictions.shape[-1] - 1
         flat_s, flat_b = self.candidates(out)
-        s, bx = nms_sorted_kernel(flat_s, flat_b, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode)
+        s, bx = nms_sorted_kernel(flat_s, flat_b, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode,
+                                  method=self.keep_mask_kernel(flat_s))
         return s.reshape(b, c, -1), bx.reshape(b, c, -1, 4)
 
 

@@ -39,7 +39,8 @@ def get_spec(name: str):
 def get_network(name: str, dtype: torch.dtype = torch.float32, **kwargs):
     """Model registry (`ron_tensorflow_tpu/models/__init__.py::get_network`):
     name -> (module, DetectorSpec). `kwargs` go to the module: `RON`'s
-    (fuse_block1, bn_fast_normalize) or `SSD`'s (fuse_block1, dropout_rate).
+    (fuse_block1, s2d_stem, remat_blocks12, bn_fast_normalize) or `SSD`'s
+    (fuse_block1, s2d_stem, dropout_rate).
     The reference's *_caffe entries differ only in how their weights were
     first seeded, so they name the same two SSD architectures."""
     spec = get_spec(name)

@@ -33,6 +33,16 @@ from ..parallel.collectives import Group, all_reduce_sum, gather_channels, group
 BN_MOMENTUM = 0.997  # ref: nets/ron_vgg_320.py:618 (decay)
 BN_EPSILON = 1e-5  # ref: nets/ron_vgg_320.py:619
 
+# Process-wide `fast_normalize` for every BatchNorm, JAX's switch
+# (`layers.py:27-37`); a module's own `fast_normalize` (`RON(bn_fast_normalize=)`,
+# `TrainConfig.bn_fast_normalize`) turns it on for that model alone.
+_BN_FAST_NORMALIZE = False
+
+
+def set_bn_fast_normalize(enabled: bool) -> None:
+    global _BN_FAST_NORMALIZE
+    _BN_FAST_NORMALIZE = bool(enabled)
+
 
 def _same_pads(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, int]:
     """(before, after) zero padding of XLA's 'SAME' along one axis."""
@@ -52,12 +62,13 @@ class BatchNorm(nn.Module):
     biased `var = max(mean2 - mean^2, 0)`; gradients flow through both. The
     running statistics follow `ra = 0.997 ra + 0.003 stat`, in place, under
     `no_grad` (not `F.batch_norm`, whose running variance is the unbiased
-    one and whose momentum is the complement). With `fast_normalize` and a
-    non-f32 activation, the normalize runs as one scale/shift in the
-    activation dtype (`_BN_FAST_NORMALIZE`, `layers.py:27-37`); f32 ignores
-    it. With a `data_group`, `[mean, mean2]` are averaged over the group's
-    ranks in one all-reduce (their gradients summed back over it), so the
-    statistics, and the running ones, are the global batch's on every rank."""
+    one and whose momentum is the complement). With `fast_normalize` (or
+    `set_bn_fast_normalize(True)`) and a non-f32 activation, the normalize
+    runs as one scale/shift in the activation dtype (`layers.py:27-37`);
+    f32 ignores it. With a `data_group`, `[mean, mean2]` are averaged over
+    the group's ranks in one all-reduce (their gradients summed back over
+    it), so the statistics, and the running ones, are the global batch's on
+    every rank."""
 
     def __init__(self, features: int, eps: float = BN_EPSILON, momentum: float = BN_MOMENTUM):
         super().__init__()
@@ -85,7 +96,7 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
             self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
-        if self.fast_normalize and x.dtype != torch.float32:
+        if (self.fast_normalize or _BN_FAST_NORMALIZE) and x.dtype != torch.float32:
             s = self.weight / torch.sqrt(var + self.eps)
             b = self.bias - mean * s
             return x * s.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]

@@ -124,6 +124,9 @@ class RON(nn.Module):
     backbone_variant: the VGG fc variant, 'reduced' or 'heavy'.
     dtype: compute dtype; parameters stay float32 and are cast per call.
     fuse_block1: run VGG block 1 through the fused CUDA kernel.
+    s2d_stem: run it as the phase-output stem (`vgg.s2d_block1`).
+    remat_blocks12: recompute VGG blocks 1-2 in the backward.
+    At most one of these three is on (`vgg.check_block1_forms`).
     bn_fast_normalize: in train mode, normalize a bf16 activation with one
     scale/shift in bf16 (`BatchNorm.fast_normalize`; `TrainConfig`'s
     `bn_fast_normalize`)."""
@@ -135,11 +138,14 @@ class RON(nn.Module):
         fuse_block1: bool = False,
         bn_fast_normalize: bool = False,
         backbone_variant: str = "reduced",
+        s2d_stem: bool = False,
+        remat_blocks12: bool = False,
     ):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
-        self.backbone = VGG16Backbone(fuse_block1=fuse_block1, variant=backbone_variant)
+        self.backbone = VGG16Backbone(fuse_block1=fuse_block1, variant=backbone_variant, s2d_stem=s2d_stem,
+                                      remat_blocks12=remat_blocks12)
         channels = _endpoint_channels(backbone_variant)
         for i, layer in enumerate(spec.feat_layers):
             a = spec.num_anchors_per_cell(i)

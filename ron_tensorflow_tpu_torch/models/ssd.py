@@ -23,8 +23,8 @@ from torch import nn
 from .. import full_f32_convs
 from .layers import Conv, Dropout, L2Normalization, max_pool_3x3_s1, pad2d
 from .ron import DetectorOutputs, _flatten_head
-from .spec import SSD_300_SPEC, DetectorSpec
-from .vgg import add_vgg16_convs, vgg16_block1, vgg16_body
+from .spec import SSD_300_SPEC, SSD_512_SPEC, DetectorSpec  # noqa: F401  (SSD_512_SPEC: JAX defines it here)
+from .vgg import add_vgg16_convs, check_block1_forms, vgg16_block1, vgg16_body
 
 # Channels of each feature layer a multibox head reads.
 _FEATURE_CHANNELS = {"block4": 512, "block7": 1024, "block8": 512, "block9": 256, "block10": 256,
@@ -70,7 +70,9 @@ class SSD(nn.Module):
 
     dropout_rate: of the two train-mode dropouts (after conv6 and conv7).
     dtype: compute dtype; parameters stay float32 and are cast per call.
-    fuse_block1: run VGG block 1 through the fused CUDA kernel (K-B)."""
+    fuse_block1: run VGG block 1 through the fused CUDA kernel (K-B).
+    s2d_stem: run it as the phase-output stem (`vgg.s2d_block1`); not
+    together with fuse_block1."""
 
     def __init__(
         self,
@@ -78,11 +80,14 @@ class SSD(nn.Module):
         dtype: torch.dtype = torch.float32,
         fuse_block1: bool = False,
         dropout_rate: float = 0.5,
+        s2d_stem: bool = False,
     ):
         super().__init__()
+        check_block1_forms(fuse_block1, s2d_stem)
         self.spec = spec
         self.dtype = dtype
         self.fuse_block1 = fuse_block1
+        self.s2d_stem = s2d_stem
         self.is_512 = spec.name == "ssd_512_vgg"
         add_vgg16_convs(self)
         self.conv6 = Conv(512, 1024, dilation=(6, 6))
@@ -110,7 +115,8 @@ class SSD(nn.Module):
 
     def _forward(self, images, train: bool, generator, rows) -> DetectorOutputs:
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        x, end_points = vgg16_body(self, vgg16_block1(self, x, self.fuse_block1), last_pool=max_pool_3x3_s1)
+        x = vgg16_block1(self, x, self.fuse_block1, self.s2d_stem)
+        x, end_points = vgg16_body(self, x, last_pool=max_pool_3x3_s1)
         x = self.conv6(x)
         end_points["block6"] = x
         x = self.conv7(self.dropout(x, train, generator, rows))

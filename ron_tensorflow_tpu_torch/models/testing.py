@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..weights import jax_names, to_jax_layout
+from .spec import RON_TINY_SPEC  # noqa: F401  (defined here in the JAX package)
 
 
 def seeded_flax_params(model: torch.nn.Module, seed: int, gain: float = 1.0, bn_mean_std: float = 0.1

@@ -1,5 +1,5 @@
 """Small math utilities: the losses' elementwise terms, exact top-k with
-`lax.top_k`'s tie order, and subnormal flushing.
+`lax.top_k`'s tie order, subnormal flushing and the cumulative maximum.
 
 Port of `ron_tensorflow_tpu/ops/math.py`. In `exact_top_k_chunked` ties go
 to the smallest index, as `lax.top_k` does (`math.py:60-67`). `torch.topk`
@@ -80,3 +80,11 @@ def abs_smooth(x):
     (ref: nets/custom_layers.py:51-63)."""
     absx = x.abs()
     return 0.5 * ((absx - 1.0) * torch.clamp(absx, max=1.0) + absx)
+
+
+def cummax(x: torch.Tensor, reverse: bool = False, axis: int = 0) -> torch.Tensor:
+    """Cumulative maximum along `axis`, from the end with `reverse`
+    (`math.py:21-23`; ref: tf_extended/math.py:41-67)."""
+    if reverse:
+        return torch.cummax(x.flip(axis), dim=axis).values.flip(axis)
+    return torch.cummax(x, dim=axis).values

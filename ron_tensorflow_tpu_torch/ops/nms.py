@@ -1,13 +1,16 @@
 """Fixed-shape greedy non-max suppression over batched rows.
 
-Port of `ron_tensorflow_tpu/ops/nms.py`: the score sort, the whole-image
-NMS with labels of the realtime head (`nms_with_labels`) and class-wise
-NMS (`nms_per_class`). Every keep mask here is K-C,
+Port of `ron_tensorflow_tpu/ops/nms.py`: the score sort, greedy NMS of
+score-sorted rows (`nms_sorted`, `nms_sorted_fixpoint`) and of unsorted
+ones (`nms`), the whole-image NMS with labels of the realtime head
+(`nms_with_labels`) and class-wise NMS (`nms_per_class`). Every keep mask
+here is K-C,
 `kernels.nms.nms_scan_keep_mask`: the capped greedy scan with the dividing
 predicate `inter / denom >= t` (0 where denom <= 0) of `overlap_matrix`,
 the predicate of every NMS these functions replace. It runs the CUDA
 kernel for a CUDA tensor and its plain version for a CPU tensor. Rows are
-[R, K]: the JAX functions take one row and are vmapped.
+[R, K]: the JAX functions take one row and are vmapped. `nms_sorted`,
+`nms_sorted_fixpoint` and `nms` take one row [K] as well, as JAX's do.
 """
 
 from __future__ import annotations
@@ -63,6 +66,40 @@ def sort_by_score(scores: torch.Tensor, boxes: torch.Tensor, top_k: int):
         s = torch.nn.functional.pad(s, (0, top_k - k))
         b = torch.nn.functional.pad(b, (0, 0, 0, top_k - k))
     return s, b
+
+
+def _one_row_or_rows(fn, scores, boxes, *args):
+    """fn over rows [R, K] / [R, K, 4]; a single row [K] / [K, 4] goes
+    through as one row and comes back without the row axis."""
+    if scores.dim() == 1:
+        return tuple(t[0] for t in fn(scores[None], boxes[None], *args))
+    return fn(scores, boxes, *args)
+
+
+def nms_sorted(scores, boxes, nms_threshold: float = 0.5, keep_top_k: int = 200, mode: str = "min"):
+    """Greedy NMS over score-sorted candidates (`ops/nms.py:67-111`): a
+    candidate is taken where its score is > 0, it is not suppressed and
+    fewer than keep_top_k are kept; a taken one suppresses each later one
+    whose overlap is >= nms_threshold. scores [K] or [R, K], boxes [K, 4]
+    or [R, K, 4] -> (scores [(R,) keep_top_k], boxes [(R,) keep_top_k, 4]),
+    zero-padded, in score order. K-C's keep mask."""
+    return _one_row_or_rows(nms_per_class, scores, boxes, nms_threshold, keep_top_k, mode)
+
+
+def nms_sorted_fixpoint(scores, boxes, nms_threshold: float = 0.5, keep_top_k: int = 200, mode: str = "min"):
+    """JAX's suppression-fixpoint NMS (`ops/nms.py:114-158`), which keeps
+    exactly what `nms_sorted` keeps: the uncapped fixpoint with the
+    dividing predicate, then the cap, gives the capped greedy scan's set.
+    So it is `nms_sorted`, K-C's keep mask."""
+    return nms_sorted(scores, boxes, nms_threshold, keep_top_k, mode)
+
+
+def nms(scores, boxes, nms_threshold: float = 0.5, top_k: int = 400, keep_top_k: int = 200, mode: str = "min"):
+    """Sort + greedy NMS, for unsorted candidates (`ops/nms.py:161-165`):
+    scores [N] or [R, N], boxes [N, 4] or [R, N, 4] ->
+    [(R,) keep_top_k(, 4)]."""
+    return _one_row_or_rows(
+        lambda s, b: nms_per_class(*sort_by_score(s, b, top_k), nms_threshold, keep_top_k, mode), scores, boxes)
 
 
 def top_k_with_labels(scores, labels, boxes, valid, top_k: int = 400):

@@ -72,7 +72,10 @@ input, each step's record keys (indices into the shards' records) go to
 of several processes), one line a step, appended across restarts: what a
 resumed run read can be checked against an unbroken run.
 
-Not ported, and raising: `s2d_stem`.
+`s2d_stem` runs block 1 as the phase-output stem (`models/vgg.py::
+s2d_block1`) where `s2d_stem_supported` takes the model's shape, and wins
+over `fuse_block1`; on another shape the model stays plain, as in the JAX
+trainer (trainer.py:79-83).
 """
 
 from __future__ import annotations
@@ -94,6 +97,7 @@ from ..data.tfrecord import list_shards
 from ..kernels import fused_block1_supported
 from ..losses.ssd import SsdLossConfig
 from ..models import get_network, get_spec, shard_model
+from ..models.vgg import s2d_stem_supported
 from ..ops.encode import TargetEncoder
 from ..parallel.collectives import barrier, broadcast_int
 from ..parallel.mesh import make_mesh, sharded_names, world_size
@@ -144,9 +148,6 @@ class Trainer:
     this rank's (the CLI gives `cuda:LOCAL_RANK`)."""
 
     def __init__(self, config: TrainConfig, device="cuda"):
-        if config.s2d_stem:
-            raise NotImplementedError("not ported yet: s2d_stem (measured slower on the TPU; to port only after "
-                                      "a measurement on the card)")
         self.config = config
         self.device = resolve_device(device)
         self.rank, self.n_proc = process_info()
@@ -155,10 +156,12 @@ class Trainer:
         dtype = torch.bfloat16 if config.bfloat16 else torch.float32
         ssd = config.model.startswith("ssd")
         spec = get_spec(config.model)
-        fuse = (config.fuse_block1 and config.bfloat16 and self.device.type == "cuda"
+        # s2d_stem wins over fuse_block1; on a shape it does not take, block 1 stays plain (trainer.py:79-83)
+        s2d = config.s2d_stem and s2d_stem_supported(*spec.img_shape)
+        fuse = (not config.s2d_stem and config.fuse_block1 and config.bfloat16 and self.device.type == "cuda"
                 and fused_block1_supported(*spec.img_shape))
         kwargs = {} if ssd else {"bn_fast_normalize": config.bn_fast_normalize}
-        self.model, self.spec = get_network(config.model, dtype=dtype, fuse_block1=fuse, **kwargs)
+        self.model, self.spec = get_network(config.model, dtype=dtype, fuse_block1=fuse, s2d_stem=s2d, **kwargs)
         self.encoder = TargetEncoder(spec.anchor_layout(), spec.img_shape, config.match.positive_threshold,
                                      config.match.ignore_threshold, spec.prior_scaling)
         self.tx = make_optimizer(config.optimizer, self.model)

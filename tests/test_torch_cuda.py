@@ -360,6 +360,32 @@ def test_f32_model_ignores_the_tf32_flag(cuda):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("method", ["auto", "loop", "fixpoint", "pallas"])
+def test_detector_nms_method_launches_its_kernel(cuda, method):
+    """The tiny RON's outputs through the Detector on the card: 'pallas'
+    and 'auto' launch K-A, JAX's 'loop' and 'fixpoint' K-C, once a call and
+    nothing else; the detections equal the CPU Detector's with the same
+    kernel's plain version on the same outputs."""
+    torch.manual_seed(0)
+    model = RON(RON_TINY_SPEC).to(cuda).eval()
+    images = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1)).to(cuda) * 50
+    det = Detector(model, RON_TINY_SPEC, DetectionConfig(nms_method=method, objectness_threshold=0.0), device="cuda")
+    with torch.inference_mode():
+        out = det.model(images)
+        kernels.reset_launch_counts()
+        got = [t.cpu() for t in det.postprocess(out)]
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        cpu_cfg = DetectionConfig(nms_method="pallas" if method == "auto" else method, objectness_threshold=0.0)
+        ref = Detector(RON(RON_TINY_SPEC), RON_TINY_SPEC, cpu_cfg, device="cpu").postprocess(
+            type(out)(*(t.cpu() for t in out)))
+    assert launched == ({"nms_fixpoint_keep_mask": 1} if method in ("auto", "pallas") else {"nms_scan_keep_mask": 1})
+    assert bool((got[0] > 0).any())
+    assert torch.equal((got[0] > 0).sum(-1), (ref[0] > 0).sum(-1))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     scores, boxes = (t.to(cuda) for t in sorted_rows(0, 2, 8))
     with pytest.raises(TypeError):
@@ -552,7 +578,7 @@ def test_ssd300_fused_block1_through_the_detector_on_card(cuda):
     params, _ = seeded_flax_params(model, seed=3)
     model.load_state_dict(from_jax_params(params, {}), strict=True)
     cfg = DetectionConfig(select_threshold=0.01, objectness_threshold=0.0, top_k=400, keep_top_k=200,
-                          nms_threshold=0.45)
+                          nms_threshold=0.45, nms_method="pallas")
     det = Detector(model, spec, cfg, device="cuda")
     images = (torch.rand(2, 300, 300, 3, generator=torch.Generator().manual_seed(4)) * 255 - 120).to(cuda)
     kernels.reset_launch_counts()

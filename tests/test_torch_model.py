@@ -175,7 +175,7 @@ def test_tiny_pixels_to_boxes_match_jax_detector(tiny):
     jdet = JaxDetector(jmodel, JAX_TINY_SPEC, JaxDetectionConfig(nms_method="pallas"))
     with jax.default_matmul_precision("highest"):
         ref_s, ref_b = (np.asarray(a) for a in jdet(jvars, jnp.asarray(images)))
-    det = Detector(model, RON_TINY_SPEC, DetectionConfig(), device="cpu")
+    det = Detector(model, RON_TINY_SPEC, DetectionConfig(nms_method="pallas"), device="cpu")
     got_s, got_b = (t.numpy() for t in det(images))
     assert got_s.shape == ref_s.shape and got_b.shape == ref_b.shape
     ref_n, got_n = (ref_s > 0).sum(-1), (got_s > 0).sum(-1)
@@ -187,17 +187,21 @@ def test_tiny_pixels_to_boxes_match_jax_detector(tiny):
 
 @pytest.mark.parametrize("method", ["loop", "fixpoint"])
 def test_tiny_nms_methods_agree(tiny, method):
-    """The port's Detector (division-free NMS predicate) against the JAX
-    Detector's plain NMS paths, which divide: the same keep sets here."""
+    """The port's Detector under JAX's plain NMS methods (K-C's plain
+    version, which divides) against the JAX Detector's, which divide too;
+    and the port's 'pallas' (K-A's plain version, division-free) keeps the
+    same sets here."""
     jmodel, jvars, model, pixels = tiny
     images = _whitened(pixels)
     jdet = JaxDetector(jmodel, JAX_TINY_SPEC, JaxDetectionConfig(nms_method=method))
     with jax.default_matmul_precision("highest"):
         ref_s, ref_b = (np.asarray(a) for a in jdet(jvars, jnp.asarray(images)))
-    got_s, got_b = (t.numpy() for t in Detector(model, RON_TINY_SPEC, DetectionConfig(), device="cpu")(images))
-    np.testing.assert_array_equal((got_s > 0).sum(-1), (ref_s > 0).sum(-1))
-    np.testing.assert_allclose(got_s, ref_s, rtol=0, atol=1e-5)
-    np.testing.assert_allclose(got_b, ref_b, rtol=0, atol=1e-5)
+    for port_method in (method, "pallas"):
+        det = Detector(model, RON_TINY_SPEC, DetectionConfig(nms_method=port_method), device="cpu")
+        got_s, got_b = (t.numpy() for t in det(images))
+        np.testing.assert_array_equal((got_s > 0).sum(-1), (ref_s > 0).sum(-1))
+        np.testing.assert_allclose(got_s, ref_s, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got_b, ref_b, rtol=0, atol=1e-5)
 
 
 def test_entry_point_defaults_to_cuda(tiny):

@@ -169,13 +169,13 @@ def test_prefetch_iterator_passes_batches_and_errors(shards):
 
 
 def test_config_fields_match_jax():
+    """Every field of JAX's, `prefetch` and `grain_workers` included, with
+    the same defaults."""
     import dataclasses
 
-    """Every field of JAX's but `prefetch` (read by nothing) and
-    `grain_workers` (the Grain pipeline's), with the same defaults."""
     got = {f.name: f.default for f in dataclasses.fields(pipeline.PipelineConfig)}
     want = {f.name: f.default for f in dataclasses.fields(jax_pipeline.PipelineConfig)}
-    assert got == {k: v for k, v in want.items() if k not in ("prefetch", "grain_workers")}
+    assert got == want
 
 
 def test_make_batches_first_batch_matches_the_card_reference(tmp_path):

@@ -52,7 +52,7 @@ def detections_match_jax(tiny, outputs, **knobs):
     jdet = JaxDetector(jmodel, JAX_TINY_SPEC, JaxDetectionConfig(nms_method="pallas", **cfg))
     ref_s, ref_b = (np.asarray(a) for a in jax.jit(jdet.postprocess)(ref_out))
     with torch.inference_mode():
-        det = Detector(model, RON_TINY_SPEC, DetectionConfig(**cfg), device="cpu")
+        det = Detector(model, RON_TINY_SPEC, DetectionConfig(nms_method="pallas", **cfg), device="cpu")
         got_s, got_b = (t.numpy() for t in det.postprocess(got_out))
     assert got_s.shape == ref_s.shape and got_b.shape == ref_b.shape
     ref_n = (ref_s > 0).sum(-1)

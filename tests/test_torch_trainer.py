@@ -179,8 +179,9 @@ def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(tiny_config(tmp_path))
-    with pytest.raises(NotImplementedError, match="s2d_stem"):
-        Trainer(tiny_config(tmp_path, s2d_stem=True), device="cpu")
+    # s2d_stem is ported: it constructs, and wins over fuse_block1 (JAX trainer.py:79-83)
+    t = Trainer(tiny_config(tmp_path, s2d_stem=True, fuse_block1=True), device="cpu")
+    assert t.model.backbone.s2d_stem and not t.model.backbone.fuse_block1
     # a mesh over more ranks than the run has (one process here) raises JAX's message
     with pytest.raises(ValueError, match=r"mesh shape \(2, 1\) needs 2 devices, have 1"):
         Trainer(tiny_config(tmp_path, mesh_shape=(2, 1)), device="cpu")
