@@ -14,7 +14,12 @@ Phases, each ending with a line that gives its elapsed seconds:
               4096 rows, a NaN first score, keep_top_k 0, disjoint boxes
               (all kept), identical ones (one kept) and overlaps within a
               few ulps of the threshold; conv: ragged tiles, f32 and bf16
-              inputs);
+              inputs); then K-A and K-C on rows wider than MAX_K (the
+              kernel's wide-row path): seeded [2, 8732] and [2, 21250]
+              rows, 'min' and 'union', K-C capped at 20 and 200, each mask
+              bit-equal to its plain version (K-A's run a row at a time and
+              freed), each launch's device ms (torch.profiler) beside its
+              bound;
   4. main     full-width RON-320 with the trained weights packed in
               tests/fixtures/e2e_parity_trained.npz, pixels to boxes:
               (a) float32, TF32 off, against the fixture's reference
@@ -278,6 +283,23 @@ Phases, each ending with a line that gives its elapsed seconds:
               through a Detector with shared_top_k=1000, the card (K-A)
               against the CPU (plain version) on the four images: keep
               counts equal, scores and boxes within 2e-3.
+ 32. images   in a child process in which `import PIL` and `import cv2`
+              fail: (a) the PNGs and progressive JPEGs of
+              tests/fixtures/image_formats decode, route by route ("cv2" for
+              the pipeline and the realtime evaluator, "pil" for `infer`),
+              to the stored digests of cv2's and PIL's decodes; (b) `cli
+              infer`, f32 RON-320 with the trained weights, on two fixture
+              PNGs and two progressive JPEGs: K-C once an image and no
+              other kernel, four pictures read back, the detections
+              bit-equal to RealtimeDetector called directly; (c) the f32
+              RON-320 Detector at batch 2 with top_k 21250 (every anchor):
+              K-A once on [40, 21250] rows, its mask bit-equal to the plain
+              version run a row at a time and the detections equal, the
+              postprocess's peak memory far below one [R, K, K] tensor; the
+              realtime head with top_k 21250 the same with K-C on [2,
+              21250]; (d) two Trainer steps with dump_debug_images_every=1
+              and TensorBoard: two debug JPEGs and two TensorBoard PNGs that
+              the port's decoders read.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -304,6 +326,10 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
+
+if __name__ == "__main__" and sys.argv[1:] == ["--images"]:
+    # phase "images" runs in a process where PIL and cv2 cannot be imported, whatever the host has
+    sys.modules["PIL"] = sys.modules["cv2"] = None
 
 import numpy as np
 import torch
@@ -707,6 +733,71 @@ def check_kernels(block1_weights):
         worst = max(worst, block1_err(str(list(shape) + [3]), got, ref))
     errs["fused_vgg_block1"] = worst
     return errs
+
+
+# SSD-300's and RON-320's anchors (a top_k at every anchor gives such rows), each with the mode K-C
+# runs there: SSD's class-wise 'min' rows, the realtime head's whole-image 'union' rows. K-A runs both.
+WIDE_K = {8732: "min", 21250: "union"}
+WIDE_CAPS = (20, 200)  # K-C's caps on them: the realtime head's keep_top_k and the class-wise keep_top_k
+WIDE_REPS = 5  # profiled launches of each wide-row call
+
+
+def timed_once(fn):
+    """(fn's result, its milliseconds on the card by CUDA events, one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def wide_nms_part(name, scores, boxes, thr, mode, cap, plain):
+    """One wide-row call of K-A (cap None) or K-C against its plain version:
+    0 mask differences, then the launch's device time beside its bound."""
+    if cap is None:
+        fn = lambda: kernels.nms_fixpoint_keep_mask(scores, boxes, thr, mode)  # noqa: E731
+    else:
+        fn = lambda: kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)  # noqa: E731
+    keep = fn()
+    ref, plain_ms = timed_once(plain)
+    err, n_diff = mask_err(keep, ref)
+    del ref
+    r, k = scores.shape
+    if n_diff:
+        raise AssertionError(f"{name} on wide rows [{r},{k}] {mode} (keep_top_k {cap}): {n_diff} mask differences")
+    ms, seen = device_ms(fn, reps=WIDE_REPS)
+    pairs = sweep_pairs(scores, boxes, thr, mode, keep, dividing=cap is not None)
+    bound_ms, bound_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
+    part = {"rows": [r, k], "mode": mode, "keep_top_k": cap, "ms": ms, "launches_profiled": seen,
+            "plain_ms": plain_ms, "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            **kept_stats(keep)}
+    print(f"  {name} wide rows [{r},{k}] {mode}{'' if cap is None else f', keep_top_k {cap}'}: 0 mask differences, "
+          f"{ms:.4f} ms device a launch, bound {bound_ms:.4g} ms by {bound_by} ({pairs} overlaps needed), plain "
+          f"{plain_ms:.1f} ms; kept per row mean {part['kept_mean']:.1f}, max {part['kept_max']}", flush=True)
+    return part
+
+
+def check_wide_rows():
+    """Phase 3, rows of more than MAX_K candidates (the kernel's wide-row
+    path): seeded [2, 8732] and [2, 21250] rows, K-A in 'min' and 'union'
+    mode (against its plain version a row at a time) and K-C capped at 20
+    and 200 in WIDE_K's mode (its plain version takes K steps of ~0.5 ms),
+    each mask bit-equal; each launch's device time beside its bound."""
+    out = {"nms_fixpoint_keep_mask": [], "nms_scan_keep_mask": []}
+    for k, scan_mode in WIDE_K.items():
+        scores, boxes = sorted_rows(k + 11, 2, k)
+        for mode in ("min", "union"):
+            out["nms_fixpoint_keep_mask"].append(wide_nms_part(
+                "nms_fixpoint_keep_mask", scores, boxes, NMS_CFG.nms_threshold, mode, None,
+                lambda: kernels.nms_fixpoint_keep_mask_plain(scores, boxes, NMS_CFG.nms_threshold, mode)))
+            for cap in WIDE_CAPS if mode == scan_mode else ():
+                out["nms_scan_keep_mask"].append(wide_nms_part(
+                    "nms_scan_keep_mask", scores, boxes, NMS_CFG.nms_threshold, mode, cap,
+                    lambda: kernels.nms_scan_keep_mask_plain(scores, boxes, NMS_CFG.nms_threshold, cap, mode)))
+        del scores, boxes
+        torch.cuda.empty_cache()
+    return out
 
 
 def f32_parity(state, images, flags):
@@ -2323,7 +2414,7 @@ def nms_part(label, scores, boxes, thr, mode, cap=None):
     if n_diff:
         raise AssertionError(f"NMS on {label}: {n_diff} mask differences")
     r, k = scores.shape
-    pairs = greedy_pairs(keep)
+    pairs = sweep_pairs(scores, boxes, thr, mode, keep, dividing=cap is not None)
     bound_ms, bound_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
     part = {"rows": [r, k], "mode": mode, "keep_top_k": cap, **nms_times(fn), "plain_ms": cuda_ms(plain, reps=2),
             "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, **kept_stats(keep)}
@@ -3812,6 +3903,223 @@ def bench_shared_top_k(state, images):
     return {"detections": n, "max_abs_diff": worst}
 
 
+IMAGE_FORMATS = REPO / "tests" / "fixtures" / "image_formats"
+IMAGES_TIMEOUT = 300  # seconds for the images process
+WIDE_TOP_K = 21250  # RON-320's anchors: the Detector's and the realtime head's rows of every anchor
+# the realtime head on those rows with no score or objectness threshold (every anchor whose argmax
+# is an object class valid) and up to 200 kept
+RT_WIDE = RealtimeConfig(top_k=WIDE_TOP_K, select_threshold=0.0, objectness_threshold=0.0, keep_top_k=200)
+IMAGES_TRAIN_STEPS = 2
+
+
+def images_decode(digests):
+    """Phase "images" (a): each fixture PNG and progressive JPEG through the
+    port's decoders, route "cv2" (the pipeline's, the realtime evaluator's)
+    and route "pil" (`infer`'s), against the stored digests of cv2's and
+    PIL's decodes."""
+    parted = []
+    for name, want_pil, want_cv2 in zip(digests["names"], digests["pil"], digests["cv2"]):
+        data = (IMAGE_FORMATS / name).read_bytes()
+        got = {route: decode.decode_image(data, route) for route in ("cv2", "pil")}
+        if tuple(hashlib.sha256(got[r].tobytes()).hexdigest() for r in ("cv2", "pil")) != (want_cv2, want_pil):
+            raise AssertionError(f"{name}: the port's decodes differ from the stored cv2/PIL digests")
+        if want_cv2 != want_pil:
+            parted.append(str(name))
+    print(f"  {len(digests['names'])} fixture images (PNG of every colour type and depth, Adam7, palette + tRNS; "
+          f"progressive JPEG 4:2:0, 4:4:4, gray, restart markers, odd size) equal to cv2's and PIL's decodes by "
+          f"digest, route by route; the routes part on {parted}", flush=True)
+    if parted != ["gray16.png"]:
+        raise AssertionError(f"the cv2 and PIL routes part on {parted}, expected the 16-bit gray PNG only")
+    return {"files": len(digests["names"]), "routes_part_on": parted}
+
+
+def images_infer(model_dir, digests, tmp):
+    """Phase "images" (b): `cli infer`, f32 RON-320 with the trained weights,
+    on two fixture PNGs and two progressive JPEGs: K-C once an image and no
+    other kernel, four pictures that the port's decoder reads back, the
+    detections bit-equal to RealtimeDetector called directly on the same
+    decoded (PIL's route), resized and whitened images."""
+    paths = [str(IMAGE_FORMATS / n) for n in list(digests["infer_pngs"]) + list(digests["infer_jpegs"])]
+    results, out_dir = [], tmp / "infer_formats"
+    real = cli_infer_images
+    kernels.reset_launch_counts()
+    with mock.patch("ron_tensorflow_tpu_torch.cli.infer_images", lambda *a, **k: results.append(real(*a, **k))
+                    or results[-1]):
+        _, printed = quietly(lambda: cli_main(["--device", CARD, "infer", "--model-dir", model_dir, "--output-dir",
+                                               str(out_dir), *paths]))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_counts("CLI infer on PNG and progressive JPEG", launches, ("nms_scan_keep_mask",))
+    if launches["nms_scan_keep_mask"] != len(paths):
+        raise AssertionError(f"K-C launched {launches['nms_scan_keep_mask']} times for {len(paths)} images")
+    got = results[0]
+    pictures = sorted(out_dir.glob("*.jpg"))
+    if len(got) != len(paths) or len(pictures) != len(paths) or len(printed) != len(paths):
+        raise AssertionError(f"infer: {len(got)} results, {len(pictures)} pictures, {len(printed)} lines")
+    for pic in pictures:
+        if decode.decode_image(pic.read_bytes()).shape != (*RON_320_SPEC.img_shape, 3):
+            raise AssertionError(f"{pic}: not a {RON_320_SPEC.img_shape} picture")
+    model, spec = get_network("ron_320_vgg")
+    restore_for_eval(model, model_dir)
+    det = RealtimeDetector(model, spec, RealtimeConfig.for_spec(spec, objectness_threshold=0.95), device=CARD)
+    for path, scores, labels, boxes, _ in got:
+        raw = decode.decode_image(Path(path).read_bytes(), "pil")
+        img = whiten(torch.from_numpy(tf1_bilinear_resize(raw, spec.img_shape) / 255.0).to(CARD))[None]
+        sc, lab, b, v = (t[0].cpu().numpy() for t in det(img))
+        if not (np.array_equal(sc[v], scores) and np.array_equal(lab[v], labels) and np.array_equal(b[v], boxes)):
+            raise AssertionError(f"infer's detections on {path} differ from RealtimeDetector's")
+    counts = [len(r[1]) for r in got]
+    print(f"  cli infer on {[Path(p).name for p in paths]}: detections {counts}, K-C {launches['nms_scan_keep_mask']} "
+          f"launches and no other kernel, {len(pictures)} pictures read back, equal bit for bit to RealtimeDetector "
+          "called directly", flush=True)
+    return {"launches": launches, "detections": counts}
+
+
+def wide_detector_rows(images):
+    """Phase "images" (c): the f32 RON-320 Detector (trained weights) at batch
+    2 with top_k = 21250, every anchor, and the realtime head with the same
+    top_k: K-A launched once on [40, 21250] rows, K-C once on [2, 21250],
+    counted around each call, no other kernel; each mask bit-equal to its
+    plain version on the same rows (K-A's a row at a time), and the call's
+    peak memory far below one [R, K, K] tensor (R K^2 bytes)."""
+    model, spec = get_network("ron_320_vgg")
+    model.load_state_dict(from_jax_params(*load_trained_fixture(str(TRAINED_FIXTURE))), strict=True)
+    batch = images[:2].contiguous()
+    out = {}
+    for name, det, kernel in (
+        ("Detector", Detector(model, spec, dataclasses.replace(NMS_CFG, top_k=WIDE_TOP_K), device=CARD),
+         "nms_fixpoint_keep_mask"),
+        ("realtime head", RealtimeDetector(model, spec, RT_WIDE, device=CARD), "nms_scan_keep_mask"),
+    ):
+        with torch.inference_mode():
+            net_out = det.model(batch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            dets = det.postprocess(net_out)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            check_counts(f"{name}, top_k {WIDE_TOP_K}", launches, (kernel,))
+            if launches[kernel] != 1:
+                raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times")
+            rows = det.candidates(net_out)
+            if kernel == "nms_fixpoint_keep_mask":
+                scores, boxes = rows[0].contiguous(), rows[1].contiguous()
+                cfg = det.config
+                keep = kernels.nms_fixpoint_keep_mask(scores, boxes, cfg.nms_threshold, cfg.nms_mode)
+                ref = kernels.nms_fixpoint_keep_mask_plain(scores, boxes, cfg.nms_threshold, cfg.nms_mode)
+                want = compact_keep(ref, scores, boxes, cfg.keep_top_k)
+                got = [t.reshape(-1, cfg.keep_top_k, *t.shape[3:]) for t in dets]
+            else:
+                scores, boxes = rows[3].to(torch.float32), rows[2].contiguous()
+                cfg = det.config
+                keep = kernels.nms_scan_keep_mask(scores, boxes, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode)
+                ref = kernels.nms_scan_keep_mask_plain(scores, boxes, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode)
+                want = kernels_nms.compact_keep_labelled(ref, rows[0], rows[1], rows[2], cfg.keep_top_k)
+                got = dets
+        r, k = scores.shape
+        _, n_diff = mask_err(keep, ref)
+        if (r, k) != ((2 * (spec.num_classes - 1), WIDE_TOP_K) if kernel == "nms_fixpoint_keep_mask" else
+                      (2, WIDE_TOP_K)):
+            raise AssertionError(f"{name}: NMS rows {(r, k)}")
+        if n_diff or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} with top_k {WIDE_TOP_K}: {n_diff} mask differences, or detections that "
+                                 "differ from the plain version's")
+        if peak >= r * k * k:
+            raise AssertionError(f"{name}: {peak} bytes at peak, an [R, K, K] tensor's worth")
+        out[name] = {"rows": [r, k], "launches": launches, "kept_mean": float(keep.sum(-1).float().mean()),
+                     "valid": int((scores > 0).sum()), "peak_bytes": peak}
+        print(f"  {name} f32 batch 2, top_k {WIDE_TOP_K}: {kernel} once on [{r},{k}] rows "
+              f"({out[name]['valid']} candidates > 0), mask bit-equal to the plain version, detections equal; "
+              f"kept per row {out[name]['kept_mean']:.2f}; postprocess peak {peak / 2 ** 20:.1f} MiB "
+              f"(one [R, K, K] bool tensor: {r * k * k / 2 ** 30:.1f} GiB)", flush=True)
+        del keep, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def images_trainer(fx, tmp):
+    """Phase "images" (d): two Trainer steps with dump_debug_images_every=1
+    and TensorBoard on: a debug JPEG each step and a TensorBoard image each
+    step, which the port's own readers decode (the JPEG within 8 levels of
+    the PNG on average: both are the drawn picture)."""
+    cfg = dataclasses.replace(TRAIN_CFG, model_dir=str(tmp / "images_trainer"), max_steps=IMAGES_TRAIN_STEPS,
+                              dump_debug_images_every=1, tensorboard=True,
+                              data=dataclasses.replace(TRAIN_CFG.data, batch_size=F32_STEP_BATCH))
+    trainer, _ = quietly(lambda: Trainer(cfg, device=CARD))
+    host = train_host_batch(fx, F32_STEP_BATCH)
+    state, _ = quietly(lambda: trainer.train(batches=iter([host] * IMAGES_TRAIN_STEPS)))
+    debug = sorted((Path(cfg.model_dir) / "debug").glob("step_*.jpg"))
+    (events_file,) = Path(cfg.model_dir).glob("events.out.tfevents.*")
+    pngs = [im for e in read_events(str(events_file)) for im in e["images"].values()]
+    if state.step != IMAGES_TRAIN_STEPS or len(debug) != IMAGES_TRAIN_STEPS or len(pngs) != IMAGES_TRAIN_STEPS:
+        raise AssertionError(f"trainer: step {state.step}, {len(debug)} debug JPEGs, {len(pngs)} TensorBoard images")
+    diffs = []
+    for jpg, (h, w, png) in zip(debug, pngs):
+        a, b = decode.decode_image(jpg.read_bytes()), decode.decode_image(png)
+        if a.shape != b.shape or b.shape != (h, w, 3):
+            raise AssertionError(f"{jpg.name}: {a.shape} against the TensorBoard image's {b.shape}, ({h}, {w})")
+        diffs.append(float(np.abs(a.astype(np.float64) - b).mean()))
+    if max(diffs) > 8:
+        raise AssertionError(f"debug JPEGs against TensorBoard PNGs: mean |diff| {diffs}")
+    print(f"  Trainer, {IMAGES_TRAIN_STEPS} steps with dump_debug_images_every=1: {[p.name for p in debug]} and "
+          f"{len(pngs)} TensorBoard images ({pngs[0][0]}x{pngs[0][1]}), decoded by the port; JPEG vs PNG mean "
+          f"|diff| {diffs}", flush=True)
+    return {"debug_jpegs": len(debug), "tensorboard_images": len(pngs), "jpeg_vs_png_mean_abs": diffs}
+
+
+def images_main() -> int:
+    """Phase "images" in a process of its own (`chip_smoke.py --images`),
+    in which `import PIL` and `import cv2` fail: (a) decode, (b) `cli
+    infer` on PNG and progressive JPEG, (c) the Detector and the realtime
+    head on rows of every anchor, (d) the Trainer's pictures. Prints one
+    JSON line last."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("PIL", "cv2"):
+        try:
+            __import__(name)
+        except ImportError:
+            continue
+        raise AssertionError(f"{name} is importable in the images process")
+    digests = np.load(IMAGE_FORMATS / "digests.npz", allow_pickle=False)
+    fx = np.load(TRAINED_FIXTURE, allow_pickle=False)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        res["decode"] = images_decode(digests)
+        model_dir = str(tmp / "model")
+        seeded_model_dir(model_dir, from_jax_params(*load_trained_fixture(str(TRAINED_FIXTURE))))
+        res["infer"] = images_infer(model_dir, digests, tmp)
+        pixels = [torch.as_tensor(fx[f"img_{i}_pixels"], device=CARD) for i in IMAGES]
+        images = torch.stack([eval_preprocess(p.float() / 255.0, RON_320_SPEC.img_shape)[0] for p in pixels])
+        res["wide_rows"] = wide_detector_rows(images)
+        res["trainer"] = images_trainer(fx, tmp)
+        res["seconds"] = time.perf_counter() - t0
+    print(json.dumps(res))
+    return 0
+
+
+def images_phase(smi):
+    """Phase "images": `images_main` in a child process; its lines shown,
+    its JSON line returned."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--images"], capture_output=True,
+                          text=True, timeout=IMAGES_TIMEOUT, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the images process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    res["process_s"] = time.perf_counter() - t0
+    print(f"  the images process (no PIL, no cv2) took {res['process_s']:.2f} s ({smi})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -3819,6 +4127,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--stem-timing"]:
         return stem_timing_main()
+    if sys.argv[1:] == ["--images"]:
+        return images_main()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3848,6 +4158,7 @@ def main() -> int:
 
     with phase("kernels"):
         max_err = check_kernels(block1)
+        wide = check_wide_rows()
 
     with phase("main f32"):
         f32_dets, f32_model, f32_out = f32_parity(state, images, "TF32 off")
@@ -4057,6 +4368,8 @@ def main() -> int:
             learn = learn_phase(tmp, smi)
     with phase("bench"):
         bench = {**bench_cli(smi), "shared_top_k": bench_shared_top_k(state, images)}
+    with phase("images"):
+        images_res = images_phase(smi)
     results[2]["cli_infer_launches"] = cli_inf["launches"]["nms_scan_keep_mask"]
     kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
                               "eval": cli_eval["launches"]["fused_vgg_block1"]}
@@ -4080,6 +4393,12 @@ def main() -> int:
     results[2]["bench_launches"] = bench["launches"]["nms_scan_keep_mask"]
     results[2]["detector_loop_launches"] = stem["detector_loop"]["launches"]["nms_scan_keep_mask"]
     kb_row["stem_train_launches"] = stem["bf16_train"]["ron_320_vgg K-B"]["launches"]["fused_vgg_block1"]
+    results[0]["wide_rows"] = wide["nms_fixpoint_keep_mask"]
+    results[2]["wide_rows"] = wide["nms_scan_keep_mask"]
+    results[0]["images_launches"] = images_res["wide_rows"]["Detector"]["launches"]["nms_fixpoint_keep_mask"]
+    results[2]["images_launches"] = {
+        "cli_infer": images_res["infer"]["launches"]["nms_scan_keep_mask"],
+        "realtime_wide": images_res["wide_rows"]["realtime head"]["launches"]["nms_scan_keep_mask"]}
 
     print(json.dumps({"kernels": results, "detector_bf16_b32_img_per_s": BATCH * 1e3 / ms_det,
                       "detector_stage_ms": breakdown, "nms_stage_split": nms_split, "topk_ms": topk_ms,
@@ -4095,7 +4414,7 @@ def main() -> int:
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
                                          "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
                       "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn, "bench": bench,
-                      "stem": stem}))
+                      "stem": stem, "images": images_res}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -4103,10 +4422,37 @@ def main() -> int:
     return 0
 
 
-def greedy_pairs(keep):
-    """Overlaps a greedy keep set needs: each kept i against every later j."""
-    k = keep.shape[-1]
-    return int((keep * torch.arange(k - 1, -1, -1, device=keep.device)).sum())
+def sweep_pairs(scores, boxes, thr, mode, keep, dividing=False):
+    """Overlaps the greedy sweep that gives `keep` must evaluate: each kept
+    i against every later candidate still alive at i's turn, that is with a
+    score > 0 and not suppressed by a kept box before i. A candidate j is
+    tested by the kept boxes before it up to and including the first that
+    suppresses it. The predicate is K-A's division-free one, or K-C's
+    dividing one where `dividing`."""
+    total, k = 0, keep.shape[-1]
+    arange, chunk = torch.arange(k, device=keep.device), max(1, (1 << 24) // k)  # kept boxes tested at once
+    for r in range(keep.shape[0]):
+        idx = keep[r].nonzero().squeeze(1)
+        n = idx.numel()
+        first = torch.full_like(arange, n)  # index in kept order of j's first suppressor, n if none
+        y0, x0, y1, x1 = boxes[r].unbind(-1)
+        vol = (y1 - y0) * (x1 - x0)
+        for c0 in range(0, n, chunk):
+            i = idx[c0:c0 + chunk, None]
+            ih = torch.clamp(torch.minimum(y1, y1[i]) - torch.maximum(y0, y0[i]), min=0.0)
+            iw = torch.clamp(torch.minimum(x1, x1[i]) - torch.maximum(x0, x0[i]), min=0.0)
+            inter = ih * iw
+            denom = (vol + vol[i]) - inter if mode == "union" else torch.minimum(vol, vol[i])
+            if dividing:
+                hit = torch.where(denom > 0.0, inter / torch.where(denom > 0.0, denom, 1.0), 0.0) >= thr
+            else:
+                hit = (inter >= thr * denom) & (denom > 0.0)
+            hit &= i < arange
+            found = hit.any(0)
+            first = torch.where((first == n) & found, hit.to(torch.uint8).argmax(0) + c0, first)
+        before = torch.cumsum(keep[r], 0) - keep[r].long()  # kept boxes ahead of j
+        total += int((torch.minimum(before, first + 1) * (scores[r] > 0.0)).sum())
+    return total
 
 
 def kept_stats(keep):
@@ -4218,7 +4564,7 @@ def scan_row(rt_rows, api_rows, api_launches, rt_launches, max_err):
             raise AssertionError(f"K-C on {label}: {n_diff} mask differences")
         max_err["nms_scan_keep_mask"] = max(max_err["nms_scan_keep_mask"], err)
         r, k = scores.shape
-        pairs = greedy_pairs(keep)
+        pairs = sweep_pairs(scores, boxes, thr, mode, keep, dividing=True)
         bound_ms, bound_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
         fn = lambda: kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)  # noqa: E731
         parts[label] = {"rows": [r, k], "mode": mode, "keep_top_k": cap, **nms_times(fn),
@@ -4276,11 +4622,12 @@ def timing_rows(launches, api_launches, rt_launches, max_err, block1, nhwc_batch
         "main path's batch", kernels.fused_vgg_block1(nhwc_batch, w1, b1, w2, b2),
         kernels.fused_vgg_block1_plain(nhwc_batch, w1, b1, w2, b2)))
     # K-A's bound counts the work these rows need, as K-C's does: each kept i
-    # against every later j. The fixpoint algorithm's all-pairs count is
-    # printed beside it, for the record.
+    # against every later candidate still alive at its turn. The fixpoint
+    # algorithm's all-pairs count is printed beside it, for the record.
     _, steps = fixpoint_keep(flat_s > 0, suppression_matrix(flat_b, thr, mode))
     nms_bytes = r * k * (4 + 16 + 1)
-    nms_bound, nms_by = bound(nms_bytes, 12 * greedy_pairs(keep), PEAK_F32_FLOPS)
+    pairs = sweep_pairs(flat_s, flat_b, thr, mode, keep)
+    nms_bound, nms_by = bound(nms_bytes, 12 * pairs, PEAK_F32_FLOPS)
     fixpoint_ops = r * k * (k - 1) / 2 * 11 + steps * r * k * ((k + 31) // 32) * 2
     old_bound, old_by = bound(nms_bytes, fixpoint_ops, PEAK_F32_FLOPS)
     fn = lambda: kernels.nms_fixpoint_keep_mask(flat_s, flat_b, thr, mode)  # noqa: E731
@@ -4293,7 +4640,7 @@ def timing_rows(launches, api_launches, rt_launches, max_err, block1, nhwc_batch
         "plain_ms": cuda_ms(lambda: kernels.nms_fixpoint_keep_mask_plain(flat_s, flat_b, thr, mode), reps=3),
         "bound_ms": nms_bound, "bound_by": nms_by, "library_ms": None, **kept_stats(keep),
     })
-    print(f"  nms rows [{r},{k}]: {int(keep.sum())} kept, {greedy_pairs(keep)} overlaps needed; "
+    print(f"  nms rows [{r},{k}]: {int(keep.sum())} kept, {pairs} overlaps needed; "
           f"the fixpoint algorithm's count ({steps} steps, all pairs) would make the bound "
           f"{old_bound:.4f} ms by {old_by}; block 1 on the batch: max |kernel - plain| = "
           f"{max_err['fused_vgg_block1']:.6g}")
@@ -4322,7 +4669,7 @@ def timing_rows(launches, api_launches, rt_launches, max_err, block1, nhwc_batch
     }, blk_flops))
 
     # K-C on the realtime head's rows, and on the Detector's through the
-    # kernels API: the pairs each keep set needs, each kept i against every later j
+    # kernels API: the pairs each keep set needs (sweep_pairs)
     results.append(scan_row(rt_rows, {"streaming [640, 200] (kernels API)": (flat_s, flat_b, cap, mode)},
                             api_launches, rt_launches, max_err))
 

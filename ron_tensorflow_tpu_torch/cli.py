@@ -24,12 +24,15 @@ kernel (K-B), as the JAX CLI does on an accelerator; `realtime-eval` and
 it unfused.
 
 `infer` runs the realtime head (`RealtimeDetector`, K-C on the card) on
-each image, f32 at batch 1: decoded by the port's JPEG decoder (its only
-one: a file it does not take, a PNG say, raises ValueError naming the
-file, where JAX's PIL would open it), TF1-resized to the network's input,
-whitened on the device; it draws the detections on the resized image with
-PIL (`utils/visualization.py`) into `--output-dir/<i>.jpg` and prints
-`<path>: <n> detections -> <picture>`, as the JAX CLI does.
+each image, f32 at batch 1: a JPEG (baseline or progressive) or a PNG,
+decoded by the port's own decoders with PIL's bits, as the JAX CLI opens
+the file with PIL (`data/decode.py`, route "pil"; another format, or a
+JPEG frame the decoder refuses, raises ValueError naming the file),
+TF1-resized to the network's input, whitened on the device; it draws the
+detections on the resized image in numpy and writes them with the port's
+JPEG encoder at Pillow's defaults (`utils/visualization.py`: no PIL) into
+`--output-dir/<i>.jpg`, and prints `<path>: <n> detections -> <picture>`,
+as the JAX CLI does.
 
 Several processes: under `python -m torch.distributed.run --nproc-per-node N
 -m ron_tensorflow_tpu_torch.cli train|eval ... mesh_shape=[N,1]`, `train`
@@ -253,15 +256,16 @@ def cmd_realtime_eval(args):
 
 
 def infer_images(det, paths, output_dir):
-    """The realtime head `det` (a `RealtimeDetector`) on each JPEG of
-    `paths`, one at a time: decode, TF1 resize to the network's input,
-    /255, whiten on the device, detect, draw into `output_dir/<i>.jpg`.
+    """The realtime head `det` (a `RealtimeDetector`) on each image (JPEG
+    or PNG) of `paths`, one at a time: decode with PIL's bits, TF1 resize
+    to the network's input, /255, whiten on the device, detect, draw into
+    `output_dir/<i>.jpg`.
     Returns [(path, scores, labels, boxes, picture)], the valid detections
     as numpy arrays, as drawn."""
     import numpy as np
     import torch
 
-    from .data.decode import decode_jpeg_raw
+    from .data.decode import decode_image
     from .data.preprocess import whiten
     from .data.resize import tf1_bilinear_resize
     from .utils.visualization import save_image_with_boxes
@@ -271,9 +275,9 @@ def infer_images(det, paths, output_dir):
         with open(path, "rb") as f:
             data = f.read()
         try:
-            raw = decode_jpeg_raw(data)
+            raw = decode_image(data, route="pil")
         except ValueError as e:
-            raise ValueError(f"{path}: the port's JPEG decoder does not take this file ({e})") from e
+            raise ValueError(f"{path}: the port's decoders do not take this file ({e})") from e
         # TF1-legacy bilinear: the numerics the checkpoints expect
         img01 = tf1_bilinear_resize(raw, det.spec.img_shape) / 255.0
         image = whiten(torch.from_numpy(img01).to(det.device))[None]

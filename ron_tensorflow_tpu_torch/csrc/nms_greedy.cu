@@ -56,6 +56,20 @@
 //   the slots the same way. The dividing predicate is decided without
 //   dividing where the answer is certain (`scan_verdict`); only a quotient
 //   within a few ulps of t is divided, with __fdiv_rn, after the slot loop.
+//
+// Wide rows (K > kMaxK, such as every anchor of RON-320 at 21250 or of
+// SSD-512 at 24564 when top_k asks for them) cannot keep a row's boxes in
+// registers or shared memory. `nms_wide_kernel` runs the same sweep with
+// the same predicates, one block of 1024 threads a row: the row's alive and
+// kept bits are words in shared memory (K / 8 bytes each: 2.7 KB at
+// K = 21250); a cursor moves only forward to the word of the lowest alive
+// candidate, which warp 0 finds with one ballot per 32 words; box i is
+// broadcast through shared memory; warp w evaluates the words w, w + 32,
+// ... at and after i's, a lane per candidate, reading the alive candidates'
+// boxes from global memory (the row's 340 KB at K = 21250 stay in L2 from
+// step to step) and clearing the hits with one ballot per word. A step
+// costs about (K - i) / 1024 candidates a thread; the row takes as many
+// steps as it keeps. Here K-C decides every pair with __fdiv_rn.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -65,11 +79,16 @@ namespace {
 
 constexpr uint32_t kFull = 0xffffffffu;
 constexpr uint32_t kNone = 0xffffffffu;
-constexpr int kMaxK = 4096;
+constexpr int kMaxK = 4096;  // above: nms_wide_kernel
 constexpr int kWarpSlots = 8;   // one warp per row: K <= 32 * 8
 constexpr int kBlockSlots = 4;  // one block per row: K <= 1024 * 4
 constexpr int kRowsPerWarpBlock = 4;
 constexpr int kWarpGroup = 2;  // a warp evaluates its slots in pairs, skipping a pair no lane needs
+constexpr int kWideThreads = 1024;
+constexpr int kWideBatch = 4;  // words a warp of the wide kernel evaluates at once
+// the bit words' dynamic shared memory, beside the block's few static bytes:
+// K up to 925,696 candidates a row
+constexpr size_t kWideMaxSmem = 226 * 1024;
 
 // Boxes are (ymin, xmin, ymax, xmax) in (x, y, z, w).
 __device__ __forceinline__ float box_volume(float4 b) {
@@ -239,17 +258,134 @@ cudaError_t launch(const float* scores, const float* boxes, void* keep, int rows
   return cudaGetLastError();
 }
 
+// One block of kWideThreads a row, any K whose 2 * ceil(K / 32) bit words
+// fit in shared memory: the sweep of nms_sweep_kernel over bit words.
+template <bool kDivide, bool kCapped, bool kUnion>
+__global__ void __launch_bounds__(kWideThreads)
+nms_wide_kernel(const float* __restrict__ scores, const float4* __restrict__ boxes,
+                uint8_t* __restrict__ keep, int k, float threshold, int cap) {
+  extern __shared__ uint32_t words[];  // [nwords] alive bits, then [nwords] kept bits
+  __shared__ int taken;
+  __shared__ float4 box_i;
+  __shared__ float vol_i;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarps = kWideThreads / 32;
+  const int nwords = (k + 31) >> 5;
+  uint32_t* alive = words;
+  uint32_t* kept_bits = words + nwords;
+  const size_t row = blockIdx.x;
+  const float* rs = scores + row * k;
+  const float4* rb = boxes + row * k;
+
+  for (int w = warp; w < nwords; w += kWarps) {  // alive = score > 0 (NaN is not)
+    const int j = 32 * w + lane;
+    const uint32_t bits = __ballot_sync(kFull, j < k && __ldg(rs + j) > 0.0f);
+    if (lane == 0) {
+      alive[w] = bits;
+      kept_bits[w] = 0u;
+    }
+  }
+  __syncthreads();
+
+  int cursor = 0, kept = 0;  // the word of the last taken candidate: nothing alive lies before it
+  while (!kCapped || kept < cap) {
+    if (warp == 0) {  // the lowest alive candidate, 32 words a ballot from the cursor on
+      int found = -1;
+      for (int w0 = cursor; w0 < nwords; w0 += 32) {
+        const int w = w0 + lane;
+        const uint32_t bits = w < nwords ? alive[w] : 0u;
+        const uint32_t nonzero = __ballot_sync(kFull, bits != 0u);
+        if (nonzero) {
+          const int src = __ffs(nonzero) - 1;
+          const uint32_t first = __shfl_sync(kFull, bits, src);
+          found = 32 * (w0 + src) + __ffs(first) - 1;
+          break;
+        }
+      }
+      if (lane == 0) {
+        taken = found;
+        if (found >= 0) {
+          alive[found >> 5] &= ~(1u << (found & 31));
+          kept_bits[found >> 5] |= 1u << (found & 31);
+          const float4 b = __ldg(rb + found);
+          box_i = b;
+          vol_i = box_volume(b);
+        }
+      }
+    }
+    __syncthreads();
+    const int i = taken;
+    if (i < 0) break;
+    ++kept;
+    cursor = i >> 5;
+    const float4 a = box_i;
+    const float va = vol_i;
+    // each warp its words, kWideBatch at a time so that their box loads overlap
+    for (int w0 = cursor + warp; w0 < nwords; w0 += kWarps * kWideBatch) {
+      uint32_t bits[kWideBatch];
+      float4 b[kWideBatch];
+#pragma unroll
+      for (int u = 0; u < kWideBatch; ++u) {
+        const int w = w0 + u * kWarps;
+        bits[u] = w < nwords ? alive[w] : 0u;
+        b[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if ((bits[u] >> lane) & 1u) b[u] = __ldg(rb + 32 * w + lane);
+      }
+#pragma unroll
+      for (int u = 0; u < kWideBatch; ++u) {
+        bool hit = false;
+        if ((bits[u] >> lane) & 1u) {
+          float inter, denom;
+          overlap<kUnion>(a, va, b[u], box_volume(b[u]), inter, denom);
+          if (kDivide) {
+            hit = (denom > 0.0f ? __fdiv_rn(inter, denom) : 0.0f) >= threshold;
+          } else {
+            hit = inter >= __fmul_rn(threshold, denom) && denom > 0.0f;
+          }
+        }
+        const uint32_t kill = __ballot_sync(kFull, hit);
+        if (lane == 0 && kill) alive[w0 + u * kWarps] = bits[u] & ~kill;
+      }
+    }
+    __syncthreads();
+  }
+
+  uint8_t* out = keep + row * k;
+  for (int j = threadIdx.x; j < k; j += kWideThreads) out[j] = (kept_bits[j >> 5] >> (j & 31)) & 1u;
+}
+
+template <bool kDivide, bool kCapped, bool kUnion>
+cudaError_t launch_wide(const float* scores, const float* boxes, void* keep, int rows, int k,
+                        float threshold, int cap, cudaStream_t stream) {
+  auto kernel = nms_wide_kernel<kDivide, kCapped, kUnion>;
+  const size_t smem = 2 * sizeof(uint32_t) * static_cast<size_t>((k + 31) / 32);
+  if (smem > kWideMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<rows, kWideThreads, smem, stream>>>(scores, reinterpret_cast<const float4*>(boxes),
+                                               static_cast<uint8_t*>(keep), k, threshold, cap);
+  return cudaGetLastError();
+}
+
 template <bool kDivide, bool kCapped>
 int launch_rows(const float* scores, const float* boxes, void* keep, int rows, int k,
                 float threshold, int cap, int union_mode, cudaStream_t stream) {
   if (rows <= 0 || k <= 0) return 0;
-  if (k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(boxes) % alignof(float4) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const cudaError_t err =
-      union_mode ? launch<kDivide, kCapped, true>(scores, boxes, keep, rows, k, threshold, cap, stream)
-                 : launch<kDivide, kCapped, false>(scores, boxes, keep, rows, k, threshold, cap, stream);
+  cudaError_t err;
+  if (k > kMaxK) {
+    err = union_mode ? launch_wide<kDivide, kCapped, true>(scores, boxes, keep, rows, k, threshold, cap, stream)
+                     : launch_wide<kDivide, kCapped, false>(scores, boxes, keep, rows, k, threshold, cap, stream);
+  } else {
+    err = union_mode ? launch<kDivide, kCapped, true>(scores, boxes, keep, rows, k, threshold, cap, stream)
+                     : launch<kDivide, kCapped, false>(scores, boxes, keep, rows, k, threshold, cap, stream);
+  }
   return static_cast<int>(err);
 }
 

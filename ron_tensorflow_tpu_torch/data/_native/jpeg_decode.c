@@ -1,12 +1,25 @@
-/* Baseline sequential Huffman JPEG decoder and a uint8 bilinear resize.
+/* Sequential and progressive Huffman JPEG decoder and a uint8 bilinear resize.
  *
  * For hosts that have neither OpenCV nor Pillow. The decoder follows
  * libjpeg-turbo's default decompression path step for step, so that its
  * RGB output equals `cv2.imdecode(..., IMREAD_COLOR)` (converted to RGB)
  * and `PIL.Image.open(...).convert("RGB")` bit for bit:
- *   - SOF0/SOF1 frames, 8-bit samples, 1 or 3 components with sampling
- *     factors 1 or 2; DQT (8- and 16-bit), DHT, DRI and RSTn; several
- *     sequential scans per frame;
+ *   - SOF0/SOF1 (sequential) and SOF2 (progressive) frames, 8-bit samples,
+ *     1 or 3 components with sampling factors 1 or 2; DQT (8- and 16-bit),
+ *     DHT, DRI and RSTn; several scans per frame;
+ *   - progressive scans as jdphuff.c decodes them: spectral selection and
+ *     successive approximation (DC first and refine, AC first and refine,
+ *     EOB runs), interleaved DC scans, non-interleaved scans and restart
+ *     intervals inside them. A progressive frame's scans put their
+ *     coefficients into one buffer for the whole frame, which the IDCT reads
+ *     once the data has ended, as jdcoefct.c's multi-scan path does; a
+ *     sequential frame's blocks go through the IDCT as they are decoded, as
+ *     its single-pass path does. libjpeg-turbo smooths the blocks of
+ *     a progressive frame (jdcoefct.c, smoothing_ok) only while some
+ *     coefficient bits are still unknown at that point; a complete scan
+ *     script leaves none, and a frame that leaves some (truncated, or an
+ *     incomplete script) is refused with a message that names the first
+ *     missing coefficient, rather than smoothed;
  *   - the ISLOW integer IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2) and
  *     its range limit;
  *   - "fancy" upsampling for h2v1, h1v2 and h2v2 chroma (jdsample.c),
@@ -15,9 +28,9 @@
  *   - the fixed-point YCbCr -> RGB of jdcolor.c (SCALEBITS 16), or no
  *     transform for an Adobe RGB or 'R','G','B' frame (jdapimin.c's guess);
  *   - grayscale expanded to three equal channels.
- * Progressive, lossless, hierarchical and arithmetic-coded frames, other
- * sample precisions and 2- or 4-component (CMYK, YCCK) images are refused
- * with a message that names them.
+ * Lossless, hierarchical and arithmetic-coded frames, other sample
+ * precisions, sampling factors above 2 (4:1:1) and 2- or 4-component (CMYK,
+ * YCCK) images are refused with a message that names them.
  *
  * `resize_bilinear_u8` is OpenCV's cv::resize(INTER_LINEAR) on 8-bit
  * images (imgproc/src/resize.cpp): half-pixel centres, 11-bit fixed-point
@@ -62,7 +75,10 @@ typedef struct {
     int id, h, v, tq;
     int width, height; /* the component's own size: ceil(image * factor / max factor) */
     int bw, bh;        /* 8x8 blocks of the padded plane */
+    int16_t *coef;     /* progressive: bh * bw blocks of 64 coefficients in natural order */
     uint8_t *plane;    /* bh * 8 rows of bw * 8 samples */
+    int16_t quant[64]; /* the table latched at the component's first scan (jdinput.c) */
+    int coef_bits[64]; /* progressive: the lowest bit each coefficient is known to, -1 before its first scan */
     int dc_pred, td, ta, decoded;
 } comp_t;
 
@@ -74,7 +90,8 @@ typedef struct {
     huff_t dc[4], ac[4];
     comp_t comp[3];
     int ncomp, width, height, hmax, vmax, mcux, mcuy, restart_interval;
-    int jfif, adobe, adobe_transform, frame;
+    int jfif, adobe, adobe_transform, frame, progressive;
+    int ss, se, ah, al, eobrun; /* the current scan's spectral band and approximation bits */
     /* bit reader over the entropy-coded segment */
     uint64_t bitbuf; /* next bits at the top */
     int bitcnt, fake_bits, marker;
@@ -120,7 +137,6 @@ static int next_marker(dec_t *d) {
 
 static const char *frame_name(int m) {
     switch (m) {
-    case 0xC2: return "progressive (SOF2)";
     case 0xC3: return "lossless (SOF3)";
     case 0xC5: return "differential sequential (SOF5)";
     case 0xC6: return "differential progressive (SOF6)";
@@ -212,7 +228,7 @@ static int parse_dqt(dec_t *d) {
     return 0;
 }
 
-static int parse_sof(dec_t *d) {
+static int parse_sof(dec_t *d, int progressive) {
     int len = 0, prec = 0, h = 0, w = 0, n = 0;
     if (read_u16(d, &len) || read_u8(d, &prec) || read_u16(d, &h) || read_u16(d, &w) || read_u8(d, &n)) return -1;
     if (d->frame) return fail(d, "more than one frame");
@@ -248,9 +264,12 @@ static int parse_sof(dec_t *d) {
         c->bw = d->mcux * c->h;
         c->bh = d->mcuy * c->v;
         c->plane = (uint8_t *)calloc((size_t)c->bw * 8 * (size_t)c->bh * 8, 1);
-        if (!c->plane) return fail(d, "out of memory");
+        if (progressive) c->coef = (int16_t *)calloc((size_t)c->bw * (size_t)c->bh * 64, sizeof(int16_t));
+        if (!c->plane || (progressive && !c->coef)) return fail(d, "out of memory");
+        for (int k = 0; k < 64; k++) c->coef_bits[k] = -1;
     }
     d->frame = 1;
+    d->progressive = progressive;
     return 0;
 }
 
@@ -464,6 +483,16 @@ static void idct_islow(const int16_t *coef, const int16_t *quant, uint8_t *out, 
     }
 }
 
+static inline int16_t *block_at(comp_t *c, int brow, int bcol) {
+    return c->coef + ((size_t)brow * c->bw + bcol) * 64;
+}
+
+static inline uint8_t *plane_at(comp_t *c, int brow, int bcol) {
+    return c->plane + ((size_t)brow * 8 * c->bw + bcol) * 8;
+}
+
+/* a sequential scan's block: its 64 coefficients (jdhuff.c decode_mcu),
+ * then its IDCT into the plane */
 static int decode_block(dec_t *d, comp_t *c, int brow, int bcol) {
     int16_t coef[64];
     int s = 0;
@@ -486,10 +515,95 @@ static int decode_block(dec_t *d, comp_t *c, int brow, int bcol) {
             k += 15;
         }
     }
-    int stride = c->bw * 8;
-    idct_islow(coef, d->quant[c->tq], c->plane + (size_t)brow * 8 * stride + (size_t)bcol * 8, stride);
+    idct_islow(coef, c->quant, plane_at(c, brow, bcol), c->bw * 8);
     return 0;
 }
+
+/* progressive scans, one block each (jdphuff.c): the DC coefficient's first
+ * bits or its next bit; a band's first bits or its next bit, with EOB runs */
+static int decode_dc_first(dec_t *d, comp_t *c, int brow, int bcol) {
+    int s = 0;
+    if (decode_huff(d, &d->dc[c->td], &s)) return -1;
+    if (s) s = extend(get_bits(d, s), s);
+    c->dc_pred += s;
+    block_at(c, brow, bcol)[0] = (int16_t)((unsigned)c->dc_pred << d->al);
+    return 0;
+}
+
+static int decode_dc_refine(dec_t *d, comp_t *c, int brow, int bcol) {
+    if (get_bits(d, 1)) block_at(c, brow, bcol)[0] |= (int16_t)(1 << d->al);
+    return 0;
+}
+
+static int decode_ac_first(dec_t *d, comp_t *c, int brow, int bcol) {
+    if (d->eobrun > 0) {
+        d->eobrun--;
+        return 0;
+    }
+    int16_t *coef = block_at(c, brow, bcol);
+    const huff_t *ac = &d->ac[c->ta];
+    for (int k = d->ss; k <= d->se; k++) {
+        int rs = 0;
+        if (decode_huff(d, ac, &rs)) return -1;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            coef[natural_order[k]] = (int16_t)((unsigned)extend(get_bits(d, s), s) << d->al);
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            d->eobrun = 1 << r;
+            if (r) d->eobrun += get_bits(d, r);
+            d->eobrun--;
+            break;
+        }
+    }
+    return 0;
+}
+
+/* a correction bit for a coefficient that is already nonzero */
+static inline void refine_bit(dec_t *d, int16_t *coef, int p1) {
+    if (get_bits(d, 1) && (*coef & p1) == 0) *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef - p1);
+}
+
+static int decode_ac_refine(dec_t *d, comp_t *c, int brow, int bcol) {
+    int16_t *coef = block_at(c, brow, bcol);
+    const int p1 = 1 << d->al;
+    int k = d->ss;
+    if (d->eobrun == 0) {
+        const huff_t *ac = &d->ac[c->ta];
+        for (; k <= d->se; k++) {
+            int rs = 0;
+            if (decode_huff(d, ac, &rs)) return -1;
+            int r = rs >> 4, s = rs & 15;
+            if (s) { /* a newly nonzero coefficient of magnitude p1 (libjpeg warns where s != 1) */
+                s = get_bits(d, 1) ? p1 : -p1;
+            } else if (r != 15) {
+                d->eobrun = 1 << r;
+                if (r) d->eobrun += get_bits(d, r);
+                break; /* the rest of the band: below, with the EOB run */
+            }
+            /* skip r still-zero coefficients, refining the nonzero ones on the way */
+            do {
+                int16_t *t = coef + natural_order[k];
+                if (*t != 0) refine_bit(d, t, p1);
+                else if (--r < 0) break;
+                k++;
+            } while (k <= d->se);
+            if (s) coef[natural_order[k]] = (int16_t)s;
+        }
+    }
+    if (d->eobrun > 0) {
+        for (; k <= d->se; k++) {
+            int16_t *t = coef + natural_order[k];
+            if (*t != 0) refine_bit(d, t, p1);
+        }
+        d->eobrun--;
+    }
+    return 0;
+}
+
+typedef int (*block_fn)(dec_t *, comp_t *, int, int);
 
 /* after a restart interval: drop the padding bits, expect RSTn, reset the DC predictions */
 static int restart(dec_t *d, comp_t **sc, int ns) {
@@ -506,6 +620,7 @@ static int restart(dec_t *d, comp_t **sc, int ns) {
     d->bitbuf = 0;
     d->bitcnt = 0;
     d->fake_bits = 0;
+    d->eobrun = 0;
     for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
     return 0;
 }
@@ -517,26 +632,58 @@ static int parse_sos_and_decode(dec_t *d) {
     if (ns < 1 || ns > d->ncomp || len != 6 + 2 * ns || d->pos + (size_t)(2 * ns + 3) > d->len)
         return fail(d, "bad SOS segment");
     comp_t *sc[3];
+    const uint8_t *ids = d->data + d->pos;
+    d->ss = ids[2 * ns];
+    d->se = ids[2 * ns + 1];
+    d->ah = ids[2 * ns + 2] >> 4;
+    d->al = ids[2 * ns + 2] & 15;
+    block_fn fn = decode_block;
+    if (d->progressive) { /* the checks of jdphuff.c start_pass_phuff_decoder */
+        const int dc = d->ss == 0;
+        if (dc ? d->se != 0 : (d->se < d->ss || d->se > 63 || ns != 1))
+            return fail(d, "bad progressive scan: band %d..%d over %d components", d->ss, d->se, ns);
+        if ((d->ah != 0 && d->al != d->ah - 1) || d->al > 13)
+            return fail(d, "bad progressive scan: successive approximation Ah=%d Al=%d", d->ah, d->al);
+        fn = dc ? (d->ah ? decode_dc_refine : decode_dc_first) : (d->ah ? decode_ac_refine : decode_ac_first);
+    }
     for (int i = 0; i < ns; i++) {
-        int id = d->data[d->pos], tables = d->data[d->pos + 1];
-        d->pos += 2;
+        int id = ids[2 * i], tables = ids[2 * i + 1];
         sc[i] = NULL;
         for (int j = 0; j < d->ncomp; j++)
             if (d->comp[j].id == id) sc[i] = &d->comp[j];
         if (!sc[i]) return fail(d, "scan names an unknown component %d", id);
         sc[i]->td = tables >> 4;
         sc[i]->ta = tables & 15;
-        if (sc[i]->td > 3 || sc[i]->ta > 3 || !d->dc[sc[i]->td].defined || !d->ac[sc[i]->ta].defined)
+        /* tables a scan reads: DC for sequential scans and DC first, AC for sequential and AC scans */
+        const int need_dc = !d->progressive || (d->ss == 0 && d->ah == 0);
+        const int need_ac = !d->progressive || d->ss > 0;
+        if (sc[i]->td > 3 || sc[i]->ta > 3 || (need_dc && !d->dc[sc[i]->td].defined) ||
+            (need_ac && !d->ac[sc[i]->ta].defined))
             return fail(d, "scan uses an undefined Huffman table");
-        if (!d->quant_defined[sc[i]->tq]) return fail(d, "component uses an undefined quantization table");
+        if (!sc[i]->decoded) {
+            if (!d->quant_defined[sc[i]->tq]) return fail(d, "component uses an undefined quantization table");
+            memcpy(sc[i]->quant, d->quant[sc[i]->tq], sizeof(sc[i]->quant));
+        }
+        if (d->progressive) { /* each coefficient's bits must arrive in order (jdphuff.c's progression check) */
+            if (d->ss > 0 && sc[i]->coef_bits[0] < 0)
+                return fail(d, "bad progression: an AC scan of component %d before its DC scan", id);
+            for (int k = d->ss; k <= d->se; k++) {
+                const int known = sc[i]->coef_bits[k];
+                if (d->ah != (known < 0 ? 0 : known))
+                    return fail(d, "bad progression: component %d coefficient %d refined at bit %d, known to bit %d",
+                                id, k, d->ah, known);
+                sc[i]->coef_bits[k] = d->al;
+            }
+        }
         sc[i]->dc_pred = 0;
         sc[i]->decoded = 1;
     }
-    d->pos += 3; /* Ss, Se, Ah/Al: a sequential scan codes the whole band */
+    d->pos += 2 * (size_t)ns + 3;
     d->bitbuf = 0;
     d->bitcnt = 0;
     d->fake_bits = 0;
     d->marker = 0;
+    d->eobrun = 0;
     d->bpos = d->pos;
 
     long n_mcu, mcu_per_row;
@@ -551,12 +698,12 @@ static int parse_sos_and_decode(dec_t *d) {
         if (d->restart_interval && m > 0 && m % d->restart_interval == 0 && restart(d, sc, ns)) return -1;
         long my = m / mcu_per_row, mx = m % mcu_per_row;
         if (ns == 1) {
-            if (decode_block(d, sc[0], (int)my, (int)mx)) return -1;
+            if (fn(d, sc[0], (int)my, (int)mx)) return -1;
         } else {
             for (int i = 0; i < ns; i++)
                 for (int by = 0; by < sc[i]->v; by++)
                     for (int bx = 0; bx < sc[i]->h; bx++)
-                        if (decode_block(d, sc[i], (int)my * sc[i]->v + by, (int)mx * sc[i]->h + bx)) return -1;
+                        if (fn(d, sc[i], (int)my * sc[i]->v + by, (int)mx * sc[i]->h + bx)) return -1;
         }
         if (d->bitcnt < d->fake_bits) return fail(d, "truncated JPEG: the scan's data ends early");
     }
@@ -685,9 +832,9 @@ static int decode(dec_t *d, uint8_t *out, int out_h, int out_w) {
         int m = next_marker(d);
         if (m < 0 || m == 0xD9) break; /* EOI, or the data ends */
         const char *unsupported = frame_name(m);
-        if (unsupported) return fail(d, "%s JPEG is not supported (baseline sequential only)", unsupported);
+        if (unsupported) return fail(d, "%s JPEG is not supported (Huffman sequential or progressive only)", unsupported);
         int rc;
-        if (m == 0xC0 || m == 0xC1) rc = parse_sof(d);
+        if (m == 0xC0 || m == 0xC1 || m == 0xC2) rc = parse_sof(d, m == 0xC2);
         else if (m == 0xC4) rc = parse_dht(d);
         else if (m == 0xDB) rc = parse_dqt(d);
         else if (m == 0xDD) {
@@ -703,10 +850,24 @@ static int decode(dec_t *d, uint8_t *out, int out_h, int out_w) {
     }
     if (!d->frame) return fail(d, "no frame header (SOF) in the JPEG");
     if (!scans) return fail(d, "no scan in the JPEG");
-    for (int i = 0; i < d->ncomp; i++)
-        if (!d->comp[i].decoded) return fail(d, "component %d has no scan", d->comp[i].id);
+    for (int i = 0; i < d->ncomp; i++) {
+        comp_t *c = &d->comp[i];
+        if (!c->decoded) return fail(d, "component %d has no scan", c->id);
+        for (int k = 0; d->progressive && k < 64; k++)
+            if (c->coef_bits[k] < 0)
+                return fail(d, "incomplete progressive JPEG: component %d coefficient %d has no scan "
+                            "(libjpeg-turbo would smooth the blocks)", c->id, k);
+            else if (c->coef_bits[k] > 0)
+                return fail(d, "incomplete progressive JPEG: component %d coefficient %d lacks its lowest %d "
+                            "bits (libjpeg-turbo would smooth the blocks)", c->id, k, c->coef_bits[k]);
+    }
     if (d->height != out_h || d->width != out_w)
         return fail(d, "frame is %dx%d, the output %dx%d", d->height, d->width, out_h, out_w);
+    for (int i = 0; d->progressive && i < d->ncomp; i++) { /* the IDCT of every buffered block (jdcoefct.c) */
+        comp_t *c = &d->comp[i];
+        for (int by = 0; by < c->bh; by++)
+            for (int bx = 0; bx < c->bw; bx++) idct_islow(block_at(c, by, bx), c->quant, plane_at(c, by, bx), c->bw * 8);
+    }
 
     const size_t n = (size_t)d->width * d->height;
     uint8_t *planes[3] = {NULL, NULL, NULL};
@@ -736,7 +897,10 @@ int jpeg_decode_rgb(const uint8_t *data, size_t len, uint8_t *out, int out_h, in
     d->errlen = errlen;
     if (errlen) err[0] = 0;
     int rc = decode(d, out, out_h, out_w);
-    for (int i = 0; i < 3; i++) free(d->comp[i].plane);
+    for (int i = 0; i < 3; i++) {
+        free(d->comp[i].plane);
+        free(d->comp[i].coef);
+    }
     free(d);
     return rc;
 }

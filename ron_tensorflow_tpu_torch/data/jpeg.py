@@ -8,12 +8,17 @@ the package's `_build/` (as `data/native.py` builds crc32c.c) and bound with
 ctypes, which releases the GIL during each call: the pipeline's decode
 thread pool runs decodes in parallel. The C code keeps no global state.
 
-- `decode_rgb`: a baseline sequential JPEG -> uint8 [H, W, 3] RGB, bit for
-  bit what libjpeg-turbo gives `cv2.imdecode(IMREAD_COLOR)` and
-  `PIL.Image.open(...).convert("RGB")` (ISLOW IDCT, fancy upsampling,
-  jdcolor.c's fixed-point YCbCr). Progressive, lossless, hierarchical and
-  arithmetic-coded frames, 12-bit samples and CMYK raise ValueError naming
-  the frame type.
+- `decode_rgb`: a baseline sequential or progressive JPEG -> uint8
+  [H, W, 3] RGB, bit for bit what libjpeg-turbo gives
+  `cv2.imdecode(IMREAD_COLOR)` and `PIL.Image.open(...).convert("RGB")`
+  (ISLOW IDCT, fancy upsampling, jdcolor.c's fixed-point YCbCr; a
+  progressive frame's coefficients buffered over all its scans, as
+  jdcoefct.c does). A progressive frame whose scans leave some coefficient
+  bits unknown (where libjpeg-turbo would smooth the blocks) raises naming
+  the coefficient; lossless, hierarchical and arithmetic-coded frames,
+  12-bit samples, 4:1:1 sampling and CMYK raise ValueError naming them.
+  `data/decode.py` dispatches JPEG and PNG (`data/png.py`) to their
+  decoders.
 - `jpeg_size`: (height, width) from the frame header, for any frame type.
 - `resize_bilinear`: `cv2.resize(image, (w, h), interpolation=INTER_LINEAR)`
   on uint8 images, bit for bit.

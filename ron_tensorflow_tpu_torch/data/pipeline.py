@@ -5,15 +5,16 @@ Port of `ron_tensorflow_tpu/data/pipeline.py`. `PipelineConfig`,
 `parse_voc_example`, `_apply_difficult_policy`, `_pad_gt`,
 `iterate_samples` and `batch_iterator` are copies (the same sample order
 from `np.random.default_rng(seed + worker_index)`, the same padding of a
-short final batch with `sample_valid`), with two differences: JPEGs decode
-through the package's own decoder (`data/decode.py`), and a record without
-`image/shape` takes its size from the JPEG header (`data/jpeg.py`) where
-the JAX package opens PIL (pipeline.py:277). `PipelineConfig` takes JAX's
+short final batch with `sample_valid`), with two differences: images (JPEG
+or PNG) decode through the package's own decoders (`data/decode.py`, cv2's
+bits), and a record without `image/shape` takes its size from the JPEG or
+PNG header (`decode.image_size`) where the JAX package opens PIL
+(pipeline.py:277). `PipelineConfig` takes JAX's
 `prefetch`, which nothing reads, in the port as in the JAX package, and
 `grain_workers`, which sizes the decode threads of the Grain-equivalent
 pipeline (`grain_pipeline.GrainBatches`); `decode_jpeg_raw` is
 `data/decode.py`'s. The host work
-is IO, JPEG decode and one resize to the working canvas; the augmentation
+is IO, image decode and one resize to the working canvas; the augmentation
 runs on the device in the train step. `PrefetchIterator` is a copy of
 `pipeline.py:317`.
 
@@ -43,8 +44,7 @@ import numpy as np
 import torch
 
 from . import example as pb
-from .decode import decode_jpeg, decode_jpeg_eval, decode_jpeg_raw  # noqa: F401  (decode_jpeg_raw: JAX's name here)
-from .jpeg import jpeg_size
+from .decode import decode_jpeg, decode_jpeg_eval, decode_jpeg_raw, image_size  # noqa: F401  (decode_jpeg_raw: JAX's name here)
 from .resize import remap_boxes_for_eval
 from .tfrecord import read_records, shard_for_worker
 
@@ -220,7 +220,7 @@ def batch_iterator(
                 if config.eval_resize in ("CENTRAL_CROP", "PAD_AND_RESIZE"):
                     h0, w0 = s["shape"][:2]
                     if not (h0 and w0):  # shape absent from the record
-                        h0, w0 = jpeg_size(s["jpeg"])
+                        h0, w0 = image_size(s["jpeg"])
                     s = {**s, "boxes": remap_boxes_for_eval(s["boxes"], (h0, w0), config.eval_resize,
                                                             config.working_shape)}
                 gt = _pad_gt(s, config.max_boxes)

@@ -103,7 +103,7 @@ class RealtimeEvaluator:
         debug_max_images: int = 64,
     ):
         """Full VOCdevkit evaluation (ref: ron_eval.py:529-594): a thread
-        pool reads, JPEG-decodes and resizes (the decoders release the GIL)
+        pool reads, decodes (JPEG or PNG, cv2's bits) and resizes (the decoders release the GIL)
         the next batch while the current one runs on the device; the last
         batch is padded to batch_size. Detections are rescaled to each
         original frame; with output_dir they are also pickled to

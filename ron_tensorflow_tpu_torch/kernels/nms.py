@@ -14,8 +14,12 @@ Port of `ron_tensorflow_tpu/kernels/nms_pallas.py`:
 
 On the card both run `csrc/nms_greedy.cu`: one greedy sweep, templated on
 the predicate and the cap, that takes the kept candidates one by one and
-skips the untaken ones in bulk; it takes K up to `MAX_K`. Each launcher
-gives its plain version's mask bit for bit. The two predicates can
+skips the untaken ones in bulk. Rows of K up to `MAX_K` candidates keep
+their boxes in registers and shared memory; wider rows (a Detector's
+`top_k` at every anchor: 21250 for RON-320, 24564 for SSD-512) go to the
+same sweep over alive bits in shared memory, the boxes read from global
+memory (up to 925,696 candidates a row). Each launcher gives its plain
+version's mask bit for bit at every K. The two predicates can
 disagree for a pair that sits on the threshold, as the two TPU kernels do;
 each is held to its own TPU kernel.
 """
@@ -27,7 +31,11 @@ import torch
 from . import _build
 
 MODES = ("min", "union")
-MAX_K = 4096  # candidates per row that the CUDA kernel takes (`csrc/nms_greedy.cu`, kMaxK)
+# candidates per row up to which the CUDA sweep keeps a row's boxes on chip; wider rows take
+# its wide-row path (`csrc/nms_greedy.cu`, kMaxK)
+MAX_K = 4096
+# pairs (rows x K x K) the fixpoint's plain version builds its overlaps for at once
+PLAIN_PAIRS = 1 << 26
 
 
 def _check_mode(mode: str) -> None:
@@ -48,8 +56,6 @@ def _check_cuda_rows(scores: torch.Tensor, boxes: torch.Tensor):
     if not (scores.is_contiguous() and boxes.is_contiguous()):
         raise ValueError("scores and boxes must be contiguous")
     r, k = scores.shape
-    if k > MAX_K:
-        raise ValueError(f"K={k} > {MAX_K} candidates per row")
     if boxes.data_ptr() % 16:
         boxes = boxes.clone()
     return r, k, boxes
@@ -132,9 +138,15 @@ def nms_fixpoint_keep_mask_plain(
     """Uncapped greedy-NMS keep mask, plain PyTorch. scores [R, K]
     descending, boxes [R, K, 4] -> bool [R, K]. Iterates
     keep[j] = valid[j] & no kept i < j suppresses j from keep = valid until
-    nothing changes, at most K times."""
-    keep, _ = fixpoint_keep(scores > 0.0, suppression_matrix(boxes, nms_threshold, mode))
-    return keep
+    nothing changes, at most K times. Rows go in groups of at most
+    PLAIN_PAIRS pairs (one row at a time at K = 21250, whose [K, K]
+    overlaps are 0.45 G elements), each group's [R, K, K] freed before the
+    next."""
+    k = scores.shape[-1]
+    step = max(1, PLAIN_PAIRS // max(1, k * k))
+    parts = [fixpoint_keep(scores[r:r + step] > 0.0, suppression_matrix(boxes[r:r + step], nms_threshold, mode))[0]
+             for r in range(0, scores.shape[0], step)]
+    return torch.cat(parts) if parts else scores > 0.0
 
 
 def nms_fixpoint_keep_mask(
@@ -142,7 +154,7 @@ def nms_fixpoint_keep_mask(
 ) -> torch.Tensor:
     """Uncapped greedy-NMS keep mask: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. scores [R, K] float32 descending,
-    boxes [R, K, 4] float32 contiguous, K <= MAX_K -> bool [R, K]."""
+    boxes [R, K, 4] float32 contiguous -> bool [R, K]."""
     _check_mode(mode)
     if scores.device.type == "cpu":
         return nms_fixpoint_keep_mask_plain(scores, boxes, nms_threshold, mode)
@@ -208,7 +220,7 @@ def nms_scan_keep_mask(
 ) -> torch.Tensor:
     """Capped greedy-NMS keep mask by the sequential scan: the CUDA kernel
     for a CUDA tensor, the plain version for a CPU tensor. scores [R, K]
-    float32, boxes [R, K, 4] float32 contiguous, K <= MAX_K -> bool [R, K]."""
+    float32, boxes [R, K, 4] float32 contiguous -> bool [R, K]."""
     _check_mode(mode)
     if scores.device.type == "cpu":
         return nms_scan_keep_mask_plain(scores, boxes, nms_threshold, keep_top_k, mode)

@@ -60,8 +60,9 @@ the EMA was copied from them (ROADMAP Queue 3).
 
 With `tensorboard=True` the scalars of each log step go to an
 `events.out.tfevents.*` file in `model_dir` as well (`utils/tensorboard.py`),
-and the debug images too where PIL is installed; without PIL the trainer
-says once that it writes no images.
+and the debug images too: drawn in numpy and encoded by the port's own JPEG
+and PNG encoders (`utils/visualization.py`, `data/png.py`), on any host,
+with or without PIL.
 
 Input: `train()` reads the TFRecord shards of `config.data` through
 `make_batches` (the ported `batch_iterator`, or with `data.use_grain` the
@@ -80,7 +81,6 @@ trainer (trainer.py:79-83).
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 import time
@@ -138,10 +138,6 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
-def has_pil() -> bool:
-    return importlib.util.find_spec("PIL") is not None
-
-
 class Trainer:
     """`Trainer(config, device="cuda")`: raises without a card unless the
     caller asks for `device="cpu"`. In a multi-process run, `device` is
@@ -178,7 +174,6 @@ class Trainer:
         self.eval_step = make_eval_step(self.model, self.encoder, self.loss_config)
         self._ckpt = CheckpointManager(config.model_dir, max_to_keep=config.max_to_keep)
         self.state: Optional[TrainState] = None
-        self._said_no_pil = False
 
     # ------------------------------------------------------------------ #
 
@@ -317,8 +312,7 @@ class Trainer:
             from ..utils.tensorboard import TensorBoardWriter
 
             tb = TensorBoardWriter(cfg.model_dir)
-            print(f"[trainer] TensorBoard events -> {tb.path}"
-                  + ("" if has_pil() else " (scalars only: PIL, which encodes the images, is not installed)"))
+            print(f"[trainer] TensorBoard events -> {tb.path}")
         timer = StepTimer()
         last_save_time = time.time()
         it = batches if batches is not None else self.make_batches()
@@ -415,22 +409,19 @@ class Trainer:
         """Sample 0 of the augmented batch that step `step` trained on, with
         its gt boxes (ref: eval_ron_network.py:240-247, draw_toolbox.py:48-101):
         the augmentation re-run with that step's generator (the one of
-        state step `step - 1`), so the image is what the step saw; to
-        TensorBoard too when it is on. Drawing needs PIL: without it the
-        trainer says so once and draws nothing."""
-        from ..utils.visualization import draw_boxes
+        state step `step - 1`), so the image is what the step saw; written
+        as `debug/step_<step>.jpg` (Pillow's default JPEG bytes), and to
+        TensorBoard too when it is on."""
+        from ..data.jpeg import encode_jpeg
+        from ..utils.visualization import JPEG_QUALITY, draw_boxes
 
-        if not has_pil():
-            if not self._said_no_pil:
-                print("[trainer] debug images need PIL, which is not installed: none are written")
-                self._said_no_pil = True
-            return
         aug = self.augment(batch, self.generator(step - 1))
         img01 = np.clip(unwhiten(aug["image"][0].float()).cpu().numpy(), 0.0, 1.0)
         labels = torch.where(aug["gt_valid"][0], aug["gt_labels"][0], 0).cpu().numpy()
         debug_dir = os.path.join(self.config.model_dir, "debug")
         os.makedirs(debug_dir, exist_ok=True)
-        pil = draw_boxes(img01, aug["gt_boxes"][0].cpu().numpy(), labels)
-        pil.save(os.path.join(debug_dir, f"step_{step:06d}.jpg"))
+        picture = draw_boxes(img01, aug["gt_boxes"][0].cpu().numpy(), labels)
+        with open(os.path.join(debug_dir, f"step_{step:06d}.jpg"), "wb") as f:
+            f.write(encode_jpeg(picture, JPEG_QUALITY))
         if tb is not None:
-            tb.image("train/augmented_gt", np.asarray(pil), step)
+            tb.image("train/augmented_gt", picture, step)

@@ -4,9 +4,9 @@ A copy of `ron_tensorflow_tpu/utils/tensorboard.py` (ref: ron_net.py:331-372,
 ssd_vgg_preprocessing.py:86-94, eval_ron_network.py:259-324): Event and
 Summary protos hand-encoded with the varint and length-delimited primitives
 of `data/example.py`, framed as TFRecords (`data/tfrecord.py`) into
-`events.out.tfevents.*` files that TensorBoard reads. Image summaries encode
-PNG through PIL, imported where an image is written: a host without PIL
-writes scalars only.
+`events.out.tfevents.*` files that TensorBoard reads. Image summaries are
+PNG, written by the port's own encoder (`data/png.py::encode_png`, the
+standard zlib): no PIL.
 
 Proto schema (tensorflow/core/util/event.proto, summary.proto):
   Event   { double wall_time=1; int64 step=2; string file_version=3;
@@ -19,7 +19,6 @@ Proto schema (tensorflow/core/util/event.proto, summary.proto):
 
 from __future__ import annotations
 
-import io
 import os
 import socket
 import struct
@@ -29,6 +28,7 @@ from typing import Optional, Union
 import numpy as np
 
 from ..data.example import _iter_fields, _len_delimited, _tag, _varint
+from ..data.png import encode_png
 from ..data.tfrecord import TFRecordWriter, read_records
 
 
@@ -67,15 +67,6 @@ def _event(step: int, summary_values: bytes = b"", file_version: Optional[str] =
     if summary_values:
         ev += _len_delimited(5, summary_values)  # Summary { repeated value }
     return ev
-
-
-def encode_png(image: np.ndarray) -> bytes:
-    """uint8 [H,W,3] -> PNG bytes (PIL)."""
-    from PIL import Image
-
-    buf = io.BytesIO()
-    Image.fromarray(image).save(buf, format="PNG")
-    return buf.getvalue()
 
 
 class TensorBoardWriter:

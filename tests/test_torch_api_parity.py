@@ -83,12 +83,10 @@ FIELD_EXCEPTIONS = {
         "3x3 at every JAX call site; SSD-512's 4x4 block12 is `block12_conv1x1` + `block12_conv4x4` on SSD",
 }
 
-# What the port leaves out on purpose, though the name exists (ROADMAP.md).
-DELIBERATE_OMISSIONS = (
-    "PNG input to `infer` (JPEG only: the port's own decoder; a PNG raises naming the file)",
-    "NMS rows above kernels.nms.MAX_K = 4096 candidates (the CUDA kernels raise)",
-    "progressive JPEG (the decoder raises ValueError)",
-)
+# What the port leaves out on purpose, though the name exists (ROADMAP.md):
+# nothing. PNG input, progressive JPEG, pictures drawn and written without
+# PIL and NMS rows of any width on the card were its last omissions.
+DELIBERATE_OMISSIONS = ()
 
 
 def jax_modules():
@@ -201,7 +199,7 @@ def test_ported_fields_and_names_of_this_slice():
     assert {"nms_method", "split_apply"} <= record_fields(DetectionConfig)
     assert {"s2d_stem", "remat_blocks12"} <= counterpart_fields(RON) & counterpart_fields(VGG16Backbone)
     assert "s2d_stem" in counterpart_fields(SSD)
-    assert len(DELIBERATE_OMISSIONS) == 3
+    assert DELIBERATE_OMISSIONS == ()
 
 
 # --------------------------------------------------------------------------- #

@@ -119,8 +119,30 @@ def edge_rows(edge, r, k):
     return scores.contiguous(), boxes.contiguous()
 
 
+WIDE_K = [MAX_K + 1, 8732, 21250]  # past the switch to the wide-row path; SSD-300's and RON-320's anchors
+
+
 @pytest.mark.parametrize("mode", ["min", "union"])
-@pytest.mark.parametrize("k", [200, MAX_K])
+@pytest.mark.parametrize("k", WIDE_K)
+def test_nms_kernels_on_wide_rows_equal_plain(cuda, k, mode):
+    """Rows of more than MAX_K candidates (a Detector's top_k at every
+    anchor): K-A, and K-C capped at 20, 200 and K, bit-equal to their plain
+    versions."""
+    scores, boxes = (t.to(cuda) for t in sorted_rows(k, 2, k))
+    caps = (20, 200, k)
+    kernels.reset_launch_counts()
+    fix = nms_fixpoint_keep_mask(scores, boxes, 0.4, mode)
+    scan = [nms_scan_keep_mask(scores, boxes, 0.4, cap, mode) for cap in caps]
+    torch.cuda.synchronize()
+    assert nms_fixpoint_keep_mask.launches == 1 and nms_scan_keep_mask.launches == len(caps)
+    assert torch.equal(fix, nms_fixpoint_keep_mask_plain(scores, boxes, 0.4, mode))
+    for cap, got in zip(caps, scan):
+        assert torch.equal(got, nms_scan_keep_mask_plain(scores, boxes, 0.4, cap, mode)), cap
+        assert int(got.sum(-1).max()) <= cap
+
+
+@pytest.mark.parametrize("mode", ["min", "union"])
+@pytest.mark.parametrize("k", [200, MAX_K, 8732])
 @pytest.mark.parametrize("edge", ["nan first", "disjoint", "identical", "borderline"])
 def test_nms_edge_rows_equal_plain(cuda, edge, k, mode):
     """Both kernels against their plain versions on the edge rows, K-C also
@@ -399,11 +421,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_vgg_block1(x, w1, b, w2, b)  # odd height
     with pytest.raises(ValueError):
         nms_scan_keep_mask(scores[:, ::2], boxes[:, ::2])
-    over = [t.to(cuda) for t in sorted_rows(1, 2, MAX_K + 1)]
-    with pytest.raises(ValueError):
-        nms_scan_keep_mask(*over)  # K > MAX_K
-    with pytest.raises(ValueError):
-        nms_fixpoint_keep_mask(*over)
+    wide = [t.to(cuda) for t in sorted_rows(1, 2, MAX_K + 1)]  # K > MAX_K: the wide-row path, no longer refused
+    assert nms_scan_keep_mask(*wide).shape == nms_fixpoint_keep_mask(*wide).shape == (2, MAX_K + 1)
     taken = [t.to(cuda) for t in sorted_rows(1, 2, 2048)]  # past the old limit of 1024
     assert nms_scan_keep_mask(*taken).shape == nms_fixpoint_keep_mask(*taken).shape == (2, 2048)
     with pytest.raises(ValueError):

@@ -390,13 +390,34 @@ def test_np_methods_detect_matches_jax():
 
 
 def test_save_image_with_boxes_matches_jax(tmp_path):
+    """The port draws in numpy: JAX's picture outside both captions (the
+    port's bitmap font and PIL's text), and the JPEG Pillow writes for the
+    port's picture, byte for byte."""
+    import io
+
+    from PIL import Image, ImageDraw
+
     rng = np.random.default_rng(3)
     image01 = rng.uniform(size=(40, 60, 3)).astype(np.float32)
     boxes = np.array([[0.1, 0.1, 0.5, 0.6], [0.2, 0.3, 0.9, 0.8]], np.float32)
     args = (image01, boxes, np.array([12, 0]), np.array([0.9, 0.4]))
     got = visualization.save_image_with_boxes(*args, directory=str(tmp_path / "port"), index=3)
     ref = jax_visualization.save_image_with_boxes(*args, directory=str(tmp_path / "jax"), index=3)
-    assert Path(got).read_bytes() == Path(ref).read_bytes()
+    assert Path(got).name == Path(ref).name == "3.jpg"
+    picture = visualization.draw_boxes(*args)
+    buf = io.BytesIO()
+    Image.fromarray(picture).save(buf, format="JPEG")
+    assert Path(got).read_bytes() == buf.getvalue()
+    jax_picture = np.asarray(jax_visualization.draw_boxes(*args))
+    text = visualization.caption(12, 0.9, ("bg",) + visualization.VOC_CLASSES)  # "dog 0.90"
+    x, y = 0.1 * 60 + 2, 0.1 * 40 + 2
+    outside = np.ones((40, 60), bool)
+    x0, y0, x1, y1 = visualization.caption_box(x, y, text)
+    outside[y0:y1, x0:x1] = False
+    x0, y0, x1, y1 = ImageDraw.Draw(Image.new("RGB", (60, 40))).textbbox((x, y), text)
+    outside[int(y0):int(np.ceil(y1)) + 1, int(x0):int(np.ceil(x1)) + 1] = False
+    assert outside.sum() > 1000
+    np.testing.assert_array_equal(picture[outside], jax_picture[outside])
 
 
 # --------------------------------------------------------------------------- #

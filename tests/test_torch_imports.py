@@ -100,3 +100,33 @@ def test_learning_tools_import_without_pil():
                    f"runpy.run_path({str(script)!r}, run_name='__main__')\n")
     proc = subprocess.run([sys.executable, "-c", stdlib_only], cwd=REPO, capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0 and "--probe-timeout" in proc.stdout, proc.stderr
+
+
+# The modules that decode, draw and write pictures, and those that call them.
+PICTURE_MODULES = ["ron_tensorflow_tpu_torch.data.decode", "ron_tensorflow_tpu_torch.data.png",
+                   "ron_tensorflow_tpu_torch.data.jpeg", "ron_tensorflow_tpu_torch.data.pipeline",
+                   "ron_tensorflow_tpu_torch.utils.visualization", "ron_tensorflow_tpu_torch.utils.tensorboard",
+                   "ron_tensorflow_tpu_torch.train.trainer", "ron_tensorflow_tpu_torch.eval.realtime",
+                   "ron_tensorflow_tpu_torch.cli", "ron_tensorflow_tpu_torch.kernels.nms",
+                   "ron_tensorflow_tpu_torch.inference.detector"]
+
+
+def test_picture_modules_import_without_pil_or_cv2():
+    """The modules that read, draw and write images need neither PIL nor
+    cv2 (nor JAX): none of them is imported, by them or by what they import."""
+    blocked = BLOCKED + ("PIL", "cv2")
+    code = "\n".join(
+        [
+            "import importlib, sys",
+            f"for name in {blocked!r}:",
+            "    sys.modules[name] = None",
+            f"for name in {PICTURE_MODULES + ['chip_smoke']!r}:",
+            "    importlib.import_module(name)",
+            f"leaked = [m for m in sys.modules if m.split('.')[0] in {blocked!r} and sys.modules[m] is not None]",
+            "assert not leaked, leaked",
+            "print('ok')",
+        ]
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -18,7 +18,10 @@ clipped.
   differs, a few 1e-6 of an output's largest magnitude here.
 - It prints the JAX CLI's lines, word for word, and writes one picture an
   image.
-- A file the port's decoder does not take (a PNG) raises ValueError naming
+- PNGs and progressive JPEGs (tests/fixtures/image_formats) take the same
+  path with PIL and cv2 unimportable, against JAX's pipeline on the same
+  files (PIL decode).
+- A file the port's decoders do not take (a GIF) raises ValueError naming
   it; without `--device` it runs on the card and raises here.
 """
 
@@ -57,6 +60,7 @@ from test_torch_cli_entry import to_jax_model_dir  # noqa: E402
 
 MODEL = "ron_tiny_vgg"
 VOC_MINI = Path(__file__).resolve().parent / "fixtures" / "voc_mini" / "VOC2007" / "JPEGImages"
+IMAGE_FORMATS = Path(__file__).resolve().parent / "fixtures" / "image_formats"
 TOL = 1e-5
 # the standard deviations the seeded predictors are scaled to, on the fixture images
 HEAD_STD = {"_cls/pred/": ("logits", 3.0), "_objectness/score/": ("objness_logits", 3.0),
@@ -151,13 +155,36 @@ def test_infer_matches_jax(model_dirs, tmp_path, capsys, threshold):
     assert capsys.readouterr().out.splitlines() == lines
 
 
+def test_infer_takes_png_and_progressive_jpeg_without_pil(model_dirs, tmp_path, capsys, monkeypatch):
+    """The fixture PNGs (a Pillow-written picture and the 16-bit gray one,
+    where PIL's route clips) and progressive JPEGs, with PIL and cv2
+    unimportable in the port's run: JAX's pipeline's detections (PIL
+    decode), and one picture each that the port's decoder reads back."""
+    root, params, stats = model_dirs
+    paths = [str(IMAGE_FORMATS / n) for n in ("voc_000001.png", "gray16.png", "prog_420.jpg", "prog_odd.jpg")]
+    want = jax_pipeline(params, stats, paths, 0.5)
+    out_dir = tmp_path / "pictures"
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    lines, got = run_infer(["--device", "cpu", "infer", "--model", MODEL, "--model-dir", str(root / "model"),
+                            "--output-dir", str(out_dir), "--objectness-threshold", "0.5", *paths], capsys)
+    assert len(got) == len(want) == len(lines) == 4
+    for (path, scores, labels, boxes, picture), (ws, wl, wb) in zip(got, want):
+        assert len(scores) == len(ws), path
+        np.testing.assert_array_equal(labels, wl)
+        np.testing.assert_allclose(scores, ws, rtol=0, atol=TOL)
+        np.testing.assert_allclose(boxes, wb, rtol=0, atol=TOL)
+        assert decode_jpeg_raw(Path(picture).read_bytes()).shape == (64, 64, 3)
+    assert sum(len(g[1]) for g in got) >= 2
+
+
 def test_infer_rejects_a_file_the_decoder_does_not_take(model_dirs, tmp_path):
     root, _, _ = model_dirs
-    png = tmp_path / "frame.png"
-    Image.fromarray(np.zeros((40, 60, 3), np.uint8)).save(png)
-    with pytest.raises(ValueError, match="frame.png"):
+    gif = tmp_path / "frame.gif"
+    Image.fromarray(np.zeros((40, 60, 3), np.uint8)).save(gif)
+    with pytest.raises(ValueError, match="frame.gif"):
         cli.main(["--device", "cpu", "infer", "--model", MODEL, "--model-dir", str(root / "model"), "--output-dir",
-                  str(tmp_path / "out"), images()[0], str(png)])
+                  str(tmp_path / "out"), images()[0], str(gif)])
     assert (tmp_path / "out" / "0.jpg").is_file() and not (tmp_path / "out" / "1.jpg").exists()
 
 

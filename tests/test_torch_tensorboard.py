@@ -1,9 +1,13 @@
 """The port's TensorBoard writer against the JAX package's: with the wall
-time pinned, the same calls give the same bytes; the port's decoder reads
-them back with every record's CRCs verified, and TensorFlow's own event
-reader agrees where TensorFlow is installed."""
+time pinned, the same calls give the same bytes (an image's PNG, which the
+port writes with its own encoder and JAX through PIL, gives the same
+pixels); the port's decoder reads them back with every record's CRCs
+verified, and TensorFlow's own event reader agrees where TensorFlow is
+installed."""
 
+import io
 import os
+import sys
 import time
 
 import numpy as np
@@ -11,6 +15,7 @@ import pytest
 
 from ron_tensorflow_tpu.utils.tensorboard import TensorBoardWriter as JaxWriter
 
+from ron_tensorflow_tpu_torch.data.png import decode_png
 from ron_tensorflow_tpu_torch.utils.tensorboard import TensorBoardWriter, read_events
 
 WALL = 1700000000.25
@@ -31,14 +36,21 @@ def write(cls, logdir, with_image):
 
 @pytest.mark.parametrize("with_image", [False, True], ids=["scalars", "scalars+image"])
 def test_event_files_equal_jax_and_decode(with_image, tmp_path, monkeypatch):
-    if with_image:
-        pytest.importorskip("PIL")
     monkeypatch.setattr(time, "time", lambda: WALL)
     ours = write(TensorBoardWriter, tmp_path / "ours", with_image)
     theirs = write(JaxWriter, tmp_path / "theirs", with_image)
     assert os.path.basename(ours) == os.path.basename(theirs)
-    with open(ours, "rb") as a, open(theirs, "rb") as b:
-        assert a.read() == b.read()
+    if not with_image:
+        with open(ours, "rb") as a, open(theirs, "rb") as b:
+            assert a.read() == b.read()
+    else:  # every event equal but the image's PNG bytes, whose pixels are
+        got, want = read_events(ours), read_events(theirs)
+        pngs = [[im[2] for e in ev for im in e["images"].values()] for ev in (got, want)]
+        for ev in (got, want):
+            for e in ev:
+                e["images"] = {tag: im[:2] for tag, im in e["images"].items()}
+        assert got == want and len(pngs[0]) == len(pngs[1]) == 1
+        np.testing.assert_array_equal(decode_png(pngs[0][0]), decode_png(pngs[1][0]))
 
     events = read_events(ours)
     assert events[0]["file_version"] == "brain.Event:2" and all(e["wall_time"] == WALL for e in events)
@@ -50,8 +62,6 @@ def test_event_files_equal_jax_and_decode(with_image, tmp_path, monkeypatch):
     images = [(e["step"], tag, im) for e in events for tag, im in e["images"].items()]
     assert len(images) == int(with_image)
     if with_image:
-        import io
-
         from PIL import Image
 
         step, tag, (h, w, png) = images[0]
@@ -79,19 +89,17 @@ def test_corrupt_event_file_is_rejected(tmp_path):
 
 
 def test_png_needs_pil_only_when_an_image_is_written(tmp_path, monkeypatch):
-    import builtins
-
-    real_import = builtins.__import__
-
-    def no_pil(name, *args, **kwargs):
-        if name == "PIL" or name.startswith("PIL."):
-            raise ImportError("no PIL here")
-        return real_import(name, *args, **kwargs)
-
-    monkeypatch.setattr(builtins, "__import__", no_pil)
+    """Not even then: with PIL and cv2 unimportable, an image summary is
+    written by the port's own PNG encoder and reads back."""
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    img = np.random.default_rng(2).integers(0, 256, (5, 7, 3), np.uint8)
     w = TensorBoardWriter(str(tmp_path))
     w.scalars({"x": 1.0}, step=1)
-    with pytest.raises(ImportError):
-        w.image("debug/gt", np.zeros((2, 2, 3), np.uint8), step=1)
+    w.image("debug/gt", img, step=1)
     w.close()
-    assert [e["scalars"] for e in read_events(w.path)] == [{}, {"x": 1.0}]
+    events = read_events(w.path)
+    assert [e["scalars"] for e in events] == [{}, {"x": 1.0}, {}]
+    h, wd, png = events[2]["images"]["debug/gt"]
+    assert (h, wd) == (5, 7)
+    np.testing.assert_array_equal(decode_png(png), img)

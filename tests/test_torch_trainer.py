@@ -31,7 +31,7 @@ from ron_tensorflow_tpu_torch.models.spec import SSD_300_SPEC
 from ron_tensorflow_tpu_torch.train.checkpoint import CheckpointManager
 from ron_tensorflow_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from ron_tensorflow_tpu_torch.train.state import create_train_state
-from ron_tensorflow_tpu_torch.train.trainer import Trainer, has_pil, step_seed
+from ron_tensorflow_tpu_torch.train.trainer import Trainer, step_seed
 from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
 
 B, CANVAS, G = 2, 96, 4
@@ -154,7 +154,7 @@ def test_trainer_nan_guard(tmp_path):
 def test_trainer_tensorboard_is_announced_once_and_input_can_end(tmp_path, capsys):
     """With tensorboard=True the trainer names its event file once; the
     file holds the scalars of metrics.jsonl at the same steps (as float32),
-    and the debug image where PIL is installed."""
+    and the debug image, which needs no PIL."""
     t = Trainer(tiny_config(tmp_path, tensorboard=True, max_steps=5, dump_debug_images_every=2), device="cpu")
     record_saves(t)
     host = next(host_batches())
@@ -172,7 +172,7 @@ def test_trainer_tensorboard_is_announced_once_and_input_can_end(tmp_path, capsy
         want = {k: float(np.float32(v)) for k, v in r.items() if k not in ("step", "time")}
         assert scalars[r["step"]] == want
     images = [(e["step"], list(e["images"])) for e in events if e["images"]]
-    assert images == ([(2, ["train/augmented_gt"])] if has_pil() else [])
+    assert images == [(2, ["train/augmented_gt"])]
 
 
 def test_trainer_defaults_to_cuda_and_refuses_what_is_not_ported(tmp_path):
