@@ -300,6 +300,23 @@ Phases, each ending with a line that gives its elapsed seconds:
               21250]; (d) two Trainer steps with dump_debug_images_every=1
               and TensorBoard: two debug JPEGs and two TensorBoard PNGs that
               the port's decoders read.
+ 33. rehearsal `tools/dress_rehearsal.py`'s `main` at full width on the
+              crowded generator, cut to REHEARSAL_ENV (RON-320, 200 training
+              and 64 test images, 200 recipe steps at batch 14 in bf16 from
+              the seeded torch VGG-16), then `tools/ab_detection_config.py`
+              on its work dir (AB_MAX_BOXES=56): the test records and the
+              VOCdevkit tree agree image by image (JPEG bytes, size, labels,
+              difficult flags; boxes within 0.051 px); K-A and K-C launched
+              in the rehearsal and no other kernel, K-A in the streaming
+              eval and K-C in the realtime eval; each A/B variant launches
+              its kernel only (K-C for 'loop' and 'fixpoint', K-A for
+              'pallas' and 'auto'); 'approx_top_k only' and 'fixpoint' give
+              the exact run's detections and 'presel + pallas' the
+              preselection's, bit for bit (a digest of every Detector
+              output); every mAP finite; result.json with the JAX tool's
+              keys and its exit code matching its `ok`. Whatever the mAP
+              (200 steps do not reach the tool's 0.5), the mAPs and the
+              K-A/K-C keep-set parting count are printed.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -412,7 +429,7 @@ from ron_tensorflow_tpu_torch.train.state import (
 )
 from ron_tensorflow_tpu_torch.train.tf_checkpoint import slim_ron_to_flat
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
-from ron_tensorflow_tpu_torch.tools import overfit_check, synthetic_e2e
+from ron_tensorflow_tpu_torch.tools import ab_detection_config, dress_rehearsal, overfit_check, synthetic_e2e
 from ron_tensorflow_tpu_torch.tools.synthetic_data import make_dataset
 from ron_tensorflow_tpu_torch.utils.profiling import profile_trace
 from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
@@ -4120,6 +4137,153 @@ def images_phase(smi):
     return res
 
 
+# phase "rehearsal": the dress rehearsal's scale cut to the phase's budget
+# (full width, the crowded generator, the recipe's batch 14), then the A/B
+REHEARSAL_ENV = {"DR_MODEL": "ron_320_vgg", "DR_CROWDED": "1", "DR_TRAIN": "200", "DR_TEST": "64",
+                 "DR_STEPS": "200", "DR_BATCH": "14"}
+REHEARSAL_AB_MAX_BOXES = "56"  # the crowded sets' gt pad
+REHEARSAL_BOX_TOL = 0.051  # px: the XML rounds to 0.1 px, the records hold float32
+# variants that must give the same detections bit for bit: K-C on the same rows, K-A on the same rows
+REHEARSAL_SAME = (("exact reference (no knobs)", "approx_top_k only", "fixpoint NMS"),
+                  ("presel shared_top_k=1000", "presel + pallas NMS"))
+
+
+def rehearsal_layouts(work):
+    """Phase "rehearsal": the test records against the VOCdevkit tree, image
+    by image in test.txt's order: the JPEG bytes, the size, labels and
+    difficult flags equal, the boxes within REHEARSAL_BOX_TOL px."""
+    voc = work / "VOCdevkit" / "VOC2007"
+    ids = (voc / "ImageSets" / "Main" / "test.txt").read_text().split()
+    records = [parse_voc_example(r) for f in sorted((work / "records").glob("synth_test_*.tfrecord"))
+               for r in read_records(str(f))]
+    if len(ids) != len(records) or ids != [f"{i:06d}" for i in range(len(ids))]:
+        raise AssertionError(f"test.txt lists {len(ids)} ids, the test records hold {len(records)}")
+    worst, n_objects, n_difficult = 0.0, 0, 0
+    for image_id, rec in zip(ids, records):
+        ann = parse_annotation(str(voc / "Annotations" / f"{image_id}.xml"))
+        h, w = ann.shape[:2]
+        if (voc / "JPEGImages" / f"{image_id}.jpg").read_bytes() != rec["jpeg"]:
+            raise AssertionError(f"{image_id}: the JPEG differs between the records and the VOCdevkit tree")
+        labels = [o.label for o in ann.objects]
+        difficult = [o.difficult for o in ann.objects]
+        if tuple(rec["shape"][:2]) != (h, w) or list(rec["labels"]) != labels or list(rec["difficult"]) != difficult:
+            raise AssertionError(f"{image_id}: size, labels or difficult flags differ: records "
+                                 f"{rec['shape']} {list(rec['labels'])} {list(rec['difficult'])}, XML "
+                                 f"{(h, w)} {labels} {difficult}")
+        scale = np.asarray([h, w, h, w], np.float64)
+        xml_px = np.asarray([o.bbox for o in ann.objects], np.float64).reshape(-1, 4) * scale
+        err = float(np.abs(xml_px - np.asarray(rec["boxes"], np.float64).reshape(-1, 4) * scale).max(initial=0.0))
+        if err > REHEARSAL_BOX_TOL:
+            raise AssertionError(f"{image_id}: boxes differ by {err:.4f} px between the records and the XML")
+        worst, n_objects, n_difficult = max(worst, err), n_objects + len(labels), n_difficult + sum(difficult)
+    return {"images": len(ids), "objects": n_objects, "difficult": n_difficult, "box_max_px": worst}
+
+
+@contextlib.contextmanager
+def rehearsal_probes(counts, digests):
+    """Around every `Trainer.train`, `StreamingEvaluator.run` and
+    `evaluate_voc` call: its launches and seconds (appended to
+    counts[label]); and a digest of every `Detector.postprocess` output
+    (scores and boxes, bit for bit) that a `StreamingEvaluator.run` makes,
+    one digest a run."""
+    runs = {"train": (Trainer, "train"), "streaming": (StreamingEvaluator, "run"),
+            "realtime": (RealtimeEvaluator, "evaluate_voc")}
+    originals = {label: getattr(cls, name) for label, (cls, name) in runs.items()}
+    postprocess = Detector.postprocess
+
+    def probe(label):
+        def wrapper(*args, **kwargs):
+            before, t0 = kernels.launch_counts(), time.perf_counter()
+            if label == "streaming":
+                digests.append(hashlib.sha256())
+            out = originals[label](*args, **kwargs)
+            torch.cuda.synchronize()
+            counts[label].append({"launches": {k: n - before[k] for k, n in kernels.launch_counts().items()},
+                                  "s": time.perf_counter() - t0})
+            return out
+        return wrapper
+
+    def hashed(self, out):
+        scores, boxes = postprocess(self, out)
+        for t in (scores, boxes):
+            digests[-1].update(t.float().cpu().numpy().tobytes())
+        return scores, boxes
+
+    with contextlib.ExitStack() as stack:
+        for label, (cls, name) in runs.items():
+            stack.enter_context(mock.patch.object(cls, name, probe(label)))
+        stack.enter_context(mock.patch.object(Detector, "postprocess", hashed))
+        yield
+
+
+def rehearsal_phase(smi):
+    """Phase "rehearsal": `tools/dress_rehearsal.py` at REHEARSAL_ENV's scale
+    through its `main`, then `tools/ab_detection_config.py` on its work dir."""
+    counts, digests = {"train": [], "streaming": [], "realtime": []}, []
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(os.environ, REHEARSAL_ENV):
+        work = Path(tmp) / "rehearsal"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with rehearsal_probes(counts, digests):
+            rc, printed = quietly(lambda: dress_rehearsal.main(["--device", CARD, str(work)]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        check_counts("dress rehearsal (training, streaming eval, realtime eval)", launches,
+                     ("nms_fixpoint_keep_mask", "nms_scan_keep_mask"))
+        result = json.loads((work / "result.json").read_text())
+        if tuple(result) != dress_rehearsal.RESULT_KEYS or rc != (0 if json.loads(
+                (work / "rehearsal.json").read_text())[0]["ok"] else 1):
+            raise AssertionError(f"result.json keys {list(result)} (JAX's: {dress_rehearsal.RESULT_KEYS}), exit {rc}"
+                                 "\n" + "\n".join(printed[-20:]))
+        layouts = rehearsal_layouts(work)
+        (train,), (stream,), (realtime,) = counts["train"], counts["streaming"], counts["realtime"]
+        train_s, stream, realtime = train["s"], stream["launches"], realtime["launches"]
+        if (any(train["launches"].values()) or stream["nms_fixpoint_keep_mask"] < 1
+                or realtime["nms_scan_keep_mask"] < 1):
+            raise AssertionError(f"launches: training {train['launches']} (none expected: K-B stays off), streaming "
+                                 f"eval {stream} (K-A), realtime eval {realtime} (K-C)")
+        t0 = time.perf_counter()
+        with rehearsal_probes(counts, digests), mock.patch.dict(os.environ, {"AB_MAX_BOXES": REHEARSAL_AB_MAX_BOXES}):
+            ab_out, ab_printed = quietly(lambda: ab_detection_config.main(["--device", CARD, str(work), "ron_320_vgg"]))
+        torch.cuda.synchronize()
+        ab_s = time.perf_counter() - t0
+    names = list(ab_detection_config.VARIANTS)
+    variant_launches = dict(zip(names, (c["launches"] for c in counts["streaming"][1:])))
+    variant_digests = dict(zip(names, (d.hexdigest() for d in digests[1:])))
+    if len(counts["streaming"]) != 1 + len(names):
+        raise AssertionError(f"{len(counts['streaming']) - 1} A/B evaluator runs, {len(names)} variants")
+    for name, launched in variant_launches.items():
+        kernel = ("nms_scan_keep_mask" if ab_detection_config.VARIANTS[name].nms_method in ("loop", "fixpoint")
+                  else "nms_fixpoint_keep_mask")
+        if launched[kernel] < 1 or sum(launched.values()) != launched[kernel]:
+            raise AssertionError(f"A/B variant {name!r}: launches {launched}, {kernel} only expected")
+    for group in REHEARSAL_SAME:
+        if len({variant_digests[n] for n in group}) != 1:
+            raise AssertionError(f"A/B variants {group} differ: {[variant_digests[n][:12] for n in group]}")
+    maps = {"map07_streaming": result["map07_streaming"], "map12_streaming": result["map12_streaming"],
+            "map07_realtime": result["map07_realtime"], **ab_out["map07"]}
+    if not all(np.isfinite(v) for v in maps.values()):
+        raise AssertionError(f"non-finite mAP: {maps}")
+    parting = ab_out["keep_set_parting"]
+    env = REHEARSAL_ENV
+    print(f"  dress rehearsal {env['DR_MODEL']} crowded, {env['DR_TRAIN']} + {env['DR_TEST']} images, "
+          f"{result['steps']} steps at batch {env['DR_BATCH']} (bf16, seeded torch VGG warm start): mAP07 streaming "
+          f"{result['map07_streaming']} (mAP12 {result['map12_streaming']}), realtime {result['map07_realtime']}, "
+          f"delta {result['delta']}; {seconds:.2f} s (training {train_s:.2f} s), exit {rc}; records and VOCdevkit "
+          f"agree on {layouts['images']} images, {layouts['objects']} objects ({layouts['difficult']} difficult), "
+          f"boxes within {layouts['box_max_px']:.3f} px; K-A {stream['nms_fixpoint_keep_mask']} launches in the "
+          f"streaming eval, K-C {realtime['nms_scan_keep_mask']} in the realtime eval ({smi})")
+    print(f"  A/B ({ab_s:.2f} s): " + ", ".join(f"{n} {v:.4f}" for n, v in ab_out["map07"].items()))
+    print(f"  A/B: {' = '.join(REHEARSAL_SAME[0])} (K-C) and {' = '.join(REHEARSAL_SAME[1])} (K-A) bit for "
+          f"bit; K-A vs K-C keep sets part on {parting['rows_parted']} of {parting['rows']} rows, "
+          f"{parting['boxes_parted']} boxes; " + ab_printed[-3].strip())
+    return {"result": result, "exit": rc, "seconds": seconds, "train_s": train_s, "ab_s": ab_s, "layouts": layouts,
+            "launches": launches, "streaming_launches": stream, "realtime_launches": realtime,
+            "ab": {"map07": ab_out["map07"], "lossless": ab_out["lossless"], "keep_set_parting": parting,
+                   "launches": variant_launches, "digests": variant_digests}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -4370,6 +4534,8 @@ def main() -> int:
         bench = {**bench_cli(smi), "shared_top_k": bench_shared_top_k(state, images)}
     with phase("images"):
         images_res = images_phase(smi)
+    with phase("rehearsal"):
+        rehearsal = rehearsal_phase(smi)
     results[2]["cli_infer_launches"] = cli_inf["launches"]["nms_scan_keep_mask"]
     kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
                               "eval": cli_eval["launches"]["fused_vgg_block1"]}
@@ -4396,6 +4562,13 @@ def main() -> int:
     results[0]["wide_rows"] = wide["nms_fixpoint_keep_mask"]
     results[2]["wide_rows"] = wide["nms_scan_keep_mask"]
     results[0]["images_launches"] = images_res["wide_rows"]["Detector"]["launches"]["nms_fixpoint_keep_mask"]
+    ab_launches = rehearsal["ab"]["launches"]
+    results[0]["rehearsal_launches"] = {
+        "streaming_eval": rehearsal["streaming_launches"]["nms_fixpoint_keep_mask"],
+        "ab_variants": {n: v["nms_fixpoint_keep_mask"] for n, v in ab_launches.items() if v["nms_fixpoint_keep_mask"]}}
+    results[2]["rehearsal_launches"] = {
+        "realtime_eval": rehearsal["realtime_launches"]["nms_scan_keep_mask"],
+        "ab_variants": {n: v["nms_scan_keep_mask"] for n, v in ab_launches.items() if v["nms_scan_keep_mask"]}}
     results[2]["images_launches"] = {
         "cli_infer": images_res["infer"]["launches"]["nms_scan_keep_mask"],
         "realtime_wide": images_res["wide_rows"]["realtime head"]["launches"]["nms_scan_keep_mask"]}
@@ -4414,7 +4587,7 @@ def main() -> int:
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
                                          "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
                       "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn, "bench": bench,
-                      "stem": stem, "images": images_res}))
+                      "stem": stem, "images": images_res, "rehearsal": rehearsal}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

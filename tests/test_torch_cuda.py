@@ -6,6 +6,7 @@ imports torch and the port only, so it runs on a GPU host without JAX:
 """
 
 import functools
+import json
 
 import pytest
 import torch
@@ -670,3 +671,51 @@ def test_profile_trace_on_card_holds_kernels(cuda, tmp_path):
         torch.cuda.synchronize()
     (trace,) = list(tmp_path.glob("*.pt.trace.json"))
     assert any(e.get("cat") == "kernel" for e in json.loads(trace.read_text())["traceEvents"])
+
+
+def test_tiny_rehearsal_on_card_launches_ka_and_kc(cuda, tmp_path, monkeypatch):
+    """The dress rehearsal end to end on the card at a tiny size (RON-tiny,
+    8 + 4 images, 2 bf16 steps, K-B off as in the JAX tool): the streaming
+    evaluator runs K-A (shared_top_k, 'auto'), the realtime evaluator K-C;
+    then the A/B: its K-C variants ('loop', 'fixpoint') agree with the
+    exact run, and its two K-A preselection variants with each other."""
+    from ron_tensorflow_tpu_torch.eval import StreamingEvaluator
+    from ron_tensorflow_tpu_torch.eval.realtime import RealtimeEvaluator
+    from ron_tensorflow_tpu_torch.tools import ab_detection_config as ab
+    from ron_tensorflow_tpu_torch.tools import dress_rehearsal as dr
+
+    for k, v in {"DR_MODEL": "ron_tiny_vgg", "DR_TRAIN": "8", "DR_TEST": "4", "DR_STEPS": "2", "DR_BATCH": "2",
+                 "DR_CROWDED": "1", "AB_MAX_BOXES": "56"}.items():
+        monkeypatch.setenv(k, v)
+    counts = {}
+
+    def counted(cls, name, label):
+        fn = getattr(cls, name)
+
+        def wrapper(*args, **kwargs):
+            before = kernels.launch_counts()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            counts.setdefault(label, []).append({k: n - before[k] for k, n in kernels.launch_counts().items()})
+            return out
+
+        monkeypatch.setattr(cls, name, wrapper)
+
+    counted(StreamingEvaluator, "run", "streaming")
+    counted(RealtimeEvaluator, "evaluate_voc", "realtime")
+    assert dr.main([str(tmp_path)]) == 1  # 2 steps: the mAP gate fails, the run does not
+    result = json.loads((tmp_path / "result.json").read_text())
+    assert tuple(result) == dr.RESULT_KEYS and result["steps"] == 2
+    (stream,), (realtime,) = counts["streaming"], counts["realtime"]
+    assert stream["nms_fixpoint_keep_mask"] == 1 and stream["nms_scan_keep_mask"] == 0
+    assert realtime["nms_scan_keep_mask"] == 1 and realtime["nms_fixpoint_keep_mask"] == 0
+    assert stream["fused_vgg_block1"] == realtime["fused_vgg_block1"] == 0
+    out = ab.main([str(tmp_path), "ron_tiny_vgg"])
+    per_variant = dict(zip(ab.VARIANTS, counts["streaming"][1:]))
+    for name, launched in per_variant.items():
+        kernel = "nms_scan_keep_mask" if ab.VARIANTS[name].nms_method in ("loop", "fixpoint") else \
+            "nms_fixpoint_keep_mask"
+        assert launched[kernel] == 1 and sum(launched.values()) == 1, (name, launched)
+    m = out["map07"]
+    assert m["approx_top_k only"] == m["fixpoint NMS"] == m[ab.EXACT]
+    assert m["presel + pallas NMS"] == m["presel shared_top_k=1000"]

@@ -130,3 +130,31 @@ def test_picture_modules_import_without_pil_or_cv2():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+REHEARSAL_TOOLS = ["ron_tensorflow_tpu_torch.tools.dress_rehearsal",
+                   "ron_tensorflow_tpu_torch.tools.ab_detection_config",
+                   "ron_tensorflow_tpu_torch.tools.synthetic_data"]
+
+
+def test_rehearsal_tools_import_without_jax_pil_or_cv2():
+    """The dress rehearsal and its A/B draw, encode, train and score with the
+    port alone: neither JAX, the JAX package, PIL nor cv2 is imported."""
+    blocked = BLOCKED + ("PIL", "cv2")
+    mods = port_modules()
+    assert all(name in mods for name in REHEARSAL_TOOLS)
+    code = "\n".join(
+        [
+            "import importlib, sys",
+            f"for name in {blocked!r}:",
+            "    sys.modules[name] = None",
+            f"for name in {REHEARSAL_TOOLS!r}:",
+            "    importlib.import_module(name)",
+            f"leaked = [m for m in sys.modules if m.split('.')[0] in {blocked!r} and sys.modules[m] is not None]",
+            "assert not leaked, leaked",
+            "print('ok')",
+        ]
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
