@@ -6,7 +6,8 @@ Phases, each ending with a line that gives its elapsed seconds:
   1. device   the card's name and power limit (nvidia-smi);
   2. build    the port's five CUDA kernels, one nvcc call; ptxas's registers
               and spills and the HGMMA count in the SASS of each
-              instantiation of the tensor-core kernels (K-B; K-D and K-E,
+              instantiation of the tensor-core kernels (K-B: block 1's
+              kernel and the one for every other width; K-D and K-E,
               which share one kernel: bf16 or f32 store, weights resident
               or streamed);
   3. kernels  each kernel against its plain PyTorch version on the card, at
@@ -14,7 +15,16 @@ Phases, each ending with a line that gives its elapsed seconds:
               4096 rows, a NaN first score, keep_top_k 0, disjoint boxes
               (all kept), identical ones (one kept) and overlaps within a
               few ulps of the threshold; conv: ragged tiles, f32 and bf16
-              inputs); then K-A and K-C on rows wider than MAX_K (the
+              inputs, K-D/K-E at 12 channels); K-B beyond block 1 (VGG
+              block 2, 64 -> 128, the kernels API): on the RON-320 model's
+              own pool1 of the batch (K-B block 1) with its conv2_1/conv2_2,
+              bf16 and f32 x, at [32, 160, 160, 64] and cropped to a ragged
+              [3, 36, 52] at 64 -> 128 and 8 -> 8, each against its plain
+              version; block 1 chained into block 2 against the model's
+              pool2; a torch.profiler pass over one block-2 call (its own
+              kernel, no cuDNN or cuBLAS one) and its peak memory (below
+              one [B, H, W, C] intermediate); then K-A and K-C on rows
+              wider than MAX_K (the
               kernel's wide-row path): seeded [2, 8732] and [2, 21250]
               rows, 'min' and 'union', K-C capped at 20 and 200, each mask
               bit-equal to its plain version (K-A's run a row at a time and
@@ -36,7 +46,8 @@ Phases, each ending with a line that gives its elapsed seconds:
               VGG block-2 and block-3 tails; each output against its plain
               version, and K-D against K-B on the same batch;
   6. grad     K-B's gradients (kernel forward, recompute backward) against
-              autograd through the unfused composition, bf16, batch 32;
+              autograd through the unfused composition, bf16, batch 32; the
+              same at VGG block 2's widths on phase 3's pool1, batch 14;
   7. realtime f32  the realtime head (`RealtimeDetector`, whole-image NMS
               through K-C) on phase 4a's f32 forward of the four images, each
               with its own min size: the published config (top_k 2048, then
@@ -143,8 +154,10 @@ Phases, each ending with a line that gives its elapsed seconds:
               and stage splits, the SSD-300 bf16 train step at batch 32 (ms,
               images/s, stage split, peak memory); K-B at [32, 300, 300, 3],
               [8, 512, 512, 3] and [32, 512, 512, 3] beside its bound, plain
-              version and cuDNN; K-A on the SSD Detectors' rows and K-C on
-              SSD-300's class-wise realtime rows.
+              version and cuDNN; K-B at VGG block 2 ([32, 160, 160, 64] ->
+              128) beside its bound, plain version and cuDNN, and its
+              batch-14 forward + recompute backward; K-A on the SSD
+              Detectors' rows and K-C on SSD-300's class-wise realtime rows.
  18. reference import  the reference's RON-320: the 184 slim tensors named in
               tests/fixtures/reference_forward.npz, regenerated by name as
               tools/reference_forward.py does (`weight_for`, a copy), mapped
@@ -485,8 +498,10 @@ CONV_MMA_INSTANTIATIONS = {"bf16 out, resident weights": CONV_MMA + "ItLb0E",
                            "bf16 out, streamed weights": CONV_MMA + "ItLb1E",
                            "f32 out, resident weights": CONV_MMA + "IfLb0E",
                            "f32 out, streamed weights": CONV_MMA + "IfLb1E"}
+KB_FOREIGN_KERNELS = ("cudnn", "cublas", "gemm", "xmma", "cutlass", "implicit")  # library kernel names
 TENSOR_CORE_KERNELS = {
-    "fused_vgg_block1": {"bf16 out": "fused_vgg_block1_kernel"},
+    "fused_vgg_block1": {"block 1 (Ci 3, C 64)": "fused_vgg_block1_kernel",
+                         "any other width (block 2: 64 -> 128)": "fused_vgg_block2_kernel"},
     "fused_stem_conv_relu_pool2": {k: v for k, v in CONV_MMA_INSTANTIATIONS.items() if k.startswith("bf16")},
     "fused_conv3x3_relu_pool2": CONV_MMA_INSTANTIATIONS,
 }
@@ -554,9 +569,10 @@ def tensor_core_report():
     lib = _build.library()
     report = {}
     for name, instantiations in TENSOR_CORE_KERNELS.items():
-        smem = getattr(lib, f"{name}_smem_bytes")()
         report[name] = {"tensor_cores": {}}
         for label, kernel in instantiations.items():
+            # the launcher of the kernel: K-B's block-2 one, else the wrapper's own
+            smem = getattr(lib, "fused_vgg_block2_smem_bytes" if "block2" in kernel else f"{name}_smem_bytes")()
             (mangled,) = [n for n in ptxas if kernel in n]
             info = {**ptxas[mangled], "smem_bytes": smem, "hgmma": None if hgmma is None else hgmma[mangled]}
             print(f"  {name} {label} ({mangled}): {info['registers']} registers, {info['spill_stores']} bytes "
@@ -731,6 +747,8 @@ def check_kernels(block1_weights):
         ("fused_stem_conv_relu_pool2", (2, 36, 52), 64, 64),  # ragged tiles
         ("fused_conv3x3_relu_pool2", (3, 36, 52), 128, 256),  # ragged, Ci != Co
         ("fused_conv3x3_relu_pool2", (2, 20, 26), 512, 512),  # 8 64-channel chunks of K and of N
+        ("fused_conv3x3_relu_pool2", (3, 36, 52), 64, 12),  # Co no multiple of 8: padded, cut back
+        ("fused_stem_conv_relu_pool2", (2, 36, 52), 12, 12),  # C no multiple of 8
     ):
         kernel, plain = CONV_KERNELS[name]
         for dtype in (torch.float32, torch.bfloat16):
@@ -750,6 +768,115 @@ def check_kernels(block1_weights):
         worst = max(worst, block1_err(str(list(shape) + [3]), got, ref))
     errs["fused_vgg_block1"] = worst
     return errs
+
+
+def check_block2(state, images, max_err):
+    """Phase 3, K-B beyond block 1's widths (the kernels API: no model path
+    fuses block 2, as none in the JAX package does): the bf16 RON-320's own
+    pool1 of the batch (its `_block1`, K-B) through K-B with the model's
+    conv2_1/conv2_2, bf16 and f32 x, at full size and cropped to ragged
+    tiles at 64 -> 128 and 8 -> 8 (the first 8 channels and weights), each
+    held by `block1_err` to the plain version; then block 1 chained into
+    block 2 (two K-B launches, counted): its first stage equal to the
+    model's pool1, its output against the model's pool2 (cuDNN's bf16 convs
+    on that pool1) within `chain_err`'s gate. Returns pool1 (NHWC), the
+    block-2 weights and the chain's launches, for phases "grad" and
+    "timing"."""
+    model = RON(RON_320_SPEC, dtype=torch.bfloat16, fuse_block1=True)
+    model.load_state_dict(state, strict=True)
+    bb = model.to("cuda").eval().backbone
+    block1 = [t.detach() for c in (bb.conv1_1, bb.conv1_2) for t in (c.conv.weight, c.conv.bias)]
+    block2 = [t.detach() for c in (bb.conv2_1, bb.conv2_2) for t in (c.conv.weight, c.conv.bias)]
+    x = images.repeat(BATCH // len(IMAGES), 1, 1, 1).to(torch.bfloat16).contiguous()
+    worst = 0.0
+    with torch.inference_mode():
+        pool1 = nhwc(bb._block1(x.permute(0, 3, 1, 2)))
+        for dtype in (torch.bfloat16, torch.float32):
+            crop = pool1[:3, :36, :52].to(dtype).contiguous()
+            for label, xin, w in (("block 2", pool1.to(dtype), block2), ("block 2 ragged", crop, block2),
+                                  ("8 -> 8 ragged", crop[..., :8].contiguous(),
+                                   [block2[0][:8, :8], block2[1][:8], block2[2][:8, :8], block2[3][:8]])):
+                kernels.reset_launch_counts()
+                got = kernels.fused_vgg_block1(xin, *w)
+                torch.cuda.synchronize()
+                if kernels.fused_vgg_block1.launches != 1:
+                    raise AssertionError(f"K-B {label}: {kernels.fused_vgg_block1.launches} launches, expected 1")
+                name = f"{label} {list(xin.shape)} -> {w[0].shape[0]} {dtype}"
+                if got.shape != (*xin.shape[:1], xin.shape[1] // 2, xin.shape[2] // 2, w[0].shape[0]) or got.dtype != dtype:
+                    raise AssertionError(f"K-B {name}: output {tuple(got.shape)} {got.dtype}")
+                worst = max(worst, block1_err(name, got, kernels.fused_vgg_block1_plain(xin, *w)))
+
+        y1 = bb.conv2_1(pool1.permute(0, 3, 1, 2))
+        ref_pool2 = nhwc(max_pool_2x2(bb.conv2_2(y1)))
+        kernels.reset_launch_counts()
+        stage1 = kernels.fused_vgg_block1(x, *block1)
+        pool2 = kernels.fused_vgg_block1(stage1, *block2)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        if launches["fused_vgg_block1"] != 2 or sum(launches.values()) != 2:
+            raise AssertionError(f"block 1 -> block 2 chain: launches {launches}, expected K-B twice")
+        if not torch.equal(stage1, pool1):
+            raise AssertionError("the chain's block 1 differs from the model's pool1")
+        chain_err(f"block 1 -> block 2 chained {list(x.shape)} -> {list(pool2.shape)}", pool2,
+                  kernels.fused_vgg_block1_plain(pool1, *block2), ref_pool2, y1, block2[2])
+        del y1, ref_pool2, stage1, pool2
+    max_err["fused_vgg_block1"] = max(max_err["fused_vgg_block1"], worst)
+    del model, bb
+    return {"pool1": pool1, "weights": block2, "launches": launches["fused_vgg_block1"], "max_abs_err": worst,
+            **block2_one_launch(pool1, block2)}
+
+
+def block2_one_launch(x, w):
+    """One K-B call at block 2: a torch.profiler pass over it must show the
+    port's kernel and no library one (early in the run: on the H100 a
+    window at the end of phase "timing" has come back without any device
+    event, though the same call in a fresh process never did), and its
+    peak memory above what was allocated before it must stay below one
+    [B, H, W, C] bf16 intermediate."""
+    c = w[0].shape[0]
+    prof = profile_call(f"K-B block 2 {list(x.shape)} -> {c}", lambda: kernels.fused_vgg_block1(x, *w))
+    names = [t["name"] for t in prof["top"]]
+    foreign = [n for n in names if any(k in n.lower() for k in KB_FOREIGN_KERNELS)]
+    if not any("fused_vgg_block2_kernel" in n for n in names) or foreign:
+        raise AssertionError(f"K-B block 2's profile: kernels {names}; library kernels {foreign}")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = kernels.fused_vgg_block1(x, *w)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+    bsz, h, wd, _ = x.shape
+    intermediate = bsz * h * wd * c * 2
+    print(f"  fused_vgg_block1 block 2: a call's peak memory {peak} bytes above its inputs, one [B, H, W, C] "
+          f"intermediate {intermediate}")
+    if peak >= intermediate:
+        raise AssertionError(f"K-B block 2 allocated {peak} bytes, an [B, H, W, C] intermediate is {intermediate}")
+    del out
+    return {"profile": prof, "peak_bytes_above_inputs": peak, "intermediate_bytes": intermediate}
+
+
+def chain_err(label, got, plain, model_ref, y1, w2):
+    """Check K-B's block-1 -> block-2 chain against the model's pool2. The
+    model's bf16 convs (cuDNN) sum in another order than the kernel and its
+    plain version, so conv2_1 values round the other way now and then (one
+    bf16 ulp of values up to a few hundred, 2 at 256-512), and each such
+    value moves the pool2 outputs it feeds by |w2| times that ulp: more
+    than `block1_err`'s atol, which the plain version itself misses there
+    (8 of 26 214 400 outputs at 1.022 of it, measured on the H100 for the
+    kernel and the plain version alike). The gate: BLOCK1_RTOL, and an atol
+    of one such value, max |w2| times the ulp of max |conv2_1|, from this
+    run's tensors. `block1_err`'s usage is printed for both."""
+    flip = float(w2.float().abs().max()) * float(bf16_ulp(y1.float().abs().max()))
+    ref = model_ref.float()
+    for who, t in (("kernel", got), ("plain version", plain)):
+        diff = (t.float() - ref).abs()
+        same_gate = diff / (BLOCK1_ATOL + BLOCK1_RTOL * ref.abs())
+        print(f"  fused_vgg_block1 {label}, the {who} vs the model's pool2: max diff {float(diff.max()):.6g} (max "
+              f"|ref| {float(ref.abs().max()):.6g}), {int((diff > 0).sum())} of {diff.numel()} differ; "
+              f"block1_err's gate: {float(same_gate.max()):.4f} used, {int((same_gate > 1).sum())} outside; "
+              f"this gate (atol {flip:.4g}): {float((diff / (flip + BLOCK1_RTOL * ref.abs())).max()):.4f} used")
+    torch.testing.assert_close(got.float(), ref, rtol=BLOCK1_RTOL, atol=flip)
 
 
 # SSD-300's and RON-320's anchors (a top_k at every anchor gives such rows), each with the mode K-C
@@ -1188,10 +1315,11 @@ def api_path(model, det, batch, block1, max_err):
 
 def block1_grads(x, block1):
     """Phase 6: K-B's gradients (kernel forward, recompute backward) against
-    autograd through `block1_reference`, for one random output gradient."""
+    autograd through `block1_reference`, for one random output gradient;
+    block1 = (w1, b1, w2, b2) of any width."""
     g = torch.Generator(device="cuda").manual_seed(0)
     b, h, w, _ = x.shape
-    go = torch.randn(b, h // 2, w // 2, 64, generator=g, device="cuda").to(x.dtype)
+    go = torch.randn(b, h // 2, w // 2, block1[0].shape[0], generator=g, device="cuda").to(x.dtype)
     grads = {}
     for fn in (kernels.fused_vgg_block1, block1_reference):
         leaves = [t.detach().clone().requires_grad_() for t in (x, *block1)]
@@ -1642,6 +1770,24 @@ def staged_step_ms(trainer, state, batch, reps):
     return sums
 
 
+def kb_training_ms(x, w):
+    """K-B's training cost on x with w = (w1, b1, w2, b2), CUDA events: the
+    kernel forward alone, the kernel forward + recompute backward, and
+    autograd through the unfused composition (`block1_reference`), for one
+    seeded output gradient."""
+    b, h, wd, _ = x.shape
+    go = torch.randn(b, h // 2, wd // 2, w[0].shape[0], device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    go = go.to(torch.bfloat16)
+
+    def fwd_bwd(fn):
+        leaves = [x] + [t.detach().requires_grad_() for t in w]
+        return lambda: torch.autograd.grad(fn(*leaves), leaves[1:], go)
+
+    return {"kernel_fwd_recompute_bwd_ms": cuda_ms(fwd_bwd(kernels.fused_vgg_block1), reps=10, warmup=2),
+            "unfused_autograd_ms": cuda_ms(fwd_bwd(block1_reference), reps=10, warmup=2),
+            "kernel_fwd_ms": cuda_ms(lambda: kernels.fused_vgg_block1(x, *w), reps=10)}
+
+
 def train_timing(state, fx):
     """Phase "timing", training: the bf16 step with K-B (the Trainer's step:
     augmentation through the update) at batch 14 and 32, ms and images/s by
@@ -1675,16 +1821,7 @@ def train_timing(state, fx):
     bb.load_state_dict(state, strict=True)
     w = [t.cuda() for t in (bb.backbone.conv1_1.conv.weight, bb.backbone.conv1_1.conv.bias,
                             bb.backbone.conv1_2.conv.weight, bb.backbone.conv1_2.conv.bias)]
-    go = torch.randn(TRAIN_BATCH, 160, 160, 64, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
-    go = go.to(torch.bfloat16)
-
-    def fwd_bwd(fn):
-        leaves = [image] + [t.detach().requires_grad_() for t in w]
-        return lambda: torch.autograd.grad(fn(*leaves), leaves[1:], go)
-
-    kb = {"kernel_fwd_recompute_bwd_ms": cuda_ms(fwd_bwd(kernels.fused_vgg_block1), reps=10, warmup=2),
-          "unfused_autograd_ms": cuda_ms(fwd_bwd(block1_reference), reps=10, warmup=2),
-          "kernel_fwd_ms": cuda_ms(lambda: kernels.fused_vgg_block1(image, *w), reps=10)}
+    kb = kb_training_ms(image, w)
     res["kb_train"] = kb
     print(f"  K-B in training, batch {TRAIN_BATCH} at 320x320: kernel forward + recompute backward "
           f"{kb['kernel_fwd_recompute_bwd_ms']:.3f} ms (the forward alone {kb['kernel_fwd_ms']:.3f}), autograd "
@@ -2442,6 +2579,30 @@ def nms_part(label, scores, boxes, thr, mode, cap=None):
     return part
 
 
+def block_cost(x, w):
+    """K-B's operations and bytes on x [B, H, W, Ci] with w = (w1, b1, w2,
+    b2): both convs' multiply-adds; x read and the bf16 output written
+    once, the bf16 weights and f32 biases read once."""
+    bsz, h, wd, cin = x.shape
+    c = w[0].shape[0]
+    flops = 2 * bsz * h * wd * c * 9 * (cin + c)
+    return flops, x.numel() * 2 + bsz * (h // 2) * (wd // 2) * c * 2 + (w[0].numel() + w[2].numel()) * 2 + 2 * c * 4
+
+
+def cudnn_block(x, w):
+    """K-B's function as one PyTorch call per op (`F.conv2d` x2 + ReLU +
+    `F.max_pool2d`, bf16, on the channels_last view of x: cuDNN), the
+    library yardstick of its time."""
+    x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
+    lw = [t.to(torch.bfloat16) for t in w]
+
+    def library():
+        y = F.relu(F.conv2d(x_nchw, lw[0], lw[1], padding=1))
+        return F.max_pool2d(F.relu(F.conv2d(y, lw[2], lw[3], padding=1)), 2, 2)
+
+    return library
+
+
 def kb_shape_rows(ssd):
     """K-B at the SSD shapes ([32, 300, 300, 3] with ragged tiles, [8, 512,
     512, 3], [32, 512, 512, 3]): its launches in one Detector batch of that
@@ -2458,17 +2619,9 @@ def kb_shape_rows(ssd):
         launches = kernels.launch_counts()["fused_vgg_block1"]
         x = batch.to(torch.bfloat16).contiguous()
         w = block1_of(s["model"])
-        _, h, wd, _ = x.shape
-        flops = 2 * b * h * wd * 64 * 9 * (3 + 64)
-        nbytes = x.numel() * 2 + b * (h // 2) * (wd // 2) * 64 * 2 + (w[0].numel() + w[2].numel()) * 2 + 128 * 4
+        flops, nbytes = block_cost(x, w)
         bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-        x_nchw = x.permute(0, 3, 1, 2)
-        lw = [t.to(torch.bfloat16) for t in w]
-
-        def library():
-            y = F.relu(F.conv2d(x_nchw, lw[0], lw[1], padding=1))
-            return F.max_pool2d(F.relu(F.conv2d(y, lw[2], lw[3], padding=1)), 2, 2)
-
+        library = cudnn_block(x, w)
         with torch.inference_mode():
             row = with_rates({
                 "path": f"{name} Detector, bf16, batch {b}", "launches": launches,
@@ -2482,6 +2635,38 @@ def kb_shape_rows(ssd):
               f"{row['bound_share']:.3f} of bound, {row['library_ratio']:.3f}x cuDNN; launched {launches} in the "
               f"{name} Detector's batch")
     return rows
+
+
+def kb_block2_row(block2):
+    """K-B at VGG block 2 ([32, 160, 160, 64] -> 128, phase 3's pool1 and
+    the model's conv2_1/conv2_2), the kernels API: ms, plain ms, bound and
+    cuDNN's time for the same block (`F.conv2d` x2 + ReLU + `F.max_pool2d`,
+    bf16); the batch-14 forward and forward + recompute backward (against
+    autograd through `block1_reference`); phase 3's profile and peak
+    memory of a call."""
+    x, w = block2["pool1"], block2["weights"]
+    c = w[0].shape[0]
+    flops, nbytes = block_cost(x, w)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    with torch.inference_mode():
+        row = with_rates({
+            "name": "fused_vgg_block1", "route": "cuda", "source": "ron_tensorflow_tpu_torch/csrc/fused_vgg_block1.cu",
+            "replaces": "ron_tensorflow_tpu/kernels/fused_conv_pool.py:388", "kernel": "fused_vgg_block2_kernel",
+            "path": "kernels API (phase 3's block 1 -> block 2 chain; 0 on every model path)",
+            "launches": block2["launches"], "max_abs_err": block2["max_abs_err"],
+            "shape": [list(x.shape), c],
+            "ms": cuda_ms(lambda: kernels.fused_vgg_block1(x, *w), reps=20),
+            "plain_ms": cuda_ms(lambda: kernels.fused_vgg_block1_plain(x, *w), reps=2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(cudnn_block(x, w), reps=20),
+        }, flops)
+    row["b14"] = kb_training_ms(x[:TRAIN_BATCH].clone(), w)
+    row.update({k: block2[k] for k in ("profile", "peak_bytes_above_inputs", "intermediate_bytes")})
+    print(f"  fused_vgg_block1 block 2 {list(x.shape)} -> {c}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+          f"bound {bound_ms:.4f} by {bound_by}, cuDNN {row['library_ms']:.4f}), {row['tflops']:.1f} TFLOP/s, "
+          f"{row['bound_share']:.3f} of bound, {row['library_ratio']:.3f}x cuDNN; batch {TRAIN_BATCH}: forward "
+          f"{row['b14']['kernel_fwd_ms']:.4f} ms, + recompute backward {row['b14']['kernel_fwd_recompute_bwd_ms']:.4f}, "
+          f"unfused autograd {row['b14']['unfused_autograd_ms']:.4f}; launched {block2['launches']} in phase 3's chain")
+    return row
 
 
 # --------------------------------------------------------------------------- #
@@ -4322,6 +4507,7 @@ def main() -> int:
 
     with phase("kernels"):
         max_err = check_kernels(block1)
+        kb_block2 = check_block2(state, images, max_err)
         wide = check_wide_rows()
 
     with phase("main f32"):
@@ -4357,6 +4543,7 @@ def main() -> int:
 
     with phase("grad"):
         block1_grads(batch.to(torch.bfloat16).contiguous(), block1)
+        block1_grads(kb_block2["pool1"][:TRAIN_BATCH].contiguous(), kb_block2["weights"])
 
     with phase("realtime f32"):
         _, rt_f32_worst = realtime_f32(f32_model, f32_out, fx)
@@ -4478,6 +4665,8 @@ def main() -> int:
             results[2]["ssd_f32_launches"] = ssd_f32_launches["nms_scan_keep_mask"]
         kb_row = next(r for r in results if r["name"] == "fused_vgg_block1")
         kb_row["shapes"] = kb_shape_rows(ssd)
+        kb_row["block2"] = kb_block2_row(kb_block2)
+        del kb_block2
         kb_row.update({"train_launches": train_run["launches"]["fused_vgg_block1"], "train_steps": TRAIN_STEPS,
                        "train_path": "Trainer.train, bf16, batch 14: one kernel forward a step, backward by "
                                      "recompute through block1_reference (cuDNN)", **train_times["kb_train"]})
@@ -4818,17 +5007,8 @@ def timing_rows(launches, api_launches, rt_launches, max_err, block1, nhwc_batch
           f"{old_bound:.4f} ms by {old_by}; block 1 on the batch: max |kernel - plain| = "
           f"{max_err['fused_vgg_block1']:.6g}")
 
-    bsz, h, w, _ = nhwc_batch.shape
-    blk_flops = 2 * bsz * h * w * 64 * 9 * (3 + 64)
-    blk_bytes = nhwc_batch.numel() * 2 + bsz * (h // 2) * (w // 2) * 64 * 2 + (w1.numel() + w2.numel()) * 2 + 128 * 4
+    blk_flops, blk_bytes = block_cost(nhwc_batch, block1)
     blk_bound, blk_by = bound(blk_bytes, blk_flops, PEAK_BF16_FLOPS)
-    x_nchw = nhwc_batch.permute(0, 3, 1, 2)  # channels_last view, no copy
-    lw1, lb1, lw2, lb2 = (t.to(torch.bfloat16) for t in block1)
-
-    def library_block1():
-        y = F.relu(F.conv2d(x_nchw, lw1, lb1, padding=1))
-        return F.max_pool2d(F.relu(F.conv2d(y, lw2, lb2, padding=1)), 2, 2)
-
     results.append(with_rates({
         "name": "fused_vgg_block1", "route": "cuda",
         "source": "ron_tensorflow_tpu_torch/csrc/fused_vgg_block1.cu",
@@ -4838,7 +5018,7 @@ def timing_rows(launches, api_launches, rt_launches, max_err, block1, nhwc_batch
         "ms": cuda_ms(lambda: kernels.fused_vgg_block1(nhwc_batch, w1, b1, w2, b2), reps=20),
         "plain_ms": cuda_ms(lambda: kernels.fused_vgg_block1_plain(nhwc_batch, w1, b1, w2, b2), reps=3),
         "bound_ms": blk_bound, "bound_by": blk_by,
-        "library_ms": cuda_ms(library_block1, reps=20),
+        "library_ms": cuda_ms(cudnn_block(nhwc_batch, block1), reps=20),
     }, blk_flops))
 
     # K-C on the realtime head's rows, and on the Detector's through the

@@ -142,21 +142,25 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
       : "memory");
 }
 
+// The row (0..15) of its warp's 16 rows of an M-tile whose address this
+// lane hands ldmatrix; lanes 16-31 give the second 8 channels of a K-step.
+__device__ __forceinline__ int lane_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
+
 // This lane's haloed pixel index (before the tap shift) for M-tile mt.
 __device__ __forceinline__ int lane_pixel(int mt, int warp_in_group, int lane) {
-  const int m = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int m = lane_row(lane);
   return (2 * mt + (m >> 3)) * kInW + 8 * warp_in_group + (m & 7);
 }
 
 // A fragments of K-step s (tap s / 4, input channels 16 (s % 4) ..) for
-// the two M-tiles whose lane pixels are p0, p1.
-template <int S>
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], uint32_t a_smem, int p0, int p1, int khalf) {
+// the M-tiles whose lane pixels are p[i], in an A tile kStride pixels wide.
+template <int S, int kStride, int kMT>
+__device__ __forceinline__ void load_a(uint32_t (&a)[kMT][4], uint32_t a_smem, const int (&p)[kMT], int khalf) {
   constexpr int t = S / 4, kk = S % 4;
-  constexpr int shift = (t / 3) * kInW + (t % 3);
+  constexpr int shift = (t / 3) * kStride + (t % 3);
   const int c = 2 * kk + khalf;
-  ldmatrix_x4(a[0], a_smem + a_offset(p0 + shift, c));
-  ldmatrix_x4(a[1], a_smem + a_offset(p1 + shift, c));
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) ldmatrix_x4(a[i], a_smem + a_offset(p[i] + shift, c));
 }
 
 // The B buffer stays as it is for the whole mainloop (K-B; K-D and K-E at
@@ -168,47 +172,55 @@ struct ResidentWeights {
   __device__ __forceinline__ void after_row() const {}
 };
 
-template <int S, class Rows>
-__device__ __forceinline__ void mma_steps(float (&acc)[2][32], uint32_t (&a)[2][2][4], uint32_t a_smem,
-                                          uint32_t w_smem, int p0, int p1, int khalf, const Rows& rows) {
+template <int S, int kStride, int kMT, class Rows>
+__device__ __forceinline__ void mma_steps(float (&acc)[kMT][32], uint32_t (&a)[2][kMT][4], uint32_t a_smem,
+                                          uint32_t w_smem, const int (&p)[kMT], int khalf, const Rows& rows) {
   if constexpr (S < kSteps) {
     constexpr int buf = S & 1;
     constexpr bool row_start = S > 0 && S % kRowSteps == 0;
     if constexpr (row_start) rows.template before_row<S / kRowSteps>();
     wgmma_fence();
     const uint64_t desc = b_desc(w_smem, S / 4, S % 4);
-    wgmma_m64n64k16(acc[0], a[buf][0], desc);
-    wgmma_m64n64k16(acc[1], a[buf][1], desc);
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) wgmma_m64n64k16(acc[i], a[buf][i], desc);
     wgmma_commit();
     if constexpr (row_start) rows.template after_row<S / kRowSteps>();
     if constexpr (S + 1 < kSteps) {
       wgmma_wait<1>();  // step S-1 is done: its A registers may be refilled
-      load_a<S + 1>(a[buf ^ 1], a_smem, p0, p1, khalf);
+      load_a<S + 1, kStride>(a[buf ^ 1], a_smem, p, khalf);
     }
-    mma_steps<S + 1>(acc, a, a_smem, w_smem, p0, p1, khalf, rows);
+    mma_steps<S + 1, kStride>(acc, a, a_smem, w_smem, p, khalf, rows);
   }
 }
 
+// acc[i] += the conv of one 64-channel chunk for this warpgroup's M-tile i,
+// whose lanes' pixels (at tap (0, 0)) are p[i] in an A tile at a_smem that
+// is kStride pixels wide; B at w_smem (1024-byte aligned). `rows` is called
+// around the first step of tap rows 1 and 2 (see B above). Returns with
+// every wgmma of this warpgroup complete; the caller zeroes acc first.
+template <int kStride, int kMT, class Rows = ResidentWeights>
+__device__ __forceinline__ void conv_chunk_mma(float (&acc)[kMT][32], uint32_t a_smem, uint32_t w_smem,
+                                         const int (&p)[kMT], const Rows& rows = Rows()) {
+  const int khalf = (tid_here() & 31) >> 4;
+  uint32_t a[2][kMT][4];
+  load_a<0, kStride>(a[0], a_smem, p, khalf);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) fence_acc(acc[i]);
+  mma_steps<0, kStride>(acc, a, a_smem, w_smem, p, khalf, rows);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) fence_acc(acc[i]);
+}
+
 // acc[i] += the tile's conv for M-tiles 2g and 2g+1 of warpgroup g, over one
-// 64-channel chunk: A at a_smem, B at w_smem (1024-byte aligned). `rows` is
-// called around the first step of tap rows 1 and 2 (see B above). Returns
-// with every wgmma of this warpgroup complete; the caller zeroes acc first.
+// 64-channel chunk of the 18 x 34 A tile (see conv_chunk_mma).
 template <class Rows = ResidentWeights>
 __device__ __forceinline__ void conv_tile_mma(float (&acc)[2][32], uint32_t a_smem, uint32_t w_smem,
                                               const Rows& rows = Rows()) {
   const int tid = tid_here(), warp = tid >> 5, lane = tid & 31;
   const int group = warp >> 2, wig = warp & 3;
-  const int p0 = lane_pixel(2 * group, wig, lane);
-  const int p1 = lane_pixel(2 * group + 1, wig, lane);
-  const int khalf = lane >> 4;
-  uint32_t a[2][2][4];
-  load_a<0>(a[0], a_smem, p0, p1, khalf);
-  fence_acc(acc[0]);
-  fence_acc(acc[1]);
-  mma_steps<0>(acc, a, a_smem, w_smem, p0, p1, khalf, rows);
-  wgmma_wait<0>();
-  fence_acc(acc[0]);
-  fence_acc(acc[1]);
+  const int p[2] = {lane_pixel(2 * group, wig, lane), lane_pixel(2 * group + 1, wig, lane)};
+  conv_chunk_mma<kInW>(acc, a_smem, w_smem, p, rows);
 }
 
 // Two neighbouring channels of the staged pooled tile, at even element `at`.
@@ -220,18 +232,19 @@ __device__ __forceinline__ void put_pair(float* staging, int at, float lo, float
 }
 
 // Bias, ReLU (the 0 floor) and the 2x2 max in registers; writes the pooled
-// tile [8 rows][16 cols][64 ch] to `staging` as Out: bf16 (uint16_t, one
-// rounding) or f32 (not rounded). bias: 64 floats (shared memory).
+// rows of the kMT M-tiles of this warpgroup (M-tile kMT g + i in acc[i], two
+// conv rows each) to `staging`, [pooled rows][16 cols][64 ch], as Out: bf16
+// (uint16_t, one rounding) or f32 (not rounded). bias: 64 floats.
 // max(relu(a_i + b)) = max(0, max(a_i) + b) exactly, as rounding is monotonic.
-template <typename Out>
-__device__ __forceinline__ void pool_tile_to_staging(const float (&acc)[2][32], const float* bias,
+template <typename Out, int kMT>
+__device__ __forceinline__ void pool_tile_to_staging(const float (&acc)[kMT][32], const float* bias,
                                                      Out* staging) {
   const int tid = tid_here(), warp = tid >> 5, lane = tid & 31;
   const int group = warp >> 2, wig = warp & 3;
   const int r = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int py = 2 * group + i;
+  for (int i = 0; i < kMT; ++i) {
+    const int py = kMT * group + i;
     const int px = 4 * wig + (r >> 1);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -250,15 +263,16 @@ __device__ __forceinline__ void pool_tile_to_staging(const float (&acc)[2][32], 
   }
 }
 
-// Stores the staged pooled tile with 16-byte vectors: pooled rows from
-// py0, cols from px0, channels co0.. of a [.., out_h, out_w, cout] map of Out
-// (cout a multiple of 8); rows, cols and channels past the map are dropped.
-template <typename Out>
+// Stores the staged pooled tile ([kRows][16][64]) with 16-byte vectors:
+// pooled rows from py0, cols from px0, channels co0.. of a [.., out_h,
+// out_w, cout] map of Out (cout a multiple of 8); rows, cols and channels
+// past the map are dropped.
+template <typename Out, int kRows = kTileH / 2>
 __device__ __forceinline__ void store_staging(const Out* staging, Out* out_img, int py0, int px0,
                                               int out_h, int out_w, int co0, int cout) {
   constexpr int kPerVec = 16 / sizeof(Out);  // channels of one vector
   constexpr int kPixVecs = kC / kPerVec;
-  constexpr int kVecs = (kTileH / 2) * (kTileW / 2) * kPixVecs;
+  constexpr int kVecs = kRows * (kTileW / 2) * kPixVecs;
   for (int v = tid_here(); v < kVecs; v += kThreads) {
     const int c = v % kPixVecs, pix = v / kPixVecs;
     const int py = py0 + pix / (kTileW / 2), px = px0 + pix % (kTileW / 2);
@@ -267,6 +281,38 @@ __device__ __forceinline__ void store_staging(const Out* staging, Out* out_img, 
       *reinterpret_cast<uint4*>(out_img + (static_cast<size_t>(py) * out_w + px) * cout + co) =
           reinterpret_cast<const uint4*>(staging)[v];
     }
+  }
+}
+
+// Asynchronous copies to shared memory; an invalid one writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Orders this thread's shared-memory writes before the tensor cores' reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Tap row dy of the weights [9][cout][cin] (bf16, cin a multiple of 8) of
+// chunk pair (co0, ci0) into slab dy of B, by cp.async; channels past cin
+// or cout are zero.
+__device__ __forceinline__ void load_slab(uint32_t w_smem, const uint16_t* w, int cin, int cout, int dy,
+                                          int co0, int ci0) {
+  for (int v = tid_here(); v < 3 * kC * 8; v += kThreads) {
+    const int c = v & 7, co = (v >> 3) % kC, t = 3 * dy + v / (kC * 8);
+    const bool valid = co0 + co < cout && ci0 + 8 * c < cin;
+    const uint16_t* src = valid ? w + (static_cast<size_t>(t) * cout + co0 + co) * cin + ci0 + 8 * c : w;
+    cp_async16(w_smem + w_offset(t, co, c), src, valid);
   }
 }
 

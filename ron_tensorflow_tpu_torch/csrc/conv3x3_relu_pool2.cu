@@ -70,39 +70,10 @@ struct NextPair {
   int co0, ci0;
 };
 
-// Asynchronous copies to shared memory; an invalid one writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Orders this thread's shared-memory writes before the tensor cores' reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 __device__ __forceinline__ int ld_shared(uint32_t addr) {
   int v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
   return v;
-}
-
-// Tap row dy of the weights of chunk pair (co0, ci0) into slab dy of B.
-__device__ __forceinline__ void load_slab(uint32_t w_smem, const uint16_t* w, int cin, int cout, int dy,
-                                          int co0, int ci0) {
-  for (int v = cm::tid_here(); v < 3 * cm::kC * 8; v += cm::kThreads) {
-    const int c = v & 7, co = (v >> 3) % cm::kC, t = 3 * dy + v / (cm::kC * 8);
-    const bool valid = co0 + co < cout && ci0 + 8 * c < cin;
-    const uint16_t* src = valid ? w + (static_cast<size_t>(t) * cout + co0 + co) * cin + ci0 + 8 * c : w;
-    cp_async16(w_smem + cm::w_offset(t, co, c), src, valid);
-  }
 }
 
 // The mainloop's row hooks for the streamed weight ring. cp.async groups, in
@@ -122,18 +93,18 @@ struct StreamedWeights {
   __device__ __forceinline__ void before_row() const {
     if (sync) {
       cm::wgmma_wait<0>();  // this warpgroup's MMAs of row Row-1 have retired
-      cp_async_wait<2>();
-      fence_proxy_async();
+      cm::cp_async_wait<2>();
+      cm::fence_proxy_async();
       __syncthreads();  // every warpgroup's too; slab Row has landed
     }
   }
   template <int Row>
   __device__ __forceinline__ void after_row() const {
     if (refill) {
-      load_slab(w_smem, w, cin, cout, Row - 1, ld_shared(next + offsetof(NextPair, co0)),
+      cm::load_slab(w_smem, w, cin, cout, Row - 1, ld_shared(next + offsetof(NextPair, co0)),
                 ld_shared(next + offsetof(NextPair, ci0)));
     }
-    cp_async_commit();
+    cm::cp_async_commit();
   }
 };
 
@@ -178,7 +149,7 @@ conv3x3_relu_pool2_mma_kernel(const uint16_t* __restrict__ x,   // [B, H, W, Ci]
     const int unit = unit_of(i), tile = unit / nco, kc = i % nk;
     if (kc == 0 && cm::tid_here() < cm::kC) {
       const int t = cm::tid_here(), co = (unit % nco) * cm::kC + t;
-      cp_async4(cm::smem_u32(bs + ((i / nk) & 1) * cm::kC + t), co < cout ? bias + co : bias, co < cout);
+      cm::cp_async4(cm::smem_u32(bs + ((i / nk) & 1) * cm::kC + t), co < cout ? bias + co : bias, co < cout);
     }
     const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y, b = tile / (tiles_x * tiles_y);
     const uint32_t dst = cm::smem_u32(abuf(buf));
@@ -189,34 +160,34 @@ conv3x3_relu_pool2_mma_kernel(const uint16_t* __restrict__ x,   // [B, H, W, Ci]
       const int ch = kc * cm::kC + 8 * c;
       const bool valid = gy >= 0 && gy < height && gx >= 0 && gx < width && ch < cin;
       const uint16_t* src = valid ? x + ((static_cast<size_t>(b) * height + gy) * width + gx) * cin + ch : x;
-      cp_async16(dst + cm::a_offset(p, c), src, valid);
+      cm::cp_async16(dst + cm::a_offset(p, c), src, valid);
     }
   };
 
   load_tile(0, 0);
-  cp_async_commit();  // T(0)
+  cm::cp_async_commit();  // T(0)
   const int co0_first = static_cast<int>(blockIdx.x % nco) * cm::kC;
-  load_slab(w_smem, w, cin, cout, 0, co0_first, 0);
-  cp_async_commit();  // S0(0)
-  load_slab(w_smem, w, cin, cout, 1, co0_first, 0);
-  cp_async_commit();  // S1(0)
+  cm::load_slab(w_smem, w, cin, cout, 0, co0_first, 0);
+  cm::cp_async_commit();  // S0(0)
+  cm::load_slab(w_smem, w, cin, cout, 1, co0_first, 0);
+  cm::cp_async_commit();  // S1(0)
 
   float acc[2][32];
   for (int i = 0; i < stages; ++i) {
     const int kc = i % nk;
     const bool fresh = i == 0 || pairs_change;  // this stage's slabs are loading
     const bool refill = kStream && i + 1 < stages && pairs_change;
-    if (fresh) load_slab(w_smem, w, cin, cout, 2, unit_of(i) % nco * cm::kC, kc * cm::kC);
-    cp_async_commit();  // S2(i)
+    if (fresh) cm::load_slab(w_smem, w, cin, cout, 2, unit_of(i) % nco * cm::kC, kc * cm::kC);
+    cm::cp_async_commit();  // S2(i)
     if (i + 1 < stages) load_tile(i + 1, (i + 1) & 1);  // the next tile loads while this one computes
-    cp_async_commit();  // T(i+1)
+    cm::cp_async_commit();  // T(i+1)
     if (refill && tid == 0) *next_pair = NextPair{unit_of(i + 1) % nco * cm::kC, (i + 1) % nk * cm::kC};
     if (kStream && i > 0) {
-      cp_async_wait<3>();  // T(i) and S0(i) have landed (the rows' groups are newer)
+      cm::cp_async_wait<3>();  // T(i) and S0(i) have landed (the rows' groups are newer)
     } else {
-      cp_async_wait<1>();  // all but T(i+1): at stage 0 T(0) and all three slabs
+      cm::cp_async_wait<1>();  // all but T(i+1): at stage 0 T(0) and all three slabs
     }
-    if (fresh) fence_proxy_async();
+    if (fresh) cm::fence_proxy_async();
     __syncthreads();
 
     if (kc == 0) {
@@ -244,7 +215,7 @@ conv3x3_relu_pool2_mma_kernel(const uint16_t* __restrict__ x,   // [B, H, W, Ci]
     }
     __syncthreads();  // this A buffer and slab 2 may be overwritten
   }
-  cp_async_wait<0>();  // no copy outlives the block
+  cm::cp_async_wait<0>();  // no copy outlives the block
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }

@@ -44,12 +44,15 @@ SIGNATURES = {
     "nms_scan_keep_mask": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
     # x, w1, b1, w2, b2, out, batch, height, width, stream
     "fused_vgg_block1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, out, batch, height, width, cin, c, stream
+    "fused_vgg_block2": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, b, out, batch, height, width, cin, cout, stream
     "fused_stem_conv_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, b, out, batch, height, width, cin, cout, out_bf16, stream
     "fused_conv3x3_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the dynamic shared memory each tensor-core kernel asks for, in bytes
     "fused_vgg_block1_smem_bytes": (),
+    "fused_vgg_block2_smem_bytes": (),
     "fused_stem_conv_relu_pool2_smem_bytes": (),
     "fused_conv3x3_relu_pool2_smem_bytes": (),
 }

@@ -3,10 +3,12 @@ versions.
 
 Ports of `ron_tensorflow_tpu/kernels/fused_conv_pool.py`:
 
-- `fused_vgg_block1` (conv1_1 + ReLU + conv1_2 + ReLU + pool), kernel
-  `csrc/fused_vgg_block1.cu`. Its numerics are the TPU kernel's: input and
-  weights rounded to bf16, f32 sums and biases, conv1_1's output rounded
-  to bf16 before conv1_2, one bf16 rounding of the pooled output. It is
+- `fused_vgg_block1`, a VGG double-conv block (conv A, Ci -> C, + ReLU +
+  conv B, C -> C, + ReLU + pool), kernels `csrc/fused_vgg_block1.cu`: VGG
+  block 1's (Ci = 3, C = 64) and one for every other width (block 2 is
+  64 -> 128). Its numerics are the TPU kernel's: input and
+  weights rounded to bf16, f32 sums and biases, conv A's output rounded
+  to bf16 before conv B, one bf16 rounding of the pooled output. It is
   differentiable as the JAX custom VJP is: the backward recomputes the
   unfused composition (`block1_reference`) and differentiates that; only
   the five inputs are saved.
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 from .. import full_f32_convs
 from . import _build
 
-CIN, C = 3, 64  # VGG block 1; the kernel is built for these widths
+BLOCK1_CIN, BLOCK1_C = 3, 64  # the widths of the block-1 kernel (conv1_1 on the CUDA cores)
 
 
 def _to_nchw_f32_bf16(x):
@@ -91,36 +93,72 @@ def block1_reference(x, w1, b1, w2, b2):
     return F.max_pool2d(h, 2, 2, ceil_mode=True).permute(0, 2, 3, 1)
 
 
+def _pad_block_operands(x, w1, b1, w2, b2):
+    """The block's operands with zero channels appended up to the widths a
+    kernel takes: Ci to 3 and C to 64 where they fit the block-1 kernel
+    (Ci <= 3, C <= 64), else Ci to a multiple of 8 (a 16-byte vector of
+    bf16) and C to a multiple of 64 (one chunk of the tensor-core convs).
+    A copy only of what is padded. The zeros add nothing to any sum, and a
+    padded channel of conv A's output is relu(0 + 0) = 0, so the first C
+    channels of the output are unchanged."""
+    cin, c = x.shape[-1], w1.shape[0]
+    if cin <= BLOCK1_CIN and c <= BLOCK1_C:
+        pci, pc = BLOCK1_CIN - cin, BLOCK1_C - c
+    else:
+        pci, pc = -cin % 8, -c % 64
+    if pci:
+        x = F.pad(x, (0, pci))
+    if pci or pc:
+        w1 = F.pad(w1, (0, 0, 0, 0, 0, pci, 0, pc))
+    if pc:
+        b1, w2, b2 = F.pad(b1, (0, pc)), F.pad(w2, (0, 0, 0, 0, 0, pc, 0, pc)), F.pad(b2, (0, pc))
+    return x, w1, b1, w2, b2
+
+
 def _block1_forward(x, w1, b1, w2, b2):
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return fused_vgg_block1_plain(x, w1, b1, w2, b2)
     _check_cuda_args("fused_vgg_block1", x, w1, b1, w2, b2)
-    if x.dim() != 4 or x.shape[-1] != CIN or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous NHWC [B, H, W, {CIN}], got {tuple(x.shape)}")
-    if w1.shape != (C, CIN, 3, 3) or w2.shape != (C, C, 3, 3) or b1.shape != (C,) or b2.shape != (C,):
+    if x.dim() != 4 or w1.dim() != 4 or w1.shape[1:] != (x.shape[-1], 3, 3):
+        raise ValueError(f"need x [B, H, W, Ci] and w1 [C, Ci, 3, 3], got {tuple(x.shape)}, {tuple(w1.shape)}")
+    c = w1.shape[0]
+    if w2.shape != (c, c, 3, 3) or b1.shape != (c,) or b2.shape != (c,):
         raise ValueError(
-            f"weights must be [{C}, {CIN}, 3, 3], [{C}], [{C}, {C}, 3, 3], [{C}]; got "
-            f"{tuple(w1.shape)}, {tuple(b1.shape)}, {tuple(w2.shape)}, {tuple(b2.shape)}"
+            f"need b1 [{c}], w2 [{c}, {c}, 3, 3], b2 [{c}]; got {tuple(b1.shape)}, {tuple(w2.shape)}, {tuple(b2.shape)}"
         )
     batch, height, width, _ = x.shape
     if not fused_block1_supported(height, width):
         raise ValueError(f"fused block 1 needs even H and W, got {height}x{width}")
-    xb = x.to(torch.bfloat16)
-    w1h = w1.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
-    w2h = _taps_co_ci(w2)
+    x, w1, b1, w2, b2 = _pad_block_operands(x, w1, b1, w2, b2)
+    cin, cp = x.shape[-1], w1.shape[0]
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
-    out = torch.empty(batch, height // 2, width // 2, C, dtype=torch.bfloat16, device=x.device)
+    w2h = _taps_co_ci(w2)
+    out = torch.empty(batch, height // 2, width // 2, cp, dtype=torch.bfloat16, device=x.device)
     if w2h.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("conv1_2 weights and output must be 16-byte aligned")
+        raise ValueError("conv B's weights and the output must be 16-byte aligned")
     with torch.cuda.device(x.device):
-        err = _build.library().fused_vgg_block1(
-            xb.data_ptr(), w1h.data_ptr(), b1f.data_ptr(), w2h.data_ptr(), b2f.data_ptr(),
-            out.data_ptr(), batch, height, width, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if (cin, cp) == (BLOCK1_CIN, BLOCK1_C):
+            w1h = w1.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
+            err = _build.library().fused_vgg_block1(
+                xb.data_ptr(), w1h.data_ptr(), b1f.data_ptr(), w2h.data_ptr(), b2f.data_ptr(),
+                out.data_ptr(), batch, height, width, stream,
+            )
+        else:
+            w1h = _taps_co_ci(w1)
+            err = _build.library().fused_vgg_block2(
+                xb.data_ptr(), w1h.data_ptr(), b1f.data_ptr(), w2h.data_ptr(), b2f.data_ptr(),
+                out.data_ptr(), batch, height, width, cin, cp, stream,
+            )
     _build.check("fused_vgg_block1", err)
     fused_vgg_block1.launches += 1
+    if cp != c:
+        out = out[..., :c].contiguous()
     return out.to(x.dtype)
 
 
@@ -146,9 +184,13 @@ class _FusedBlock1(torch.autograd.Function):
 
 
 def fused_vgg_block1(x, w1, b1, w2, b2):
-    """The fused block-1 kernel for a CUDA tensor, its plain version for a
-    CPU tensor. Same arguments as `fused_vgg_block1_plain`; on CUDA,
-    Ci = 3, C = 64, H and W even, x contiguous bf16 or f32.
+    """The fused VGG block kernel for a CUDA tensor, its plain version for
+    a CPU tensor. Same arguments as `fused_vgg_block1_plain`; on CUDA, any
+    Ci and C, H and W even, x bf16 or f32, one launch: the block-1 kernel
+    where Ci <= 3 and C <= 64 (VGG block 1), the tensor-core one for every
+    other width (VGG block 2, 64 -> 128), each on operands with zero
+    channels appended up to its widths (`_pad_block_operands`) and the
+    output cut back to C channels.
 
     Differentiable (recompute backward, see `_FusedBlock1`). When no input
     needs a gradient, or under `torch.no_grad()`/`torch.inference_mode()`,
@@ -210,12 +252,25 @@ def _pad_input_channels(x, w):
     return F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, 0, 0, pad))
 
 
+def _pad_output_channels(w, b):
+    """w [Co, Ci, 3, 3] and b [Co] with zero output channels appended up to
+    a multiple of 8, the kernel's 16-byte vector store of bf16. A copy,
+    made only where Co is not such a multiple; each output channel is its
+    own sum, so the first Co channels of the output are unchanged."""
+    pad = -w.shape[0] % 8
+    if pad == 0:
+        return w, b
+    return F.pad(w, (0, 0, 0, 0, 0, 0, 0, pad)), F.pad(b, (0, pad))
+
+
 def _conv_kernel_args(x, w, b):
     """The kernel's operands, in plain PyTorch: x as contiguous bf16 NHWC
     with Ci padded to a multiple of 8 and 16-byte aligned (a misaligned
     view is copied: `.contiguous()` keeps its offset), the weights as
-    [9 taps, Co, Ci] bf16 (`_taps_co_ci`) and the bias as f32."""
+    [9 taps, Co, Ci] bf16 (`_taps_co_ci`) with Co padded to a multiple of 8
+    too, and the bias as f32."""
     x, w = _pad_input_channels(x, w)
+    w, b = _pad_output_channels(w, b)
     xb = x.to(torch.bfloat16).contiguous()
     if xb.data_ptr() % 16:
         xb = xb.clone()
@@ -225,33 +280,37 @@ def _conv_kernel_args(x, w, b):
 def _launch_conv_relu_pool(name, x, w, b, out_bf16):
     """Run `csrc/conv3x3_relu_pool2.cu`'s tensor-core kernel: the stem's
     launcher or the general one (`name`); bf16 out when out_bf16, else
-    f32. Returns the output in x.dtype."""
+    f32. Returns the output in x.dtype, cut back to Co channels where they
+    were padded."""
     _check_cuda_args(name, x, w, b)
     batch, height, width, _ = x.shape
     cout = w.shape[0]
-    if cout % 8:
-        raise ValueError(f"{name}: the kernel needs Co a multiple of 8, got {cout}")
     xb, wt, bf = _conv_kernel_args(x, w, b)
+    cout_k = wt.shape[1]
     out = torch.empty(
-        batch, height // 2, width // 2, cout,
+        batch, height // 2, width // 2, cout_k,
         dtype=torch.bfloat16 if out_bf16 else torch.float32, device=x.device,
     )
     if wt.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{name}: weights and output must be 16-byte aligned")
-    args = [xb.data_ptr(), wt.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, height, width, xb.shape[-1], cout]
+    args = [xb.data_ptr(), wt.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, height, width, xb.shape[-1], cout_k]
     if name == "fused_conv3x3_relu_pool2":
         args.append(int(out_bf16))  # the general launcher stores f32 for an f32 x
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), name)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(name, err)
+    if cout_k != cout:
+        out = out[..., :cout].contiguous()
     return out.to(x.dtype)
 
 
 def fused_stem_conv_relu_pool2(x, w, b):
     """K-D, `maxpool2(relu(conv3x3_SAME(x, w) + b))` with C = Co: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor. Same
-    arguments as `fused_stem_conv_relu_pool2_plain`; on CUDA, C a multiple
-    of 8, x bf16 or f32. The output is bf16-valued whatever x.dtype."""
+    arguments as `fused_stem_conv_relu_pool2_plain`; on CUDA, any C, x bf16
+    or f32. The output is bf16-valued whatever x.dtype. Where C is not a
+    multiple of 8, the kernel runs on operands with zero channels appended
+    (`_conv_kernel_args`)."""
     if x.device.type == "cpu":
         return fused_stem_conv_relu_pool2_plain(x, w, b)
     _check_conv_shapes("fused_stem_conv_relu_pool2", x, w, b, same_channels=True)
@@ -263,11 +322,12 @@ def fused_stem_conv_relu_pool2(x, w, b):
 def fused_conv3x3_relu_pool2(x, w, b):
     """K-E, `maxpool2(relu(conv3x3_SAME(x, w) + b))`, Ci -> Co: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor. Same
-    arguments as `fused_conv3x3_relu_pool2_plain`; on CUDA, Co a multiple
-    of 8, x bf16 or f32. An f32 x gives an f32 result, not rounded to bf16.
-    Where Ci is not a multiple of 8, x and w are first copied with zero
-    input channels appended (`_pad_input_channels`); the kernel runs all
-    the same."""
+    arguments as `fused_conv3x3_relu_pool2_plain`; on CUDA, any Ci and Co,
+    x bf16 or f32. An f32 x gives an f32 result, not rounded to bf16.
+    Where Ci or Co is not a multiple of 8, x and w are first copied with
+    zero channels appended (`_pad_input_channels`, `_pad_output_channels`)
+    and the output is cut back to Co channels; the kernel runs all the
+    same."""
     if x.device.type == "cpu":
         return fused_conv3x3_relu_pool2_plain(x, w, b)
     _check_conv_shapes("fused_conv3x3_relu_pool2", x, w, b, same_channels=False)

@@ -187,3 +187,29 @@ def test_kernel_args_copy_a_misaligned_view(dtype):
     assert torch.equal(xb, view.to(torch.bfloat16))
     aligned = view.to(torch.bfloat16).clone()
     assert fcp._conv_kernel_args(aligned, oihw(w), torch.as_tensor(b))[0] is aligned
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cout", [5, 12])
+def test_output_channel_padding_leaves_the_function_unchanged(cout, dtype):
+    """The kernel's wrapper pads Co up to a multiple of 8 with zero weights
+    and biases (for the stem, Ci alike); the plain versions' first Co
+    output channels on the padded operands are their output on the
+    originals bit for bit, and the padded channels are relu(0) = 0."""
+    x, w, b = conv_inputs(9, (2, 8, 12), 16, cout)
+    x, w, b = torch.as_tensor(x).to(dtype), oihw(w), torch.as_tensor(b)
+    wp, bp = fcp._pad_output_channels(w, b)
+    assert wp.shape == (8 * -(-cout // 8), 16, 3, 3) and bp.shape == (wp.shape[0],)
+    assert not wp[cout:].any() and not bp[cout:].any()
+    padded = fused_conv3x3_relu_pool2_plain(x, wp, bp)
+    assert not padded[..., cout:].any()
+    torch.testing.assert_close(padded[..., :cout], fused_conv3x3_relu_pool2_plain(x, w, b), rtol=0, atol=0)
+    assert fcp._conv_kernel_args(x, w, b)[1].shape == (9, wp.shape[0], 16)
+
+    xs, ws, bs = conv_inputs(10, (2, 8, 12), cout, cout)
+    xs, ws, bs = torch.as_tensor(xs).to(dtype), oihw(ws), torch.as_tensor(bs)
+    xsp, wsp = fcp._pad_input_channels(xs, ws)
+    wsp, bsp = fcp._pad_output_channels(wsp, bs)
+    assert wsp.shape[0] == wsp.shape[1] == xsp.shape[-1] == 8 * -(-cout // 8)
+    torch.testing.assert_close(fused_stem_conv_relu_pool2_plain(xsp, wsp, bsp)[..., :cout],
+                               fused_stem_conv_relu_pool2_plain(xs, ws, bs), rtol=0, atol=0)

@@ -222,6 +222,8 @@ CONV_CASES = [
     ("general", (2, 36, 52), 192, 64),  # three K chunks: an odd number of stages a block
     ("general", (2, 36, 52), 24, 40),  # channels that fill no chunk
     ("general", (2, 80, 96), 64, 320),  # 150 units on 132 SMs: a second unit, other weights
+    ("general", (2, 36, 52), 64, 12),  # Co that is no multiple of 8: padded to 16, cut back
+    ("stem", (2, 36, 52), 12, 12),  # C that is no multiple of 8
 ]
 
 
@@ -292,6 +294,67 @@ def test_block1_kernel_within_bf16_of_plain(cuda, shape):
     ref = fused_vgg_block1_plain(x, w1, b1, w2, b2)
     assert got.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64)
     torch.testing.assert_close(got.float(), ref.float(), rtol=8e-3, atol=0.1)
+
+
+BLOCK_WIDTHS = [
+    # (shape [B, H, W], Ci, C)
+    ((32, 160, 160), 64, 128),  # VGG block 2 at RON-320's width, batch 32
+    ((1, 16, 16), 64, 128),  # one 8 x 32 tile, ragged in W
+    ((3, 36, 52), 64, 128),  # ragged tiles
+    ((3, 36, 52), 8, 8),  # the JAX test's rectangular case: C padded to one chunk of 64
+    ((1, 8, 12), 5, 72),  # Ci padded to 8, C to 128
+    ((2, 24, 40), 3, 128),  # Ci = 3 past block 1's C: the tensor-core kernel, Ci padded to 8
+    ((1, 10, 6), 1, 8),  # block 1's kernel, Ci padded to 3 and C to 64
+    ((1, 16, 32), 64, 64),  # one chunk of C
+    ((2, 20, 26), 128, 256),  # two chunks of Ci; four of C: conv A recomputed per output chunk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,cin,c", BLOCK_WIDTHS)
+def test_block_kernel_within_bf16_of_plain_at_any_width(cuda, shape, cin, c, dtype):
+    """`fused_vgg_block1` at widths other than block 1's, one launch each,
+    against its plain version: the tolerance of
+    `test_block1_kernel_within_bf16_of_plain`. Activations at post-ReLU
+    scale, He-scaled weights."""
+    g = torch.Generator().manual_seed(sum(shape) + cin + c)
+    x = torch.relu(torch.randn(*shape, cin, generator=g) * 3).to(dtype).to(cuda)
+    w1 = (torch.randn(c, cin, 3, 3, generator=g) * (2.0 / (9 * cin)) ** 0.5).to(cuda)
+    b1 = (torch.randn(c, generator=g) * 0.1).to(cuda)
+    w2 = (torch.randn(c, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5).to(cuda)
+    b2 = (torch.randn(c, generator=g) * 0.1).to(cuda)
+    kernels.reset_launch_counts()
+    got = fused_vgg_block1(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert fused_vgg_block1.launches == 1
+    ref = fused_vgg_block1_plain(x, w1, b1, w2, b2)
+    assert got.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, c) and got.dtype == dtype
+    assert got.is_contiguous()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=8e-3, atol=0.1)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_block2_grads_match_recompute_composition(cuda, dtype, rel):
+    """`test_block1_grads_match_recompute_composition` at VGG block 2's
+    widths (64 -> 128): the forward through the tensor-core kernel, the
+    backward autograd through `block1_reference`."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.relu(torch.randn(2, 36, 52, 64, generator=g) * 3).to(dtype)
+    params = [torch.randn(128, 64, 3, 3, generator=g) * 0.06, torch.randn(128, generator=g) * 0.1,
+              torch.randn(128, 128, 3, 3, generator=g) * 0.04, torch.randn(128, generator=g) * 0.1]
+    go = torch.randn(2, 18, 26, 128, generator=g).to(dtype).to(cuda)
+    grads = []
+    for fn in (fused_vgg_block1, block1_reference):
+        leaves = [t.to(cuda).requires_grad_() for t in (x, *params)]
+        kernels.reset_launch_counts()
+        (fn(*leaves) * go).float().sum().backward()
+        torch.cuda.synchronize()
+        assert fused_vgg_block1.launches == (fn is fused_vgg_block1)
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        assert got is not None and torch.isfinite(got).all()
+        scale = float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= rel * scale
 
 
 def conv1_1_as_kernel(x, w1, b1):
@@ -420,6 +483,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     b = torch.zeros(64, device=cuda)
     with pytest.raises(ValueError):
         fused_vgg_block1(x, w1, b, w2, b)  # odd height
+    x2 = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
+    w21, w22 = torch.zeros(128, 64, 3, 3, device=cuda), torch.zeros(128, 128, 3, 3, device=cuda)
+    b2 = torch.zeros(128, device=cuda)
+    with pytest.raises(ValueError):
+        fused_vgg_block1(x2[:, :, :7], w21, b2, w22, b2)  # odd width
+    with pytest.raises(TypeError):
+        fused_vgg_block1(x2.half(), w21, b2, w22, b2)
+    with pytest.raises(ValueError):
+        fused_vgg_block1(x2, w21.cpu(), b2, w22, b2)  # weights on another device
+    with pytest.raises(ValueError):
+        fused_vgg_block1(x2, w21, b2, w22[:, :64], b2)  # w2 not [C, C, 3, 3]
     with pytest.raises(ValueError):
         nms_scan_keep_mask(scores[:, ::2], boxes[:, ::2])
     wide = [t.to(cuda) for t in sorted_rows(1, 2, MAX_K + 1)]  # K > MAX_K: the wide-row path, no longer refused
