@@ -265,8 +265,9 @@ Phases, each ending with a line that gives its elapsed seconds:
               images on the card (400 f32 steps, then the Detector through
               K-A): mAP over the classes with gts >= 0.8, K-A launched and
               no other kernel; (b) `tools/synthetic_e2e.py` at full width
-              with the verify recipe (RON-320, canvas 400, bf16, 2500 steps
-              at batch 32, fuse_block1): 800 training and 96 held-out
+              with the verify recipe (RON-320, canvas 400, bf16, batch 32,
+              fuse_block1) cut from its 2500 steps to 1000: 800
+              training and 96 held-out
               synthetic images written by the port's JPEG encoder; K-B once
               a training step and no other kernel; the bf16 evaluator over
               the held-out split (K-A and K-B, once a batch); held-out mAP07
@@ -330,6 +331,20 @@ Phases, each ending with a line that gives its elapsed seconds:
               keys and its exit code matching its `ok`. Whatever the mAP
               (200 steps do not reach the tool's 0.5), the mAPs and the
               K-A/K-C keep-set parting count are printed.
+ 34. probes   the ported repo-root tools (`ron_tensorflow_tpu_torch/tools/`):
+              `list_caffemodel` on a seeded VGG-16 caffemodel (every layer
+              listed); `perf_breakdown` (bf16 RON-320 Detector, K-B and
+              K-A, batches 1 and 32), `perf_post` (its stages at b32, K-C's
+              scan NMS and K-A's full postprocess), `perf_topk` (the
+              selections bit-equal to a stable sort, then five Detector
+              configs), `perf_block_times`, `perf_remat12_bandwidth`,
+              `perf_train_breakdown`, `perf_step_probe` and
+              `perf_train_experiments` (seven step variants, K-B in
+              `block1*`) at RON-320's width and the JAX tools' batches
+              with one warm-up and two timed calls; `leak_probe` (8 MB, 100
+              iterations): every returned number finite and > 0 (deltas
+              and RSS growth finite), each tool's kernels launched, K-A,
+              K-B and K-C over the phase and no other kernel.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -443,6 +458,18 @@ from ron_tensorflow_tpu_torch.train.state import (
 from ron_tensorflow_tpu_torch.train.tf_checkpoint import slim_ron_to_flat
 from ron_tensorflow_tpu_torch.train.trainer import Trainer
 from ron_tensorflow_tpu_torch.tools import ab_detection_config, dress_rehearsal, overfit_check, synthetic_e2e
+from ron_tensorflow_tpu_torch.tools import (
+    leak_probe,
+    list_caffemodel,
+    perf_block_times,
+    perf_breakdown,
+    perf_post,
+    perf_remat12_bandwidth,
+    perf_step_probe,
+    perf_topk,
+    perf_train_breakdown,
+    perf_train_experiments,
+)
 from ron_tensorflow_tpu_torch.tools.synthetic_data import make_dataset
 from ron_tensorflow_tpu_torch.utils.profiling import profile_trace
 from ron_tensorflow_tpu_torch.utils.tensorboard import read_events
@@ -3859,8 +3886,11 @@ def cli_infer_phase(model_dir, tmp, smi):
     return res
 
 
-LEARN_RECIPE = {"SYNTH_MODEL": "ron_320_vgg", "SYNTH_CANVAS": "400", "SYNTH_BF16": "true", "SYNTH_STEPS": "2500",
-                "SYNTH_FUSE_BLOCK1": "true"}  # the verify recipe at full width, the default batch of 32
+# the verify recipe at full width and the default batch of 32, cut from its 2500 steps to 1000 (the schedule's
+# boundaries scale with the steps; held-out mAP07 0.95 at 2500 and at 1500): its host-bound steps took 90-188 ms
+# on the card's host from one run to the next, which put the whole script at 985-1150 s of its 1200
+LEARN_RECIPE = {"SYNTH_MODEL": "ron_320_vgg", "SYNTH_CANVAS": "400", "SYNTH_BF16": "true", "SYNTH_STEPS": "1000",
+                "SYNTH_FUSE_BLOCK1": "true"}
 SUPERVISED_STEPS = 3
 SUPERVISOR = REPO / "ron_tensorflow_tpu_torch" / "tools" / "train_supervised.py"
 SUPERVISED_TIMEOUT = 900  # s for the supervised run, its four launches and probes included
@@ -4469,6 +4499,72 @@ def rehearsal_phase(smi):
                    "launches": variant_launches, "digests": variant_digests}}
 
 
+# phase "probes": the ported repo-root tools at RON-320's full width, their calls cut
+PROBE_CALLS = ["--iters", "2", "--warmup", "1"]
+PROBE_PATH = ("nms_fixpoint_keep_mask", "fused_vgg_block1", "nms_scan_keep_mask")  # K-A, K-B, K-C
+# the numbers that may be 0 or below: a delta between two timed variants, and the leak probe's RSS growth
+PROBE_SIGNED = ("delta_ms", "encode", "rss_growth_gb", "mb_per_iter")
+PROBE_TOOLS = (  # (name, the tool's main, its arguments, the kernels it must launch)
+    ("perf_breakdown", perf_breakdown.main, ["--batches", "1", "32", *PROBE_CALLS],
+     ("nms_fixpoint_keep_mask", "fused_vgg_block1")),
+    ("perf_post", perf_post.main, PROBE_CALLS, ("nms_fixpoint_keep_mask", "nms_scan_keep_mask")),
+    ("perf_topk", perf_topk.main, PROBE_CALLS, ("nms_fixpoint_keep_mask", "fused_vgg_block1")),
+    ("perf_block_times", perf_block_times.main, PROBE_CALLS, ()),
+    ("perf_remat12_bandwidth", perf_remat12_bandwidth.main, PROBE_CALLS, ()),
+    ("perf_train_breakdown", perf_train_breakdown.main, PROBE_CALLS, ()),
+    ("perf_step_probe", perf_step_probe.main, PROBE_CALLS, ()),
+    ("perf_train_experiments", perf_train_experiments.main, PROBE_CALLS, ("fused_vgg_block1",)),
+    ("leak_probe", leak_probe.main, ["8", "100"], ()),  # MB, iterations: the JAX tool's 8 MB, 100 of its 200
+)
+
+
+def probe_numbers(tool, res, key=None):
+    """Every number of a probe's result: finite, and > 0 but for PROBE_SIGNED's."""
+    if isinstance(res, dict):
+        for k, v in res.items():
+            probe_numbers(tool, v, k if isinstance(k, str) else key)
+    elif isinstance(res, (list, tuple)):
+        for v in res:
+            probe_numbers(tool, v, key)
+    elif isinstance(res, (int, float)) and not isinstance(res, bool):
+        if not np.isfinite(res) or (key not in PROBE_SIGNED and res <= 0):
+            raise AssertionError(f"{tool}: {key} = {res}")
+
+
+def probes_phase(smi):
+    """Phase "probes": `tools/list_caffemodel.py` on a seeded VGG-16
+    caffemodel, then each perf probe at RON-320's full width and the JAX
+    tools' batches (perf_breakdown cut to 1 and 32) with PROBE_CALLS, and
+    the leak probe: each one's numbers finite and > 0 (PROBE_SIGNED's
+    finite), each one's kernels launched (counted around it), K-A, K-B and
+    K-C launched over the phase and no other kernel."""
+    res, launches, seconds = {}, {}, {}
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        caffe = Path(tmp) / "vgg16.caffemodel"
+        write_caffemodel(caffe, seeded_vgg16(VGG_SEED), np.full((512,), 20.0, np.float32))
+        t0 = time.perf_counter()
+        res["list_caffemodel"] = list_caffemodel.main([str(caffe)])
+        seconds["list_caffemodel"] = time.perf_counter() - t0
+    if res["list_caffemodel"]["layers"] != len(VGG16_REDUCED) + 1:
+        raise AssertionError(f"list_caffemodel: {res['list_caffemodel']['layers']} layers, "
+                             f"{len(VGG16_REDUCED) + 1} written")
+    for name, tool_main, args, path in PROBE_TOOLS:
+        before, t0 = kernels.launch_counts(), time.perf_counter()
+        res[name] = tool_main(args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        probe_numbers(name, res[name])
+        missing = [k for k in path if launches[name][k] < 1]
+        if missing:
+            raise AssertionError(f"{name}: never launched {missing} ({launches[name]})")
+    total = kernels.launch_counts()
+    check_counts("probes", total, PROBE_PATH)
+    print("  probe seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f" ({smi})")
+    return {"results": res, "launches": launches, "seconds": seconds, "total_launches": total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -4725,6 +4821,8 @@ def main() -> int:
         images_res = images_phase(smi)
     with phase("rehearsal"):
         rehearsal = rehearsal_phase(smi)
+    with phase("probes"):
+        probes = probes_phase(smi)
     results[2]["cli_infer_launches"] = cli_inf["launches"]["nms_scan_keep_mask"]
     kb_row["cli_launches"] = {"train": cli_train["launches"]["fused_vgg_block1"],
                               "eval": cli_eval["launches"]["fused_vgg_block1"]}
@@ -4758,6 +4856,9 @@ def main() -> int:
     results[2]["rehearsal_launches"] = {
         "realtime_eval": rehearsal["realtime_launches"]["nms_scan_keep_mask"],
         "ab_variants": {n: v["nms_scan_keep_mask"] for n, v in ab_launches.items() if v["nms_scan_keep_mask"]}}
+    results[0]["probes_launches"] = probes["total_launches"]["nms_fixpoint_keep_mask"]
+    kb_row["probes_launches"] = probes["total_launches"]["fused_vgg_block1"]
+    results[2]["probes_launches"] = probes["total_launches"]["nms_scan_keep_mask"]
     results[2]["images_launches"] = {
         "cli_infer": images_res["infer"]["launches"]["nms_scan_keep_mask"],
         "realtime_wide": images_res["wide_rows"]["realtime head"]["launches"]["nms_scan_keep_mask"]}
@@ -4776,7 +4877,8 @@ def main() -> int:
                       "records_to_map": {"jpeg": jpeg_res, "records": records, "cli_train": cli_train,
                                          "cli_eval": cli_eval, "cli_realtime_eval": cli_rt},
                       "dist": dist, "zoo": zoo_res, "cli_infer": cli_inf, "learn": learn, "bench": bench,
-                      "stem": stem, "images": images_res, "rehearsal": rehearsal}))
+                      "stem": stem, "images": images_res, "rehearsal": rehearsal,
+                      "probes": {"launches": probes["launches"], "seconds": probes["seconds"]}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -36,31 +36,34 @@ ROWS_CACHE = REPO / "ron_tensorflow_tpu_torch" / "_build" / "nms_rows_main_path.
 DEVICE_REPS = 200
 CALL_REPS = 50
 KEPT_STEPS = (0, 1, 4, 16, 46, 100, 200)
+PROFILE_WINDOWS = 3
 
 
-def device_ms(fn, reps=DEVICE_REPS, match="nms"):
+def device_ms(fn, reps=DEVICE_REPS, match="nms", windows=PROFILE_WINDOWS):
     """Per-launch mean of the device duration of the kernels whose name
     holds `match`, over a torch.profiler trace of `reps` calls of fn (one
     warm-up call first). Only the device's own events count (device_type
-    CUDA). Returns (ms, launches seen in the trace)."""
+    CUDA). A window whose trace holds no such event at all (CUPTI has
+    returned empty traces on the card host now and then) is taken again,
+    up to `windows` in all. Returns (ms, launches seen in the trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
-    if not events:
-        raise RuntimeError(f"the profiler trace holds no device event named like {match!r}")
-    return sum(device_us(e) for e in events) / reps / 1e3, sum(e.count for e in events)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
+        if events:
+            return sum(device_us(e) for e in events) / reps / 1e3, sum(e.count for e in events)
+    raise RuntimeError(f"{windows} profiler traces held no device event named like {match!r}")
 
 
 def call_ms(fn, reps=CALL_REPS):

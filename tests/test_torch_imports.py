@@ -158,3 +158,31 @@ def test_rehearsal_tools_import_without_jax_pil_or_cv2():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+PROBE_TOOLS = ["ron_tensorflow_tpu_torch.tools." + name for name in (
+    "perf_common", "list_caffemodel", "perf_breakdown", "perf_post", "perf_topk", "perf_block_times",
+    "perf_remat12_bandwidth", "perf_train_breakdown", "perf_step_probe", "perf_train_experiments", "leak_probe")]
+
+
+def test_probe_tools_import_without_jax():
+    """The ported repo-root tools (the perf probes, the leak probe, the
+    Caffe lister) are in the package and import neither JAX, flax,
+    ml_dtypes nor the JAX package (nor anything else BLOCKED)."""
+    mods = port_modules()
+    assert all(name in mods for name in PROBE_TOOLS)
+    code = "\n".join(
+        [
+            "import importlib, sys",
+            f"for name in {BLOCKED!r}:",
+            "    sys.modules[name] = None",
+            f"for name in {PROBE_TOOLS!r}:",
+            "    importlib.import_module(name)",
+            f"leaked = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r} and sys.modules[m] is not None]",
+            "assert not leaked, leaked",
+            "print('ok')",
+        ]
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
