@@ -24,12 +24,13 @@ Phases, each ending with a line that gives its elapsed seconds:
               pool2; a torch.profiler pass over one block-2 call (its own
               kernel, no cuDNN or cuBLAS one) and its peak memory (below
               one [B, H, W, C] intermediate); then K-A and K-C on rows
-              wider than MAX_K (the
-              kernel's wide-row path): seeded [2, 8732] and [2, 21250]
-              rows, 'min' and 'union', K-C capped at 20 and 200, each mask
-              bit-equal to its plain version (K-A's run a row at a time and
-              freed), each launch's device ms (torch.profiler) beside its
-              bound;
+              wider than MAX_K (the kernel's wide-row cluster path):
+              seeded [2, 8732], [2, 21250] and [2, 24564] rows, 'min' and
+              'union', K-C capped at 20 and 200, each mask bit-equal to its
+              plain version (K-A's run a row at a time and freed; K-C's
+              at cap 20 the first 20 kept of its cap-200 mask), each
+              launch's device ms (torch.profiler) beside its bound, with
+              its kept count, steps and cluster size;
   4. main     full-width RON-320 with the trained weights packed in
               tests/fixtures/e2e_parity_trained.npz, pixels to boxes:
               (a) float32, TF32 off, against the fixture's reference
@@ -309,9 +310,9 @@ Phases, each ending with a line that gives its elapsed seconds:
               RON-320 Detector at batch 2 with top_k 21250 (every anchor):
               K-A once on [40, 21250] rows, its mask bit-equal to the plain
               version run a row at a time and the detections equal, the
-              postprocess's peak memory far below one [R, K, K] tensor; the
-              realtime head with top_k 21250 the same with K-C on [2,
-              21250]; (d) two Trainer steps with dump_debug_images_every=1
+              postprocess's peak memory far below one [R, K, K] tensor, the
+              launch's device ms beside its bound; the realtime head with
+              top_k 21250 the same with K-C on [2, 21250]; (d) two Trainer steps with dump_debug_images_every=1
               and TensorBoard: two debug JPEGs and two TensorBoard PNGs that
               the port's decoders read.
  33. rehearsal `tools/dress_rehearsal.py`'s `main` at full width on the
@@ -906,9 +907,10 @@ def chain_err(label, got, plain, model_ref, y1, w2):
     torch.testing.assert_close(got.float(), ref, rtol=BLOCK1_RTOL, atol=flip)
 
 
-# SSD-300's and RON-320's anchors (a top_k at every anchor gives such rows), each with the mode K-C
-# runs there: SSD's class-wise 'min' rows, the realtime head's whole-image 'union' rows. K-A runs both.
-WIDE_K = {8732: "min", 21250: "union"}
+# SSD-300's, RON-320's and SSD-512's anchors (a top_k at every anchor gives such rows), each with the
+# mode K-C runs there: SSD's class-wise 'min' rows, the realtime head's whole-image 'union' rows. K-A
+# runs both.
+WIDE_K = {8732: "min", 21250: "union", 24564: "min"}
 WIDE_CAPS = (20, 200)  # K-C's caps on them: the realtime head's keep_top_k and the class-wise keep_top_k
 WIDE_REPS = 5  # profiled launches of each wide-row call
 
@@ -923,49 +925,72 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def wide_nms_part(name, scores, boxes, thr, mode, cap, plain):
-    """One wide-row call of K-A (cap None) or K-C against its plain version:
-    0 mask differences, then the launch's device time beside its bound."""
+def wide_nms_call(scores, boxes, thr, mode, cap, steps=None):
+    """K-A (cap None) or K-C on the rows."""
     if cap is None:
-        fn = lambda: kernels.nms_fixpoint_keep_mask(scores, boxes, thr, mode)  # noqa: E731
-    else:
-        fn = lambda: kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode)  # noqa: E731
-    keep = fn()
-    ref, plain_ms = timed_once(plain)
+        return kernels.nms_fixpoint_keep_mask(scores, boxes, thr, mode, steps=steps)
+    return kernels.nms_scan_keep_mask(scores, boxes, thr, cap, mode, steps=steps)
+
+
+def wide_nms_timing(scores, boxes, thr, mode, cap, keep):
+    """A wide-row launch's device time beside its bound, the sweep's steps a
+    row and the cluster's size."""
+    r, k = scores.shape
+    steps = torch.zeros(r, dtype=torch.int32, device=scores.device)
+    wide_nms_call(scores, boxes, thr, mode, cap, steps)
+    ms, seen = device_ms(lambda: wide_nms_call(scores, boxes, thr, mode, cap), reps=WIDE_REPS)
+    pairs = sweep_pairs(scores, boxes, thr, mode, keep, dividing=cap is not None)
+    bound_ms, bound_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
+    ctas, tile = kernels_nms.cluster_layout(r, k)
+    held = [len(torch.unique(row.nonzero().squeeze(1) // tile)) for row in keep]
+    return {"rows": [r, k], "mode": mode, "keep_top_k": cap, "ms": ms, "launches_profiled": seen, "pairs": pairs,
+            "bound_ms": bound_ms, "bound_by": bound_by, "steps": steps.tolist(), "tiles_holding_kept": held,
+            "cluster_ctas": ctas, **kept_stats(keep)}
+
+
+def wide_nms_part(name, scores, boxes, thr, mode, cap, ref, plain_ms):
+    """One wide-row call of K-A (cap None) or K-C against its plain
+    version's mask `ref`: 0 mask differences, then the launch's device time
+    beside its bound, its kept count, steps and cluster size."""
+    keep = wide_nms_call(scores, boxes, thr, mode, cap)
     err, n_diff = mask_err(keep, ref)
-    del ref
     r, k = scores.shape
     if n_diff:
         raise AssertionError(f"{name} on wide rows [{r},{k}] {mode} (keep_top_k {cap}): {n_diff} mask differences")
-    ms, seen = device_ms(fn, reps=WIDE_REPS)
-    pairs = sweep_pairs(scores, boxes, thr, mode, keep, dividing=cap is not None)
-    bound_ms, bound_by = bound(r * k * (4 + 16 + 1), 12 * pairs, PEAK_F32_FLOPS)
-    part = {"rows": [r, k], "mode": mode, "keep_top_k": cap, "ms": ms, "launches_profiled": seen,
-            "plain_ms": plain_ms, "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-            **kept_stats(keep)}
+    part = {**wide_nms_timing(scores, boxes, thr, mode, cap, keep), "plain_ms": plain_ms, "max_abs_err": err}
     print(f"  {name} wide rows [{r},{k}] {mode}{'' if cap is None else f', keep_top_k {cap}'}: 0 mask differences, "
-          f"{ms:.4f} ms device a launch, bound {bound_ms:.4g} ms by {bound_by} ({pairs} overlaps needed), plain "
-          f"{plain_ms:.1f} ms; kept per row mean {part['kept_mean']:.1f}, max {part['kept_max']}", flush=True)
+          f"{part['ms']:.4f} ms device a launch, bound {part['bound_ms']:.4g} ms by {part['bound_by']} "
+          f"({part['pairs']} overlaps needed), plain {plain_ms:.1f} ms; kept per row "
+          f"{keep.sum(-1).tolist()}, steps {part['steps']} (tiles holding a kept box {part['tiles_holding_kept']}), "
+          f"cluster of {part['cluster_ctas']} CTAs", flush=True)
     return part
 
 
 def check_wide_rows():
     """Phase 3, rows of more than MAX_K candidates (the kernel's wide-row
-    path): seeded [2, 8732] and [2, 21250] rows, K-A in 'min' and 'union'
-    mode (against its plain version a row at a time) and K-C capped at 20
-    and 200 in WIDE_K's mode (its plain version takes K steps of ~0.5 ms),
-    each mask bit-equal; each launch's device time beside its bound."""
+    cluster path): seeded [2, 8732], [2, 21250] and [2, 24564] rows, K-A in
+    'min' and 'union' mode (against its plain version a row at a time) and
+    K-C capped at 20 and 200 in WIDE_K's mode (its plain version takes K
+    steps of ~0.5 ms: run once at the larger cap, whose first 20 kept are
+    the mask at cap 20, since a taken candidate's kills do not depend on
+    the cap), each mask bit-equal; each launch's device time beside its
+    bound, with its kept count, steps and cluster size."""
     out = {"nms_fixpoint_keep_mask": [], "nms_scan_keep_mask": []}
+    thr = NMS_CFG.nms_threshold
     for k, scan_mode in WIDE_K.items():
         scores, boxes = sorted_rows(k + 11, 2, k)
         for mode in ("min", "union"):
-            out["nms_fixpoint_keep_mask"].append(wide_nms_part(
-                "nms_fixpoint_keep_mask", scores, boxes, NMS_CFG.nms_threshold, mode, None,
-                lambda: kernels.nms_fixpoint_keep_mask_plain(scores, boxes, NMS_CFG.nms_threshold, mode)))
-            for cap in WIDE_CAPS if mode == scan_mode else ():
-                out["nms_scan_keep_mask"].append(wide_nms_part(
-                    "nms_scan_keep_mask", scores, boxes, NMS_CFG.nms_threshold, mode, cap,
-                    lambda: kernels.nms_scan_keep_mask_plain(scores, boxes, NMS_CFG.nms_threshold, cap, mode)))
+            ref, plain_ms = timed_once(lambda: kernels.nms_fixpoint_keep_mask_plain(scores, boxes, thr, mode))
+            out["nms_fixpoint_keep_mask"].append(
+                wide_nms_part("nms_fixpoint_keep_mask", scores, boxes, thr, mode, None, ref, plain_ms))
+            if mode == scan_mode:
+                top = max(WIDE_CAPS)
+                ref, plain_ms = timed_once(lambda: kernels.nms_scan_keep_mask_plain(scores, boxes, thr, top, mode))
+                for cap in WIDE_CAPS:
+                    out["nms_scan_keep_mask"].append(wide_nms_part(
+                        "nms_scan_keep_mask", scores, boxes, thr, mode, cap, ref & (torch.cumsum(ref, -1) <= cap),
+                        plain_ms))
+            del ref
         del scores, boxes
         torch.cuda.empty_cache()
     return out
@@ -4261,12 +4286,17 @@ def wide_detector_rows(images):
                                  "differ from the plain version's")
         if peak >= r * k * k:
             raise AssertionError(f"{name}: {peak} bytes at peak, an [R, K, K] tensor's worth")
+        cap = None if kernel == "nms_fixpoint_keep_mask" else cfg.keep_top_k
+        timing = wide_nms_timing(scores, boxes, cfg.nms_threshold, cfg.nms_mode, cap, keep)
         out[name] = {"rows": [r, k], "launches": launches, "kept_mean": float(keep.sum(-1).float().mean()),
-                     "valid": int((scores > 0).sum()), "peak_bytes": peak}
+                     "valid": int((scores > 0).sum()), "peak_bytes": peak, "timing": timing}
         print(f"  {name} f32 batch 2, top_k {WIDE_TOP_K}: {kernel} once on [{r},{k}] rows "
               f"({out[name]['valid']} candidates > 0), mask bit-equal to the plain version, detections equal; "
               f"kept per row {out[name]['kept_mean']:.2f}; postprocess peak {peak / 2 ** 20:.1f} MiB "
-              f"(one [R, K, K] bool tensor: {r * k * k / 2 ** 30:.1f} GiB)", flush=True)
+              f"(one [R, K, K] bool tensor: {r * k * k / 2 ** 30:.1f} GiB); {timing['ms']:.4f} ms device a launch, "
+              f"bound {timing['bound_ms']:.4g} ms by {timing['bound_by']} ({timing['pairs']} overlaps needed), steps "
+              f"max {max(timing['steps'])} (tiles holding a kept box: max {max(timing['tiles_holding_kept'])}), "
+              f"cluster of {timing['cluster_ctas']} CTAs", flush=True)
         del keep, ref
         torch.cuda.empty_cache()
     return out
@@ -4849,6 +4879,8 @@ def main() -> int:
     results[0]["wide_rows"] = wide["nms_fixpoint_keep_mask"]
     results[2]["wide_rows"] = wide["nms_scan_keep_mask"]
     results[0]["images_launches"] = images_res["wide_rows"]["Detector"]["launches"]["nms_fixpoint_keep_mask"]
+    results[0]["images_wide_rows"] = images_res["wide_rows"]["Detector"]["timing"]
+    results[2]["images_wide_rows"] = images_res["wide_rows"]["realtime head"]["timing"]
     ab_launches = rehearsal["ab"]["launches"]
     results[0]["rehearsal_launches"] = {
         "streaming_eval": rehearsal["streaming_launches"]["nms_fixpoint_keep_mask"],

@@ -57,20 +57,61 @@
 //   dividing where the answer is certain (`scan_verdict`); only a quotient
 //   within a few ulps of t is divided, with __fdiv_rn, after the slot loop.
 //
-// Wide rows (K > kMaxK, such as every anchor of RON-320 at 21250 or of
-// SSD-512 at 24564 when top_k asks for them) cannot keep a row's boxes in
-// registers or shared memory. `nms_wide_kernel` runs the same sweep with
-// the same predicates, one block of 1024 threads a row: the row's alive and
-// kept bits are words in shared memory (K / 8 bytes each: 2.7 KB at
-// K = 21250); a cursor moves only forward to the word of the lowest alive
-// candidate, which warp 0 finds with one ballot per 32 words; box i is
-// broadcast through shared memory; warp w evaluates the words w, w + 32,
-// ... at and after i's, a lane per candidate, reading the alive candidates'
-// boxes from global memory (the row's 340 KB at K = 21250 stay in L2 from
-// step to step) and clearing the hits with one ballot per word. A step
-// costs about (K - i) / 1024 candidates a thread; the row takes as many
-// steps as it keeps. Here K-C decides every pair with __fdiv_rn.
+// Wide rows (K > kMaxK: a Detector's top_k at every anchor, 21250 for
+// RON-320, 8732 for SSD-300, 24564 for SSD-512) do not fit one SM's
+// registers. Up to kClusterMaxK candidates they take `nms_cluster_kernel`,
+// the same greedy keep set by a tile-batched sweep spread over a thread-block
+// cluster:
+// - A row is cut into tiles of kTile = 32 candidates, dealt out in turn to
+//   the C CTAs of the row's cluster and, inside a CTA, to its 32 warps: tile
+//   t lives in CTA t % C, warp (t / C) % 32, a lane a candidate. A CTA loads
+//   its tiles' boxes from HBM once into its own shared memory (K / C boxes
+//   of 16 bytes: 21 KB a CTA at K = 21250, C = 16); a lane keeps its alive
+//   and kept flags in each of its warp's tiles as bits of two registers.
+// - In a step every warp resolves the greedy inside its first alive tile in
+//   registers (one ballot per kept box), unasked. Per CTA, the warp holding
+//   the CTA's first alive tile sends a note (that tile, the CTA's next alive
+//   tile, the kept mask, the tile's boxes) to every CTA of the cluster by
+//   bulk copies into their shared memory (distributed shared memory), each
+//   counted in by the receiver's mbarrier: no cluster barrier a step.
+// - Warp 0 of every CTA then takes the notes' tiles in order, as long as no
+//   other alive tile lies before them (each earlier note's next alive tile
+//   bounds them), their kept boxes fit a warp, and no box kept in an earlier
+//   taken tile suppresses one kept in a later one. Their kept sets are then
+//   exactly the sequential sweep's: the first tile's is, since every box
+//   kept before it has been applied, and a later tile's kept boxes stand
+//   when no earlier kept box suppresses them (what those boxes suppress in
+//   the tile stays suppressed). K-C stops at keep_top_k, which may fall in
+//   the middle of a tile.
+// - Every warp then tests its alive candidates after the last taken tile
+//   against the taken boxes: each kept box meets each later candidate still
+//   alive at its turn at most once, as in the sequential sweep. A row takes
+//   fewer steps than it has tiles holding a kept box (49 for [2, 21250]'s
+//   'union' rows, 273 such tiles, 613 kept).
+// - Notes and their barriers alternate between two buffers by the step's
+//   parity: a CTA's note for step s + 2 can only be sent after the CTA has
+//   had this CTA's note for step s + 1, sent after this CTA read step s's.
+// - C follows the rows (`cluster_ctas`): up to 16 CTAs a row when rows are
+//   few ([2, K]: 32 SMs), about SMs / rows when they are many (3 at the
+//   Detector's [40, 21250]), at least what the row's boxes need.
+// - K-C decides its dividing predicate through `scan_verdict` here too.
+// Bound: latency, as on the narrow path. A step costs two block barriers,
+// one round of notes through distributed shared memory, the tile's
+// in-register greedy and warp 0's decision; the bytes (21 B a candidate)
+// and the pairs are far below a microsecond.
+//
+// Rows wider than kClusterMaxK (the boxes of 16 CTAs' shared memory) take
+// `nms_wide_kernel`: one block of 1024 threads a row, the row's alive and
+// kept bits as words in shared memory (K / 8 bytes each); a cursor moves
+// only forward to the word of the lowest alive candidate, which warp 0 finds
+// with one ballot per 32 words; box i is broadcast through shared memory;
+// warp w evaluates the words w, w + 32, ... at and after i's, a lane per
+// candidate, reading the alive candidates' boxes from global memory and
+// clearing the hits with one ballot per word. The row takes as many steps
+// as it keeps (K up to 925,696). Here K-C decides every pair with
+// __fdiv_rn.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -79,7 +120,7 @@ namespace {
 
 constexpr uint32_t kFull = 0xffffffffu;
 constexpr uint32_t kNone = 0xffffffffu;
-constexpr int kMaxK = 4096;  // above: nms_wide_kernel
+constexpr int kMaxK = 4096;  // above: nms_cluster_kernel, then nms_wide_kernel
 constexpr int kWarpSlots = 8;   // one warp per row: K <= 32 * 8
 constexpr int kBlockSlots = 4;  // one block per row: K <= 1024 * 4
 constexpr int kRowsPerWarpBlock = 4;
@@ -89,6 +130,13 @@ constexpr int kWideBatch = 4;  // words a warp of the wide kernel evaluates at o
 // the bit words' dynamic shared memory, beside the block's few static bytes:
 // K up to 925,696 candidates a row
 constexpr size_t kWideMaxSmem = 226 * 1024;
+// nms_cluster_kernel: a tile of 32 candidates, a lane each; 32 warps a CTA
+constexpr int kTile = 32;
+constexpr int kClusterWarps = 32;
+constexpr int kClusterMaxCtas = 16;  // above 8: a non-portable cluster size
+constexpr int kClusterSpread = 16;   // most CTAs a row gets when there are SMs to spare
+constexpr int kCtaMaxK = 13312;      // candidates a CTA holds: 208 KB of boxes
+constexpr int kClusterMaxK = kClusterMaxCtas * kCtaMaxK;  // 212,992; above: nms_wide_kernel
 
 // Boxes are (ymin, xmin, ymax, xmax) in (x, y, z, w).
 __device__ __forceinline__ float box_volume(float4 b) {
@@ -371,17 +419,329 @@ cudaError_t launch_wide(const float* scores, const float* boxes, void* keep, int
   return cudaGetLastError();
 }
 
+// K-A's (division-free) or K-C's (dividing) verdict: does taken box a
+// suppress box b?
+template <bool kDivide, bool kUnion>
+__device__ __forceinline__ bool suppresses(float4 a, float va, float4 b, float vb, float t, bool t_normal,
+                                           bool zero_hits) {
+  float inter, denom;
+  overlap<kUnion>(a, va, b, vb, inter, denom);
+  if (!kDivide) return inter >= __fmul_rn(t, denom) && denom > 0.0f;
+  bool border;
+  const bool hit = scan_verdict(inter, denom, t, t_normal, zero_hits, border);
+  return border ? __fdiv_rn(inter, denom) >= t : hit;
+}
+
+__device__ __forceinline__ float4 shfl_box(float4 b, int src) {
+  return make_float4(__shfl_sync(kFull, b.x, src), __shfl_sync(kFull, b.y, src), __shfl_sync(kFull, b.z, src),
+                     __shfl_sync(kFull, b.w, src));
+}
+
+// CTAs a row's cluster gets: what its boxes need, and up to kClusterSpread
+// when the rows leave SMs idle.
+int cluster_ctas(int rows, int k, int sms) {
+  constexpr int kCtaTiles = kCtaMaxK / kTile;
+  const int need = ((k + kTile - 1) / kTile + kCtaTiles - 1) / kCtaTiles;
+  return max(need, max(1, min(kClusterSpread, sms / max(rows, 1))));
+}
+
+// What each CTA tells every CTA of the cluster in a step: head = (its
+// first alive tile or kNone, its next alive tile or kNone, the first tile's
+// warp | u << 8, the first tile's kept mask as resolved), then that tile's
+// boxes.
+struct __align__(16) TileNote {
+  uint4 head;
+  float4 boxes[kTile];
+};
+
+__device__ __forceinline__ uint32_t smem_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared-memory object in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_address(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The position of the j-th set bit (j >= 1) of mask.
+__device__ __forceinline__ int nth_bit(uint32_t mask, int j) {
+  for (int r = 1; r < j; ++r) mask &= mask - 1u;
+  return __ffs(mask) - 1;
+}
+
+// A row of any K up to kClusterMaxK on one cluster of C CTAs of 32 warps
+// (the grid: rows x C CTAs, C from the launch's cluster dimension): the
+// tile-batched greedy sweep of the header. Warp w of CTA c owns the tiles
+// t = c + C w + 32 C u, u = 0, 1, ... (its u-th tile), lane l the slot l of
+// each. `steps`, where not null, gets each row's number of steps.
+template <bool kDivide, bool kCapped, bool kUnion>
+__global__ void __launch_bounds__(kClusterWarps * 32, 1)
+nms_cluster_kernel(const float* __restrict__ scores, const float4* __restrict__ boxes,
+                   uint8_t* __restrict__ keep, int* __restrict__ steps, int k, float threshold, int cap) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float4 tile_boxes[];  // warp w's u-th tile at (w + 32 u) * kTile
+  __shared__ uint2 warp_tiles[kClusterWarps];  // each warp's first and next alive tile, or kNone
+  // by step parity: the notes from the cluster's CTAs, this CTA's own as
+  // sent, and the barrier that counts the notes' bytes in
+  __shared__ TileNote notes[2][kClusterMaxCtas];
+  __shared__ TileNote outbox[2];
+  __shared__ uint64_t note_bar[2];
+  // the step's decision: the boxes it keeps, in order; (their count, the
+  // mask kept of this CTA's note, the last tile's owner c + C w and u)
+  __shared__ float4 taken_boxes[kTile];
+  __shared__ uint4 taken;
+  __shared__ int listed_boxes[kTile];  // warp 0's list of the listed notes' kept boxes: note << 8 | slot
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = static_cast<int>(cluster.num_blocks());
+  const int cta = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t row = blockIdx.x / ctas;
+  const int tiles = (k + kTile - 1) / kTile;
+  const int stride = ctas * kClusterWarps;  // from a warp's tile to its next
+  const int first = cta + ctas * warp;      // the warp's tile u = 0
+  const float* rs = scores + row * k;
+  const float4* rb = boxes + row * k;
+  const uint32_t note_bytes = static_cast<uint32_t>(ctas * sizeof(TileNote));
+
+  uint32_t alive = 0u, kept_bits = 0u;  // bit u: this lane's candidate in the warp's tile u
+  for (int u = 0, t = first; t < tiles; ++u, t += stride) {
+    const int j = kTile * t + lane;
+    float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    bool valid = false;
+    if (j < k) {
+      b = __ldg(rb + j);
+      valid = __ldg(rs + j) > 0.0f;  // NaN is not
+    }
+    tile_boxes[(warp + kClusterWarps * u) * kTile + lane] = b;
+    alive |= static_cast<uint32_t>(valid) << u;
+  }
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < 2; ++p) {  // one arrival a phase, and steps 0 and 1's bytes
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_address(&note_bar[p])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int p = 0; p < 2; ++p) expect_bytes(smem_address(&note_bar[p]), note_bytes);
+  }
+  cluster.sync();  // every CTA of the cluster running, its barriers set, before any note is sent
+
+  const bool t_normal = threshold >= FLT_MIN && threshold <= FLT_MAX;
+  const bool zero_hits = 0.0f >= threshold;
+  int kept = 0, taken_steps = 0;
+  for (int step = 0; !kCapped || kept < cap; ++step) {
+    const int par = step & 1;
+    // 1. resolve this warp's first alive tile in registers, unasked
+    const uint32_t live = __reduce_or_sync(kFull, alive);
+    const int u = live != 0u ? __ffs(live) - 1 : 0;
+    const uint32_t rest = live & (live - 1u);
+    const uint32_t my_first = live != 0u ? static_cast<uint32_t>(first + stride * u) : kNone;
+    const uint32_t my_next = rest != 0u ? static_cast<uint32_t>(first + stride * (__ffs(rest) - 1)) : kNone;
+    float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    uint32_t m = 0u;
+    if (live != 0u) {
+      b = tile_boxes[(warp + kClusterWarps * u) * kTile + lane];
+      const float v = box_volume(b);
+      uint32_t a = __ballot_sync(kFull, (alive >> u) & 1u);
+      for (int n = kept; a != 0u && (!kCapped || n < cap); ++n) {  // take the tile's first alive candidate i
+        const int i = __ffs(a) - 1;
+        m |= 1u << i;
+        a &= a - 1u;
+        const float4 bi = shfl_box(b, i);
+        const float vi = __shfl_sync(kFull, v, i);
+        a &= ~__ballot_sync(kFull, suppresses<kDivide, kUnion>(bi, vi, b, v, threshold, t_normal, zero_hits));
+      }
+    }
+    if (lane == 0) warp_tiles[warp] = make_uint2(my_first, my_next);
+    __syncthreads();
+    // 2. the warp that holds the CTA's first alive tile sends the CTA's note
+    // to every CTA of the cluster (warp 0 sends kNone)
+    const uint2 wt = lane < kClusterWarps ? warp_tiles[lane] : make_uint2(kNone, kNone);
+    const uint32_t cta_first = __reduce_min_sync(kFull, wt.x);
+    const uint32_t cta_next = __reduce_min_sync(kFull, wt.x == cta_first ? wt.y : wt.x);
+    if (cta_first == kNone ? warp == 0 : cta_first == my_first) {
+      TileNote& note = outbox[par];
+      if (lane == 0) note.head = make_uint4(cta_first, cta_next, warp | u << 8, m);
+      note.boxes[lane] = b;
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the note, to the bulk copies
+      __syncwarp();
+      if (lane < ctas) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                cluster_address(smem_address(&notes[par][cta]), lane)),
+            "r"(smem_address(&note)), "r"(static_cast<uint32_t>(sizeof(TileNote))),
+            "r"(cluster_address(smem_address(&note_bar[par]), lane))
+            : "memory");
+      }
+    }
+    wait_phase(smem_address(&note_bar[par]), (step >> 1) & 1);
+    // the phase after next: its notes come only after this CTA's next one
+    if (threadIdx.x == 0) expect_bytes(smem_address(&note_bar[par]), note_bytes);
+    // 3. warp 0 takes the notes' tiles in order, as long as no alive tile
+    // lies between them and no box kept in an earlier one suppresses a box
+    // kept in a later one: their kept sets are then the sweep's
+    if (warp == 0) {
+      const uint4 h = lane < ctas ? notes[par][lane].head : make_uint4(kNone, kNone, 0u, 0u);
+      const int nt = __popc(h.w);
+      int base = 0;  // boxes kept in the notes' tiles before this one
+      uint32_t bound = kNone;  // the first alive tile after those tiles
+#pragma unroll
+      for (int d = 0; d < kClusterMaxCtas; ++d) {  // lanes from `ctas` on hold kNone
+        const uint32_t td = __shfl_sync(kFull, h.x, d);
+        const int nd = __shfl_sync(kFull, nt, d);
+        const uint32_t xd = __shfl_sync(kFull, h.y, d);
+        if (td < h.x) {
+          base += nd;
+          bound = min(bound, xd);
+        }
+      }
+      const bool fits = h.x != kNone && h.x < bound && (base == 0 || base + nt <= kTile);
+      const uint32_t stop = __reduce_min_sync(kFull, h.x != kNone && !fits ? h.x : kNone);
+      const int listed = fits && h.x < stop;
+      // lane l: the l-th box kept in the listed tiles, in order
+      if (listed) {
+        int e = base;
+        for (uint32_t mm = h.w; mm != 0u; mm &= mm - 1u) listed_boxes[e++] = lane << 8 | (__ffs(mm) - 1);
+      }
+      __syncwarp();
+      const int total = __reduce_max_sync(kFull, listed ? base + nt : 0);
+      const int src = lane < total ? listed_boxes[lane] : -1;
+      const int my_note = src >= 0 ? src >> 8 : 0;
+      const int my_base = __shfl_sync(kFull, base, my_note);
+      const float4 kb = src >= 0 ? notes[par][my_note].boxes[src & 0xff] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float kv = box_volume(kb);
+      bool hit = false;  // by a box of an earlier tile
+      for (int q0 = 0; q0 < total; q0 += 4) {  // four at a time, branch-free
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + e;
+          const float4 a = shfl_box(kb, q & 31);
+          const float va = __shfl_sync(kFull, kv, q & 31);
+          hit |= (q < my_base) & suppresses<kDivide, kUnion>(a, va, kb, kv, threshold, t_normal, zero_hits);
+        }
+      }
+      int count = __reduce_min_sync(kFull, src >= 0 && hit ? my_base : total);
+      if (kCapped) count = min(count, cap - kept);
+      if (lane < count) taken_boxes[lane] = kb;
+      const int j = count - base;  // this note's boxes taken
+      const uint32_t own = !listed || j <= 0 ? 0u : j >= nt ? h.w : h.w & ((2u << nth_bit(h.w, j)) - 1u);
+      const int last = __shfl_sync(kFull, my_note, max(count - 1, 0));
+      const uint32_t last_z = __shfl_sync(kFull, h.z, last);
+      const uint32_t own_cta = __shfl_sync(kFull, own, cta);
+      if (lane == 0) {
+        taken = make_uint4(count, own_cta, last + ctas * (last_z & 0xffu), last_z >> 8);
+      }
+    }
+    __syncthreads();
+    const uint4 tk = taken;
+    const int n = static_cast<int>(tk.x);
+    if (n == 0) break;
+    kept += n;
+    ++taken_steps;
+    if (tk.y != 0u) {  // this CTA's note was taken: its warp keeps the boxes
+      const uint32_t z = notes[par][cta].head.z;
+      if (warp == static_cast<int>(z & 0xffu)) {
+        kept_bits |= ((tk.y >> lane) & 1u) << (z >> 8);
+        alive &= ~(1u << (z >> 8));
+      }
+    }
+    if (kCapped && kept >= cap) break;
+    // 4. this warp's alive candidates after the last taken tile against the taken boxes
+    const int after = static_cast<int>(tk.w) + (first <= static_cast<int>(tk.z) ? 1 : 0);
+    const uint32_t later = after >= 32 ? 0u : kFull << after;
+    uint32_t todo = __reduce_or_sync(kFull, alive & later);
+    while (todo != 0u) {
+      const int uj = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const float4 bj = tile_boxes[(warp + kClusterWarps * uj) * kTile + lane];
+      const float vj = box_volume(bj);
+      bool hit = false;
+      for (int q0 = 0; q0 < n; q0 += 4) {  // four at a time, branch-free
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 a = taken_boxes[(q0 + e) & (kTile - 1)];
+          hit |= (q0 + e < n) & suppresses<kDivide, kUnion>(a, box_volume(a), bj, vj, threshold, t_normal, zero_hits);
+        }
+      }
+      if (hit) alive &= ~(1u << uj);
+    }
+  }
+  if (steps != nullptr && cta == 0 && threadIdx.x == 0) steps[row] = taken_steps;
+  // no CTA leaves while a copy from its shared memory may be in flight
+  cluster.sync();
+
+  uint8_t* out = keep + row * k;
+  for (int u = 0, t = first; t < tiles; ++u, t += stride) {
+    const int j = kTile * t + lane;
+    if (j < k) out[j] = (kept_bits >> u) & 1u;
+  }
+}
+
+template <bool kDivide, bool kCapped, bool kUnion>
+cudaError_t launch_cluster(const float* scores, const float* boxes, void* keep, int* steps, int rows, int k,
+                           float threshold, int cap, cudaStream_t stream) {
+  auto kernel = nms_cluster_kernel<kDivide, kCapped, kUnion>;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int ctas = cluster_ctas(rows, k, sms);
+  const int tiles = (k + kTile - 1) / kTile;
+  const size_t smem = static_cast<size_t>((tiles + ctas - 1) / ctas) * kTile * sizeof(float4);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess && ctas > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows * ctas);
+  cfg.blockDim = dim3(kClusterWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, scores, reinterpret_cast<const float4*>(boxes),
+                           static_cast<uint8_t*>(keep), steps, k, threshold, cap);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <bool kDivide, bool kCapped>
-int launch_rows(const float* scores, const float* boxes, void* keep, int rows, int k,
+int launch_rows(const float* scores, const float* boxes, void* keep, int* steps, int rows, int k,
                 float threshold, int cap, int union_mode, cudaStream_t stream) {
   if (rows <= 0 || k <= 0) return 0;
   if (reinterpret_cast<uintptr_t>(boxes) % alignof(float4) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   cudaError_t err;
-  if (k > kMaxK) {
+  if (k > kClusterMaxK) {
     err = union_mode ? launch_wide<kDivide, kCapped, true>(scores, boxes, keep, rows, k, threshold, cap, stream)
                      : launch_wide<kDivide, kCapped, false>(scores, boxes, keep, rows, k, threshold, cap, stream);
+  } else if (k > kMaxK) {
+    err = union_mode
+              ? launch_cluster<kDivide, kCapped, true>(scores, boxes, keep, steps, rows, k, threshold, cap, stream)
+              : launch_cluster<kDivide, kCapped, false>(scores, boxes, keep, steps, rows, k, threshold, cap, stream);
   } else {
     err = union_mode ? launch<kDivide, kCapped, true>(scores, boxes, keep, rows, k, threshold, cap, stream)
                      : launch<kDivide, kCapped, false>(scores, boxes, keep, rows, k, threshold, cap, stream);
@@ -391,20 +751,38 @@ int launch_rows(const float* scores, const float* boxes, void* keep, int rows, i
 
 }  // namespace
 
-// K-A: the uncapped keep mask, division-free predicate.
-extern "C" int nms_fixpoint_keep_mask(const float* scores, const float* boxes, void* keep,
+// K-A: the uncapped keep mask, division-free predicate. `steps` (null, or
+// int32 [rows]): the cluster kernel's steps a row, where it runs.
+extern "C" int nms_fixpoint_keep_mask(const float* scores, const float* boxes, void* keep, int* steps,
                                       int rows, int k, float threshold, int union_mode,
                                       cudaStream_t stream) {
-  return launch_rows<false, false>(scores, boxes, keep, rows, k, threshold, 0, union_mode, stream);
+  return launch_rows<false, false>(scores, boxes, keep, steps, rows, k, threshold, 0, union_mode, stream);
 }
 
-// K-C: the keep mask capped at keep_top_k, dividing predicate.
-extern "C" int nms_scan_keep_mask(const float* scores, const float* boxes, void* keep, int rows,
+// K-C: the keep mask capped at keep_top_k, dividing predicate; `steps` as K-A's.
+extern "C" int nms_scan_keep_mask(const float* scores, const float* boxes, void* keep, int* steps, int rows,
                                   int k, float threshold, int keep_top_k, int union_mode,
                                   cudaStream_t stream) {
-  return launch_rows<true, true>(scores, boxes, keep, rows, k, threshold, keep_top_k, union_mode,
+  return launch_rows<true, true>(scores, boxes, keep, steps, rows, k, threshold, keep_top_k, union_mode,
                                  stream);
 }
+
+// The cluster path's layout for [rows, k] rows on the current device: the
+// CTAs of a row's cluster (0 where K takes another kernel, -1 on a CUDA
+// error), the candidates of a tile, and the widest row it takes.
+extern "C" int nms_cluster_ctas(int rows, int k) {
+  if (rows <= 0 || k <= kMaxK || k > kClusterMaxK) return 0;
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    return -1;
+  }
+  return cluster_ctas(rows, k, sms);
+}
+
+extern "C" int nms_tile_candidates() { return kTile; }
+
+extern "C" int nms_cluster_max_k() { return kClusterMaxK; }
 
 extern "C" const char* ron_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

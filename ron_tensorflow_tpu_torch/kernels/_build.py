@@ -38,10 +38,10 @@ _I = ctypes.c_int
 # name -> argtypes of each extern "C" launcher; every launcher returns the
 # cudaError_t of its launch (0 = success).
 SIGNATURES = {
-    # scores, boxes, keep, rows, k, threshold, union_mode, stream
-    "nms_fixpoint_keep_mask": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
-    # scores, boxes, keep, rows, k, threshold, keep_top_k, union_mode, stream
-    "nms_scan_keep_mask": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
+    # scores, boxes, keep, steps (null or int32 [rows]), rows, k, threshold, union_mode, stream
+    "nms_fixpoint_keep_mask": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
+    # scores, boxes, keep, steps, rows, k, threshold, keep_top_k, union_mode, stream
+    "nms_scan_keep_mask": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
     # x, w1, b1, w2, b2, out, batch, height, width, stream
     "fused_vgg_block1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, w1, b1, w2, b2, out, batch, height, width, cin, c, stream
@@ -50,6 +50,11 @@ SIGNATURES = {
     "fused_stem_conv_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, b, out, batch, height, width, cin, cout, out_bf16, stream
     "fused_conv3x3_relu_pool2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the NMS cluster kernel's layout: CTAs a row's cluster gets for (rows, k), candidates a
+    # tile, widest row
+    "nms_cluster_ctas": (_I, _I),
+    "nms_tile_candidates": (),
+    "nms_cluster_max_k": (),
     # the dynamic shared memory each tensor-core kernel asks for, in bytes
     "fused_vgg_block1_smem_bytes": (),
     "fused_vgg_block2_smem_bytes": (),

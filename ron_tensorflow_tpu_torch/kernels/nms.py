@@ -15,13 +15,17 @@ Port of `ron_tensorflow_tpu/kernels/nms_pallas.py`:
 On the card both run `csrc/nms_greedy.cu`: one greedy sweep, templated on
 the predicate and the cap, that takes the kept candidates one by one and
 skips the untaken ones in bulk. Rows of K up to `MAX_K` candidates keep
-their boxes in registers and shared memory; wider rows (a Detector's
-`top_k` at every anchor: 21250 for RON-320, 24564 for SSD-512) go to the
-same sweep over alive bits in shared memory, the boxes read from global
-memory (up to 925,696 candidates a row). Each launcher gives its plain
-version's mask bit for bit at every K. The two predicates can
-disagree for a pair that sits on the threshold, as the two TPU kernels do;
-each is held to its own TPU kernel.
+their boxes in registers and shared memory. Wider rows (a Detector's
+`top_k` at every anchor: 21250 for RON-320, 24564 for SSD-512) up to
+`CLUSTER_MAX_K` go to a tile-batched sweep spread over a thread-block
+cluster, each row's boxes in the shared memory of its cluster's CTAs (a
+step resolves tiles of 32 candidates, one or more at once;
+`cluster_layout` gives the cluster's size); the widest rows, up to 925,696
+candidates, to a sweep over alive bits in shared memory with the boxes
+read from global memory. Each launcher gives its plain version's mask bit
+for bit at every K. The two predicates can disagree for a pair that sits
+on the threshold, as the two TPU kernels do; each is held to its own TPU
+kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ MODES = ("min", "union")
 # candidates per row up to which the CUDA sweep keeps a row's boxes on chip; wider rows take
 # its wide-row path (`csrc/nms_greedy.cu`, kMaxK)
 MAX_K = 4096
+# widest row of the wide-row path's cluster kernel: 16 CTAs of 13,312 boxes each (208 KB of shared
+# memory); wider rows take `nms_wide_kernel` (`csrc/nms_greedy.cu`, kClusterMaxK)
+CLUSTER_MAX_K = 212_992
 # pairs (rows x K x K) the fixpoint's plain version builds its overlaps for at once
 PLAIN_PAIRS = 1 << 26
 
@@ -59,6 +66,18 @@ def _check_cuda_rows(scores: torch.Tensor, boxes: torch.Tensor):
     if boxes.data_ptr() % 16:
         boxes = boxes.clone()
     return r, k, boxes
+
+
+def cluster_layout(rows: int, k: int) -> tuple[int, int]:
+    """(CTAs of each row's cluster, candidates of a tile) with which the
+    current CUDA device's kernels sweep [rows, k] rows; 0 CTAs where K
+    takes another kernel than the cluster one (K <= MAX_K or
+    K > CLUSTER_MAX_K)."""
+    lib = _build.library()
+    ctas = lib.nms_cluster_ctas(rows, k)
+    if ctas < 0:
+        raise RuntimeError("nms_cluster_ctas: no CUDA device to ask")
+    return ctas, lib.nms_tile_candidates()
 
 
 def suppression_matrix(boxes: torch.Tensor, nms_threshold: float, mode: str) -> torch.Tensor:
@@ -149,12 +168,25 @@ def nms_fixpoint_keep_mask_plain(
     return torch.cat(parts) if parts else scores > 0.0
 
 
+def _steps_pointer(steps, r: int):
+    """The data pointer of `steps` (None: 0), an int32 [R] tensor on the
+    rows' device that the cluster kernel fills with each row's steps."""
+    if steps is None:
+        return 0
+    if steps.dtype != torch.int32 or steps.shape != (r,) or not steps.is_contiguous():
+        raise ValueError(f"steps must be a contiguous int32 [{r}] tensor, got {steps.dtype} {tuple(steps.shape)}")
+    return steps.data_ptr()
+
+
 def nms_fixpoint_keep_mask(
-    scores: torch.Tensor, boxes: torch.Tensor, nms_threshold: float = 0.5, mode: str = "min"
+    scores: torch.Tensor, boxes: torch.Tensor, nms_threshold: float = 0.5, mode: str = "min", *,
+    steps: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Uncapped greedy-NMS keep mask: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. scores [R, K] float32 descending,
-    boxes [R, K, 4] float32 contiguous -> bool [R, K]."""
+    boxes [R, K, 4] float32 contiguous -> bool [R, K]. `steps`, an int32
+    [R] tensor on the card, gets the cluster kernel's steps a row where it
+    runs (MAX_K < K <= CLUSTER_MAX_K) and is left as it is elsewhere."""
     _check_mode(mode)
     if scores.device.type == "cpu":
         return nms_fixpoint_keep_mask_plain(scores, boxes, nms_threshold, mode)
@@ -162,7 +194,7 @@ def nms_fixpoint_keep_mask(
     keep = torch.empty(r, k, dtype=torch.bool, device=scores.device)
     with torch.cuda.device(scores.device):
         err = _build.library().nms_fixpoint_keep_mask(
-            scores.data_ptr(), boxes.data_ptr(), keep.data_ptr(), r, k,
+            scores.data_ptr(), boxes.data_ptr(), keep.data_ptr(), _steps_pointer(steps, r), r, k,
             float(nms_threshold), int(mode == "union"),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -217,10 +249,13 @@ def nms_scan_keep_mask(
     nms_threshold: float = 0.5,
     keep_top_k: int = 200,
     mode: str = "min",
+    *,
+    steps: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Capped greedy-NMS keep mask by the sequential scan: the CUDA kernel
     for a CUDA tensor, the plain version for a CPU tensor. scores [R, K]
-    float32, boxes [R, K, 4] float32 contiguous -> bool [R, K]."""
+    float32, boxes [R, K, 4] float32 contiguous -> bool [R, K]. `steps` as
+    `nms_fixpoint_keep_mask`'s."""
     _check_mode(mode)
     if scores.device.type == "cpu":
         return nms_scan_keep_mask_plain(scores, boxes, nms_threshold, keep_top_k, mode)
@@ -228,7 +263,7 @@ def nms_scan_keep_mask(
     keep = torch.empty(r, k, dtype=torch.bool, device=scores.device)
     with torch.cuda.device(scores.device):
         err = _build.library().nms_scan_keep_mask(
-            scores.data_ptr(), boxes.data_ptr(), keep.data_ptr(), r, k,
+            scores.data_ptr(), boxes.data_ptr(), keep.data_ptr(), _steps_pointer(steps, r), r, k,
             float(nms_threshold), int(min(keep_top_k, k)), int(mode == "union"),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -18,6 +18,14 @@ that K. And, to split a kernel's time into a fixed part and a cost per
 step, rows [640, 200] of disjoint boxes whose first n scores are > 0, for
 n in `KEPT_STEPS`: every row then keeps exactly n, in n steps of the sweep.
 
+Then the wide rows (K > MAX_K: the kernels' wide-row path), K-A in 'min'
+and 'union' mode and K-C capped at 20 and 200 in the mode it runs there:
+seeded random [2, 8732] ('min', SSD-300's class-wise rows) and [2, 21250]
+('union', the realtime head's), as `chip_smoke.py`'s `check_wide_rows`
+makes them, and the f32 RON-320 Detector's own [40, 21250] rows ('min')
+on the fixture's first two images with top_k 21250, every anchor (cached
+beside the main path's rows).
+
 Prints one JSON line: for each kernel and row set, the device time (the
 per-launch mean of the kernel's device duration in a torch.profiler trace
 of `DEVICE_REPS` launches, CUDA events only), the wrapper's per-call time
@@ -33,9 +41,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 FIXTURE = REPO / "tests" / "fixtures" / "e2e_parity_trained.npz"
 ROWS_CACHE = REPO / "ron_tensorflow_tpu_torch" / "_build" / "nms_rows_main_path.pt"
+WIDE_ROWS_CACHE = REPO / "ron_tensorflow_tpu_torch" / "_build" / "nms_rows_detector_wide.pt"
+WIDE_TOP_K = 21250  # RON-320's anchors
+WIDE_CAPS = (20, 200)
 DEVICE_REPS = 200
 CALL_REPS = 50
 KEPT_STEPS = (0, 1, 4, 16, 46, 100, 200)
+WIDE_REPS = 20  # launches a wide-row call is timed over
 PROFILE_WINDOWS = 3
 
 
@@ -110,6 +122,38 @@ def main_path_rows():
     return rows
 
 
+def detector_wide_rows():
+    """[40, 21250] NMS rows of the f32 RON-320 Detector with top_k at every
+    anchor on the fixture's first two images."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ron_tensorflow_tpu_torch.data.preprocess import eval_preprocess
+    from ron_tensorflow_tpu_torch.inference.detector import DetectionConfig, Detector
+    from ron_tensorflow_tpu_torch.models.ron import RON
+    from ron_tensorflow_tpu_torch.models.spec import RON_320_SPEC
+    from ron_tensorflow_tpu_torch.weights import from_jax_params, load_trained_fixture
+
+    if WIDE_ROWS_CACHE.exists():
+        return torch.load(WIDE_ROWS_CACHE, map_location="cuda")
+    fx = np.load(FIXTURE, allow_pickle=False)
+    images = torch.stack([
+        eval_preprocess(torch.as_tensor(fx[f"img_{i}_pixels"], device="cuda").float() / 255.0,
+                        RON_320_SPEC.img_shape)[0]
+        for i in ("1", "2")
+    ])
+    model = RON(RON_320_SPEC, dtype=torch.float32)
+    model.load_state_dict(from_jax_params(*load_trained_fixture(str(FIXTURE))), strict=True)
+    det = Detector(model, RON_320_SPEC, dataclasses.replace(DetectionConfig(), top_k=WIDE_TOP_K), device="cuda")
+    with torch.inference_mode():
+        rows = tuple(t.contiguous().clone() for t in det.candidates(det.model(images)))
+    WIDE_ROWS_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(rows, WIDE_ROWS_CACHE)
+    return rows
+
+
 def random_rows(seed, r, k):
     """Score-sorted random rows (a fifth of the scores 0) on the card."""
     import torch
@@ -174,6 +218,24 @@ def main(root):
             "K-A device_ms": device_ms(lambda: kernels.nms_fixpoint_keep_mask(s, b, thr, mode))[0],
             "K-C device_ms": device_ms(lambda: kernels.nms_scan_keep_mask(s, b, thr, 200, mode))[0],
         }
+    wide_sets = {
+        "random [2, 8732]": (random_rows(8732 + 11, 2, 8732), "min"),
+        "random [2, 21250]": (random_rows(WIDE_TOP_K + 11, 2, WIDE_TOP_K), "union"),
+        "Detector [40, 21250]": (detector_wide_rows(), cfg.nms_mode),
+    }
+    for label, ((s, b), scan_mode) in wide_sets.items():
+        calls = {f"K-A {m}": (lambda m=m: kernels.nms_fixpoint_keep_mask(s, b, thr, m)) for m in ("min", "union")}
+        calls.update({f"K-C {scan_mode} cap {c}": (lambda c=c: kernels.nms_scan_keep_mask(s, b, thr, c, scan_mode))
+                      for c in WIDE_CAPS})
+        for name, fn in calls.items():
+            keep = fn()
+            per_row = keep.sum(-1).float()
+            dev, seen = device_ms(fn, reps=WIDE_REPS)
+            result[f"{name} {label}"] = {
+                "device_ms": dev, "launches_traced": seen, "call_ms": call_ms(fn, reps=WIDE_REPS),
+                "kept_mean": float(per_row.mean()), "kept_max": int(per_row.max()),
+                "mask": hashlib.sha256(keep.cpu().numpy().tobytes()).hexdigest()[:12],
+            }
     print(json.dumps(result))
 
 

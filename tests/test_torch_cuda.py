@@ -26,7 +26,8 @@ from ron_tensorflow_tpu_torch.kernels import (
 )
 from ron_tensorflow_tpu_torch.kernels.fused_conv_pool import block1_reference
 from ron_tensorflow_tpu_torch.inference.detector import DetectionConfig, Detector, RealtimeConfig, RealtimeDetector
-from ron_tensorflow_tpu_torch.kernels.nms import MAX_K
+from ron_tensorflow_tpu_torch.kernels import _build
+from ron_tensorflow_tpu_torch.kernels.nms import CLUSTER_MAX_K, MAX_K, cluster_layout
 from ron_tensorflow_tpu_torch.models import get_network
 from ron_tensorflow_tpu_torch.models.ron import RON
 from ron_tensorflow_tpu_torch.models.spec import RON_TINY_SPEC
@@ -120,30 +121,8 @@ def edge_rows(edge, r, k):
     return scores.contiguous(), boxes.contiguous()
 
 
-WIDE_K = [MAX_K + 1, 8732, 21250]  # past the switch to the wide-row path; SSD-300's and RON-320's anchors
-
-
 @pytest.mark.parametrize("mode", ["min", "union"])
-@pytest.mark.parametrize("k", WIDE_K)
-def test_nms_kernels_on_wide_rows_equal_plain(cuda, k, mode):
-    """Rows of more than MAX_K candidates (a Detector's top_k at every
-    anchor): K-A, and K-C capped at 20, 200 and K, bit-equal to their plain
-    versions."""
-    scores, boxes = (t.to(cuda) for t in sorted_rows(k, 2, k))
-    caps = (20, 200, k)
-    kernels.reset_launch_counts()
-    fix = nms_fixpoint_keep_mask(scores, boxes, 0.4, mode)
-    scan = [nms_scan_keep_mask(scores, boxes, 0.4, cap, mode) for cap in caps]
-    torch.cuda.synchronize()
-    assert nms_fixpoint_keep_mask.launches == 1 and nms_scan_keep_mask.launches == len(caps)
-    assert torch.equal(fix, nms_fixpoint_keep_mask_plain(scores, boxes, 0.4, mode))
-    for cap, got in zip(caps, scan):
-        assert torch.equal(got, nms_scan_keep_mask_plain(scores, boxes, 0.4, cap, mode)), cap
-        assert int(got.sum(-1).max()) <= cap
-
-
-@pytest.mark.parametrize("mode", ["min", "union"])
-@pytest.mark.parametrize("k", [200, MAX_K, 8732])
+@pytest.mark.parametrize("k", [200, MAX_K, 8732, 21250])
 @pytest.mark.parametrize("edge", ["nan first", "disjoint", "identical", "borderline"])
 def test_nms_edge_rows_equal_plain(cuda, edge, k, mode):
     """Both kernels against their plain versions on the edge rows, K-C also
@@ -164,6 +143,145 @@ def test_nms_edge_rows_equal_plain(cuda, edge, k, mode):
         assert fix.sum(-1).tolist() == [kept] * 2 and scan[2].sum(-1).tolist() == [kept] * 2
     first_kept = edge != "nan first"
     assert bool(fix[:, 0].all()) == first_kept and bool(scan[2][:, 0].all()) == first_kept
+
+
+def first_kept(keep, cap):
+    """The first `cap` kept of each row: K-C's mask at keep_top_k cap, from
+    its mask at keep_top_k K (a taken candidate's kills do not depend on
+    the cap; tests/test_torch_nms_tiles.py checks this on the plain
+    version)."""
+    return keep & (torch.cumsum(keep, -1) <= cap)
+
+
+def tiles_holding_a_kept_box(keep, tile):
+    return torch.tensor([len(torch.unique(row.nonzero().squeeze(1) // tile)) for row in keep.cpu()])
+
+
+WIDE_K = [MAX_K + 1, 8732, 21250, 24564]  # past MAX_K; SSD-300's, RON-320's and SSD-512's anchors
+WIDE_CAPS = (1, 7, 20, 33, 200)  # K-C's caps: mid-tile (7, 20), past a tile's end; K too
+
+
+@pytest.mark.parametrize("mode", ["min", "union"])
+@pytest.mark.parametrize("k", WIDE_K)
+def test_nms_kernels_on_wide_rows_equal_plain(cuda, k, mode):
+    """Rows of more than MAX_K candidates (a Detector's top_k at every
+    anchor) through the wide-row cluster kernel on [1, K], [2, K] and
+    [40, K] rows (each its own cluster size): K-A, and K-C capped at 1, 7,
+    20, 33, 200 and K, bit-equal to the plain versions on the same rows;
+    each row's steps take at least one and at most C of its tiles that
+    hold a kept box. K-C's plain version runs at keep_top_k K, and on the
+    two rows also at 20 and 200."""
+    scores, boxes = (t.to(cuda) for t in sorted_rows(k + 3, 40, k))
+    fix_ref = nms_fixpoint_keep_mask_plain(scores, boxes, 0.4, mode)
+    scan_ref = nms_scan_keep_mask_plain(scores, boxes, 0.4, k, mode)
+    sizes = set()
+    for r in (1, 2, 40):
+        s, b = scores[:r].contiguous(), boxes[:r].contiguous()
+        ctas, tile = cluster_layout(r, k)
+        sizes.add(ctas)
+        steps = torch.zeros(r, dtype=torch.int32, device=cuda)
+        kernels.reset_launch_counts()
+        fix = nms_fixpoint_keep_mask(s, b, 0.4, mode, steps=steps)
+        scan = [nms_scan_keep_mask(s, b, 0.4, cap, mode) for cap in WIDE_CAPS + (k,)]
+        torch.cuda.synchronize()
+        assert nms_fixpoint_keep_mask.launches == 1 and nms_scan_keep_mask.launches == len(WIDE_CAPS) + 1
+        assert torch.equal(fix, fix_ref[:r]), r
+        for cap, got in zip(WIDE_CAPS + (k,), scan):
+            assert torch.equal(got, first_kept(scan_ref[:r], cap)), (r, cap)
+            if r == 2 and cap in (20, 200):  # and against the plain version run at that cap
+                assert torch.equal(got, nms_scan_keep_mask_plain(s, b, 0.4, cap, mode)), cap
+        held = tiles_holding_a_kept_box(fix, tile)
+        steps = steps.cpu()
+        assert ((held + ctas - 1) // ctas <= steps).all() and (steps <= held).all(), (r, steps, held)
+    assert len(sizes) > 1 and 0 not in sizes
+
+
+def chain_rows(r, k):
+    """At every multiple b of 32 with b + 1 < K: box A at b - 1 (the last
+    slot of a tile), B at b (the first slot of the next) and C at b + 1 in
+    one grid cell, A over B and B over C at 0.4 in both modes but A not
+    over C; every other box alone in its cell. Every candidate but the B's
+    is kept. Returns scores, boxes and that mask."""
+    side = int(k ** 0.5 + 0.999999)
+    cell = torch.arange(k)
+    shift = torch.zeros(k, dtype=torch.float64)
+    b = torch.arange(32, k - 1, 32)
+    cell[b] = b - 1
+    cell[b + 1] = b - 1
+    shift[b], shift[b + 1] = 0.3, 0.65
+    w = 0.3 / side
+    y0, x0 = (cell // side).double() / side, (cell % side).double() / side + shift * w
+    boxes = torch.stack([y0, x0, y0 + 0.5 / side, x0 + w], -1).float()
+    want = torch.ones(k, dtype=torch.bool)
+    want[b] = False
+    scores = torch.linspace(1.0, 0.01, k)
+    return scores.repeat(r, 1).contiguous(), boxes.repeat(r, 1, 1).contiguous(), want.repeat(r, 1)
+
+
+@pytest.mark.parametrize("mode", ["min", "union"])
+def test_nms_chain_across_tile_boundaries_equals_plain(cuda, mode):
+    """A suppressor in the last slot of a tile and its target in the first
+    of the next: the target's own target is kept. K-A and K-C (capped at 33
+    and K) against the plain versions and the closed form, K = 8732."""
+    k = 8732
+    scores, boxes, want = (t.to(cuda) for t in chain_rows(2, k))
+    kernels.reset_launch_counts()
+    fix = nms_fixpoint_keep_mask(scores, boxes, 0.4, mode)
+    scan = [nms_scan_keep_mask(scores, boxes, 0.4, cap, mode) for cap in (33, k)]
+    torch.cuda.synchronize()
+    assert nms_fixpoint_keep_mask.launches == 1 and nms_scan_keep_mask.launches == 2
+    assert torch.equal(fix, want) and torch.equal(fix, nms_fixpoint_keep_mask_plain(scores, boxes, 0.4, mode))
+    ref = nms_scan_keep_mask_plain(scores, boxes, 0.4, k, mode)
+    assert torch.equal(ref, want) and torch.equal(scan[1], ref) and torch.equal(scan[0], first_kept(ref, 33))
+
+
+@pytest.mark.parametrize("mode", ["min", "union"])
+@pytest.mark.parametrize("edge", ["disjoint", "identical", "chain"])
+def test_nms_cluster_kernel_at_200000_keeps_the_closed_form(cuda, edge, mode):
+    """K = 200 000, where no plain version runs: disjoint boxes keep every
+    candidate, one box K times keeps one, the chain rows keep all but the
+    B's; K-C capped at 200 keeps the first 200 of those, at K all."""
+    k = 200_000
+    if edge == "chain":
+        scores, boxes, want = (t.to(cuda) for t in chain_rows(2, k))
+    else:
+        scores, boxes = edge_rows(edge, 2, k)
+        scores, boxes = scores.to(cuda), boxes.to(cuda)
+        want = torch.zeros(2, k, dtype=torch.bool, device=cuda)
+        want[:, : k if edge == "disjoint" else 1] = True
+    assert cluster_layout(2, k)[0] > 0
+    kernels.reset_launch_counts()
+    fix = nms_fixpoint_keep_mask(scores, boxes, 0.4, mode)
+    scan = [nms_scan_keep_mask(scores, boxes, 0.4, cap, mode) for cap in (200, k)]
+    torch.cuda.synchronize()
+    assert nms_fixpoint_keep_mask.launches == 1 and nms_scan_keep_mask.launches == 2
+    assert torch.equal(fix, want) and torch.equal(scan[1], want) and torch.equal(scan[0], first_kept(want, 200))
+
+
+@pytest.mark.parametrize("mode", ["min", "union"])
+def test_nms_cluster_max_k_on_both_sides(cuda, mode):
+    """CLUSTER_MAX_K is the library's: rows of that K take the cluster
+    kernel, one wider take `nms_wide_kernel`. The same random row with one
+    more candidate of score 0 (never kept, suppressing nothing) gives the
+    same mask through both; one box K times keeps one on both sides."""
+    assert _build.library().nms_cluster_max_k() == CLUSTER_MAX_K
+    k = CLUSTER_MAX_K
+    assert cluster_layout(2, k)[0] > 0 and cluster_layout(2, k + 1)[0] == 0
+    scores, boxes = (t.to(cuda) for t in sorted_rows(7, 2, k + 1))
+    scores[:, k] = 0.0
+    narrow_s, narrow_b = scores[:, :k].contiguous(), boxes[:, :k].contiguous()
+    kernels.reset_launch_counts()
+    pairs = [(nms_fixpoint_keep_mask(narrow_s, narrow_b, 0.4, mode), nms_fixpoint_keep_mask(scores, boxes, 0.4, mode)),
+             (nms_scan_keep_mask(narrow_s, narrow_b, 0.4, 200, mode),
+              nms_scan_keep_mask(scores, boxes, 0.4, 200, mode))]
+    torch.cuda.synchronize()
+    assert nms_fixpoint_keep_mask.launches == 2 and nms_scan_keep_mask.launches == 2
+    for cluster, wide in pairs:
+        assert not wide[:, k].any() and torch.equal(cluster, wide[:, :k]) and cluster.any()
+    for kk in (k, k + 1):
+        s, b = (t.to(cuda) for t in edge_rows("identical", 2, kk))
+        assert nms_fixpoint_keep_mask(s, b, 0.4, mode).sum(-1).tolist() == [1, 1]
+        assert nms_scan_keep_mask(s, b, 0.4, kk, mode).sum(-1).tolist() == [1, 1]
 
 
 def test_nms_takes_a_misaligned_view(cuda):
