@@ -7,7 +7,9 @@ Phases, each ending with a line that gives its elapsed seconds:
   2. build    the port's five CUDA kernels, one nvcc call; ptxas's registers
               and spills and the HGMMA count in the SASS of each
               instantiation of the tensor-core kernels (K-B: block 1's
-              kernel and the one for every other width; K-D and K-E,
+              kernel and the warp-specialised one for every other width,
+              at C = 128 and at any other C, with its shared memory, its
+              weight ring's stages and its cluster size; K-D and K-E,
               which share one kernel: bf16 or f32 store, weights resident
               or streamed);
   3. kernels  each kernel against its plain PyTorch version on the card, at
@@ -527,9 +529,13 @@ CONV_MMA_INSTANTIATIONS = {"bf16 out, resident weights": CONV_MMA + "ItLb0E",
                            "f32 out, resident weights": CONV_MMA + "IfLb0E",
                            "f32 out, streamed weights": CONV_MMA + "IfLb1E"}
 KB_FOREIGN_KERNELS = ("cudnn", "cublas", "gemm", "xmma", "cutlass", "implicit")  # library kernel names
+# K-B's block-2 kernel is templated on conv B's N (ILi<N>EE in its mangled name): 128 at C = 128, 64 at
+# every other C.
+KB2_KERNEL = "fused_vgg_block2_kernel"
 TENSOR_CORE_KERNELS = {
     "fused_vgg_block1": {"block 1 (Ci 3, C 64)": "fused_vgg_block1_kernel",
-                         "any other width (block 2: 64 -> 128)": "fused_vgg_block2_kernel"},
+                         "C = 128 (block 2: 64 -> 128)": KB2_KERNEL + "ILi128EE",
+                         "every other width": KB2_KERNEL + "ILi64EE"},
     "fused_stem_conv_relu_pool2": {k: v for k, v in CONV_MMA_INSTANTIATIONS.items() if k.startswith("bf16")},
     "fused_conv3x3_relu_pool2": CONV_MMA_INSTANTIATIONS,
 }
@@ -596,6 +602,9 @@ def tensor_core_report():
                 hgmma[fn] += 1
     lib = _build.library()
     report = {}
+    print(f"  {KB2_KERNEL}: {lib.fused_vgg_block2_smem_bytes()} bytes dynamic shared memory, a weight ring of "
+          f"{lib.fused_vgg_block2_stages()} stages of 8 KB, cluster size 1; at C = 128 conv A N = 64, conv B N = "
+          f"{lib.fused_vgg_block2_conv_b_n(128)}")
     for name, instantiations in TENSOR_CORE_KERNELS.items():
         report[name] = {"tensor_cores": {}}
         for label, kernel in instantiations.items():
@@ -855,17 +864,22 @@ def check_block2(state, images, max_err):
 
 
 def block2_one_launch(x, w):
-    """One K-B call at block 2: a torch.profiler pass over it must show the
-    port's kernel and no library one (early in the run: on the H100 a
-    window at the end of phase "timing" has come back without any device
-    event, though the same call in a fresh process never did), and its
+    """One K-B call at block 2: a torch.profiler pass over it (on fresh
+    copies of the weights, so the wrapper's layout of them runs too) must
+    show the port's kernel and no library one (early in the run: on the
+    H100 a window at the end of phase "timing" has come back without any
+    device event, though the same call in a fresh process never did), and its
     peak memory above what was allocated before it must stay below one
     [B, H, W, C] bf16 intermediate."""
     c = w[0].shape[0]
-    prof = profile_call(f"K-B block 2 {list(x.shape)} -> {c}", lambda: kernels.fused_vgg_block1(x, *w))
+    # each profiled call on fresh copies of the weights, as a first call on new weights: the wrapper lays
+    # them out (`_cached_weight_image`) before the launch. A window holding the one cached launch alone came
+    # back without any device event on the H100, as a one-call window of phase "timing" once did.
+    prof = profile_call(f"K-B block 2 {list(x.shape)} -> {c}",
+                        lambda: kernels.fused_vgg_block1(x, *[t.clone() for t in w]))
     names = [t["name"] for t in prof["top"]]
     foreign = [n for n in names if any(k in n.lower() for k in KB_FOREIGN_KERNELS)]
-    if not any("fused_vgg_block2_kernel" in n for n in names) or foreign:
+    if not any(KB2_KERNEL in n for n in names) or foreign:
         raise AssertionError(f"K-B block 2's profile: kernels {names}; library kernels {foreign}")
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -2703,7 +2717,7 @@ def kb_block2_row(block2):
     with torch.inference_mode():
         row = with_rates({
             "name": "fused_vgg_block1", "route": "cuda", "source": "ron_tensorflow_tpu_torch/csrc/fused_vgg_block1.cu",
-            "replaces": "ron_tensorflow_tpu/kernels/fused_conv_pool.py:388", "kernel": "fused_vgg_block2_kernel",
+            "replaces": "ron_tensorflow_tpu/kernels/fused_conv_pool.py:388", "kernel": KB2_KERNEL,
             "path": "kernels API (phase 3's block 1 -> block 2 chain; 0 on every model path)",
             "launches": block2["launches"], "max_abs_err": block2["max_abs_err"],
             "shape": [list(x.shape), c],
@@ -2713,6 +2727,9 @@ def kb_block2_row(block2):
         }, flops)
     row["b14"] = kb_training_ms(x[:TRAIN_BATCH].clone(), w)
     row.update({k: block2[k] for k in ("profile", "peak_bytes_above_inputs", "intermediate_bytes")})
+    lib = _build.library()
+    row.update(smem_bytes=lib.fused_vgg_block2_smem_bytes(), ring_units_of_8kb=lib.fused_vgg_block2_stages(),
+               cluster_size=1, conv_b_n=lib.fused_vgg_block2_conv_b_n(c))
     print(f"  fused_vgg_block1 block 2 {list(x.shape)} -> {c}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
           f"bound {bound_ms:.4f} by {bound_by}, cuDNN {row['library_ms']:.4f}), {row['tflops']:.1f} TFLOP/s, "
           f"{row['bound_share']:.3f} of bound, {row['library_ratio']:.3f}x cuDNN; batch {TRAIN_BATCH}: forward "

@@ -60,7 +60,15 @@ SIGNATURES = {
     "fused_vgg_block2_smem_bytes": (),
     "fused_stem_conv_relu_pool2_smem_bytes": (),
     "fused_conv3x3_relu_pool2_smem_bytes": (),
+    # the block-2 kernel's weight ring (8 KB units) and, for an output width c, its conv B's N: the
+    # slab width of conv B's weight image (conv A's is 64)
+    "fused_vgg_block2_stages": (),
+    "fused_vgg_block2_conv_b_n": (_I,),
 }
+# A library built with -DRON_KB2_TRACE also holds the block-2 kernel's clock64() split: host buffer
+# of [blocks][4][slots] int64 <- the last launch's; the blocks and slots it keeps.
+TRACE_SIGNATURES = {"fused_vgg_block2_trace": (_P,), "fused_vgg_block2_trace_blocks": (),
+                    "fused_vgg_block2_trace_slots": ()}
 
 
 def nvcc_path() -> str:
@@ -73,36 +81,40 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(defines=()) -> Path:
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     for name in SOURCES + HEADERS:
         digest.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libron_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build_log_path() -> Path:
+def build_log_path(defines=()) -> Path:
     """nvcc's output (ptxas's per-kernel report) of the library's build."""
-    return library_path().with_suffix(".log")
+    return library_path(defines).with_suffix(".log")
 
 
-def build() -> Path:
-    """Compile every source with one nvcc call; returns the library path.
-    Writes to a temporary name first, so concurrent processes never load a
-    half-written file."""
-    out = library_path()
+def build(defines=()) -> Path:
+    """Compile every source with one nvcc call (with `-D` of each of
+    `defines`); returns the library path. Writes to a temporary name first,
+    so concurrent processes never load a half-written file."""
+    out = library_path(defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
+    cmd = [nvcc_path(), *_flags(defines), "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
-        build_log_path().write_text(proc.stdout + proc.stderr)
+        build_log_path(defines).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -111,10 +123,13 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+def library(defines=()) -> ctypes.CDLL:
+    """The loaded kernel library (built on first call). `defines` (a tuple
+    of macro names) builds a variant beside it: ("RON_KB2_TRACE",) holds
+    the block-2 kernel's clock64() split (`TRACE_SIGNATURES`)."""
+    lib = ctypes.CDLL(str(build(defines)))
+    signatures = {**SIGNATURES, **(TRACE_SIGNATURES if "RON_KB2_TRACE" in defines else {})}
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -137,11 +152,11 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err} ({what})")
 
 
-def ptxas_report() -> dict:
+def ptxas_report(defines=()) -> dict:
     """{kernel's mangled name: {"registers", "spill_stores", "spill_loads"}}
     from ptxas's report of the build (`-Xptxas -v`)."""
     report, name = {}, None
-    for line in build_log_path().read_text().splitlines():
+    for line in build_log_path(defines).read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
         if m:
             name = m.group(1)

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import full_f32_convs
 from . import _build
@@ -115,6 +116,48 @@ def _pad_block_operands(x, w1, b1, w2, b2):
     return x, w1, b1, w2, b2
 
 
+SLAB_CI = 64  # input channels of one weight slab of the block-2 kernel (one 128-byte row a co)
+
+
+def _block2_weight_image(w, co_width):
+    """OIHW weights [Co, Ci, 3, 3] as the block-2 kernel's slab image:
+    [Co / co_width, ceil(Ci / 64), 9 taps, co_width, 64] bf16, contiguous,
+    Ci zero-padded to whole slabs. Slab (group, ci chunk, tap) is one
+    [co][64 ci] matrix whose 16-byte chunk c (channels 8c..8c+7) of row co
+    sits at chunk c ^ (co % 8): the 128-byte swizzle the kernel's wgmma
+    descriptor reads (`w_offset` in csrc/conv3x3_mma.cuh), so each slab is
+    one bulk copy into shared memory. Co must be a multiple of co_width."""
+    co, ci = w.shape[:2]
+    nci = -(-ci // SLAB_CI)
+    taps = _taps_co_ci(w).reshape(9, co, ci)
+    if ci % SLAB_CI:
+        taps = F.pad(taps, (0, nci * SLAB_CI - ci))
+    slabs = taps.reshape(9, co // co_width, co_width, nci, 8, 8).permute(1, 3, 0, 2, 4, 5)
+    rows = torch.arange(co_width, device=w.device)[:, None]
+    chunks = torch.arange(8, device=w.device)[None, :] ^ (rows & 7)
+    return slabs[:, :, :, rows, chunks].contiguous().view(co // co_width, nci, 9, co_width, SLAB_CI)
+
+
+_WEIGHT_IMAGES = WeakIdKeyDictionary()  # weight tensor -> ((its version, co_width), its slab image)
+
+
+def _cached_weight_image(w, co_width):
+    """`_block2_weight_image(w, co_width)`, kept beside w until w is changed
+    in place (its version moves) or freed: a model's weights are laid out
+    once, not at every call. An inference tensor has no version counter, so
+    its image is made anew each time."""
+    if w.is_inference():
+        return _block2_weight_image(w, co_width)
+    key = (w._version, co_width)
+    hit = _WEIGHT_IMAGES.get(w)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        image = _block2_weight_image(w, co_width)
+    _WEIGHT_IMAGES[w] = (key, image)
+    return image
+
+
 def _block1_forward(x, w1, b1, w2, b2):
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if x.device.type == "cpu":
@@ -137,21 +180,25 @@ def _block1_forward(x, w1, b1, w2, b2):
         xb = xb.clone()
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
-    w2h = _taps_co_ci(w2)
     out = torch.empty(batch, height // 2, width // 2, cp, dtype=torch.bfloat16, device=x.device)
-    if w2h.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("conv B's weights and the output must be 16-byte aligned")
+    lib = _build.library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
         if (cin, cp) == (BLOCK1_CIN, BLOCK1_C):
             w1h = w1.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()  # HWIO
-            err = _build.library().fused_vgg_block1(
+            w2h = _taps_co_ci(w2)
+        else:  # the slab images at the widths of the kernel this C launches
+            w1h = _cached_weight_image(w1, SLAB_CI)
+            w2h = _cached_weight_image(w2, lib.fused_vgg_block2_conv_b_n(cp))
+        if w2h.data_ptr() % 16 or out.data_ptr() % 16:
+            raise ValueError("conv B's weights and the output must be 16-byte aligned")
+        stream = torch.cuda.current_stream().cuda_stream
+        if (cin, cp) == (BLOCK1_CIN, BLOCK1_C):
+            err = lib.fused_vgg_block1(
                 xb.data_ptr(), w1h.data_ptr(), b1f.data_ptr(), w2h.data_ptr(), b2f.data_ptr(),
                 out.data_ptr(), batch, height, width, stream,
             )
         else:
-            w1h = _taps_co_ci(w1)
-            err = _build.library().fused_vgg_block2(
+            err = lib.fused_vgg_block2(
                 xb.data_ptr(), w1h.data_ptr(), b1f.data_ptr(), w2h.data_ptr(), b2f.data_ptr(),
                 out.data_ptr(), batch, height, width, cin, cp, stream,
             )

@@ -425,6 +425,11 @@ BLOCK_WIDTHS = [
     ((1, 10, 6), 1, 8),  # block 1's kernel, Ci padded to 3 and C to 64
     ((1, 16, 32), 64, 64),  # one chunk of C
     ((2, 20, 26), 128, 256),  # two chunks of Ci; four of C: conv A recomputed per output chunk
+    ((2, 20, 26), 64, 192),  # three 64-channel chunks of C: the general schedule, not the 128-wide one
+    ((2, 20, 26), 128, 128),  # two X chunks into the 128-wide schedule
+    ((2, 20, 26), 192, 128),  # three X chunks
+    ((1, 10, 34), 64, 64),  # ragged in H and W: the last tile row holds 2 of 8 rows, the last column 2 of 32
+    ((2, 8, 32), 64, 128),  # two tiles: fewer tiles than SMs
 ]
 
 
