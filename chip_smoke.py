@@ -4142,9 +4142,9 @@ def bench_cli(smi):
         raise AssertionError(f"cli bench printed {len(lines)} lines, not one: {lines[:3]}")
     print(f"  cli bench in {seconds:.2f} s on {smi}: {lines[0]}")
     record = json.loads(lines[0])
-    keys = bench_mod.jax_record_keys()
+    keys = bench_mod.record_keys()
     if list(record) != keys:
-        raise AssertionError(f"bench keys {list(record)} are not the JAX record's {keys}")
+        raise AssertionError(f"bench keys {list(record)} are not the JAX record's but its baseline's {keys}")
     if any(v is None for v in record.values()):
         raise AssertionError(f"null bench values: {[k for k, v in record.items() if v is None]}")
     bad = [x for x in bench_mod.record_numbers(list(record.values())) if not (np.isfinite(x) and x > 0)]

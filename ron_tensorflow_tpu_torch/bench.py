@@ -1,6 +1,7 @@
 """The port's benchmark: the workload of the JAX package's `bench.py`, on
 the card, as one JSON line with the keys of that script's record
-(`bench.py:338-359`), each measured under the JAX script's condition:
+(`bench.py:338-359`) but its three baseline keys (`OMITTED_JAX_KEYS`),
+each measured under the JAX script's condition:
 
 1. `value`, `inference_runs_images_per_sec`: batched inference, the
    `Detector` (forward, decode, gate, exact per-class top-k, K-A NMS) on
@@ -26,9 +27,10 @@ arguments) runs the same code with the kernels' plain versions and says
 nothing about the card. Nothing is caught: a failure anywhere raises (the
 JAX script prints null for a failed extra instead).
 
-`vs_baseline` divides `value` by the reference's own TF graph measured on
-the CPU of the host that ran the JAX package (`BASELINE_MEASURED.json`), not
-on the card's host: it is not the card's speed-up over anything.
+The JAX record's `vs_baseline`, `baseline_img_per_sec` and
+`baseline_source` are left out: they divide by the reference's TF graph
+measured on the CPU of another host, which is no speed-up of the card over
+anything.
 
   python -m ron_tensorflow_tpu_torch.cli bench
   python -m ron_tensorflow_tpu_torch.bench
@@ -49,7 +51,6 @@ import torch
 from . import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
-BASELINE_FILE = REPO / "BASELINE_MEASURED.json"
 TRAINED_FIXTURE = REPO / "tests" / "fixtures" / "e2e_parity_trained.npz"
 
 MODEL = "ron_320_vgg"
@@ -72,6 +73,14 @@ def jax_record_keys() -> list:
     raise AssertionError("no `record = {...}` in bench.py")
 
 
+OMITTED_JAX_KEYS = ("vs_baseline", "baseline_img_per_sec", "baseline_source")
+
+
+def record_keys() -> list:
+    """The keys this benchmark prints, in order: the JAX record's but `OMITTED_JAX_KEYS`."""
+    return [k for k in jax_record_keys() if k not in OMITTED_JAX_KEYS]
+
+
 def record_numbers(value) -> list:
     """Every number in a record's values, lists flattened."""
     if isinstance(value, (list, tuple)):
@@ -82,15 +91,6 @@ def record_numbers(value) -> list:
 def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def reference_baseline():
-    """(images/s, source) of the reference's forward, from `BASELINE_MEASURED.json`."""
-    with open(BASELINE_FILE) as f:
-        measured = json.load(f)
-    return (float(measured["reference_forward_images_per_sec"]),
-            "measured: the reference's ron_net_reducedfc TF graph, batch 1, on the 1-core CPU of the host that "
-            "ran the JAX package (a TPU host), not on this card's host (BASELINE_MEASURED.json)")
 
 
 def probe_link_rtt(device, iters=40, warmup=3):
@@ -263,7 +263,6 @@ def main(device="cuda", model=MODEL, batch=BATCH, warmup=WARMUP, iters=ITERS, tr
     device = resolve_device(device)
     rtt_before = probe_link_rtt(device)
     runs = [bench_inference(device, model=model, batch=batch, warmup=warmup, iters=iters) for _ in range(2)]
-    base, base_src = reference_baseline()
     fast = bench_inference(device, shared_top_k=1000, approx_top_k=True, model=model, batch=batch, warmup=warmup,
                            iters=iters)
     small, large = train_batches
@@ -274,9 +273,6 @@ def main(device="cuda", model=MODEL, batch=BATCH, warmup=WARMUP, iters=ITERS, tr
         "metric": "ron320_inference_images_per_sec_per_chip",
         "value": max(runs),
         "unit": "images/sec",
-        "vs_baseline": max(runs) / base,
-        "baseline_img_per_sec": base,
-        "baseline_source": base_src,
         "inference_runs_images_per_sec": runs,
         "inference_images_per_sec_fast_knobs": fast,
         "link_rtt_ms_p50_p90_before": list(rtt_before),

@@ -60,6 +60,12 @@ command and hooks every module of the model that `train`, `eval`,
 `FloatingPointError` naming the module (`utils/debug_nans.py`). Without the
 flag neither is on.
 
+`--spans` (before the subcommand) enables the port's tracer
+(`utils/profiling.py`) for `train`, `eval`, `realtime-eval` and `infer`,
+and at exit prints its table on standard error: each span's calls and
+mean and largest host and device ms, each counter's total and its mean a
+call. `train` also logs each span's means at every log step.
+
 `bench` runs `bench.main` on `--device`: the JAX `bench.py`'s workload
 (the Detector at batch 32, train steps at batch 14 and 32, the realtime
 head's batch-1 latency) at RON-320, printed as one JSON line with the keys
@@ -386,6 +392,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-nans", action="store_true",
                    help="anomaly detection, and FloatingPointError at the first NaN a module of the model outputs, "
                         "naming the module (jax_debug_nans in the JAX CLI; ref: ron_net.py:399-402)")
+    p.add_argument("--spans", action="store_true",
+                   help="time the program's stages (host and device ms a span, bytes uploaded) in train, eval, "
+                        "realtime-eval and infer, and print the table on standard error at exit")
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="train a detector")
@@ -451,6 +460,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+SPAN_COMMANDS = ("train", "eval", "realtime-eval", "infer")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     anomaly = None
@@ -459,11 +471,20 @@ def main(argv=None):
 
         anomaly = torch.is_anomaly_enabled()
         torch.autograd.set_detect_anomaly(True)
+    spans = args.spans and args.command in SPAN_COMMANDS
+    if spans:
+        from .utils import profiling
+
+        profiling.reset()
+        profiling.enable()
     try:
         return args.fn(args)
     finally:
         if anomaly is not None:
             torch.autograd.set_detect_anomaly(anomaly)
+        if spans:
+            profiling.disable()
+            print(profiling.format_snapshot(profiling.snapshot()), file=sys.stderr)
         dist = sys.modules.get("torch.distributed")
         if dist is not None and dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()

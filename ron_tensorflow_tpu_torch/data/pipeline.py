@@ -47,6 +47,7 @@ from . import example as pb
 from .decode import decode_jpeg, decode_jpeg_eval, decode_jpeg_raw, image_size  # noqa: F401  (decode_jpeg_raw: JAX's name here)
 from .resize import remap_boxes_for_eval
 from .tfrecord import read_records, shard_for_worker
+from ..utils.profiling import count_upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,12 +307,15 @@ class DevicePrefetcher:
 
     On a CUDA device the copies run on a side stream; `__next__` makes the
     current stream wait for the batch's copy to finish and records its
-    tensors on that stream. On the CPU it only converts."""
+    tensors on that stream. On the CPU it only converts. With `counter`,
+    each batch's bytes that cross to the device go to that counter of the
+    tracer (`utils/profiling.py`) while it is enabled."""
 
     _SENTINEL = object()
 
-    def __init__(self, iterator: Iterator, device, depth: int = 2):
+    def __init__(self, iterator: Iterator, device, depth: int = 2, counter: Optional[str] = None):
         self.device = torch.device(device)
+        self.counter = counter
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._err: Optional[BaseException] = None
@@ -320,11 +324,15 @@ class DevicePrefetcher:
 
     def _place(self, host_batch):
         if self._stream is None:
-            return to_device(host_batch, self.device), None
-        with torch.cuda.stream(self._stream):
-            batch = to_device(host_batch, self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
+            batch, done = to_device(host_batch, self.device), None
+        else:
+            with torch.cuda.stream(self._stream):
+                batch = to_device(host_batch, self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+        if self.counter is not None:
+            for k, t in batch.items():
+                count_upload(self.counter, host_batch[k], t)
         return batch, done
 
     def _fill(self, iterator):

@@ -41,6 +41,13 @@ keeps what JAX's CPU Detector keeps on such a pair too
 (tests/test_torch_nms_method.py holds one). The choice follows the rows'
 device, never a global default, on one device and in each rank of a mesh
 eval alike.
+
+Each head's stages run inside the tracer's spans (`utils/profiling.py`):
+`detect.call` holds `detect.upload` (with the counter `detect.h2d_bytes`),
+`detect.forward`, `detect.decode` (with `shared_top_k`, its preselection
+as a nested `detect.topk`), `detect.topk` and `detect.nms`; `realtime.call`
+the same stages under `realtime.`. `postprocess`, `candidates` and `nms`
+called alone open their own spans only.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from ..ops.nms import TOPK_CHUNKS, nms_per_class, nms_sorted_with_labels, top_k_
 
 NMS_METHODS = ("auto", "loop", "fixpoint", "pallas")
 from ..ops.select import masked_class_scores, top_k_per_class
+from ..utils.profiling import count_upload, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,8 +128,13 @@ class Detector:
     def __call__(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         """images [B, H, W, 3] whitened (numpy or tensor) ->
         (scores [B, C-1, keep_top_k], boxes [B, C-1, keep_top_k, 4])."""
-        images = torch.as_tensor(images, device=self.device)
-        return self.postprocess(self.model(images))
+        with span("detect.call", self.device):
+            with span("detect.upload", self.device):
+                placed = torch.as_tensor(images, device=self.device)
+                count_upload("detect.h2d_bytes", images, placed)
+            with span("detect.forward", self.device):
+                out = self.model(placed)
+            return self.postprocess(out)
 
     def class_scores(self, out: DetectorOutputs) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decode, gate and preselect: -> (per-class scores [B, C-1, N],
@@ -130,21 +143,23 @@ class Detector:
         `detector.py:184-223`: the gate is gathered with them, and the
         select threshold masks the scores after the gather)."""
         cfg = self.config
-        decoded = decode_boxes(out.locations, self.anchors, self.spec.prior_scaling)
-        decoded = boxops.clip_to_ref(decoded)
-        base = (out.objness_pred > cfg.objectness_threshold) & boxops.min_size_mask(
-            decoded, cfg.min_size
-        )
-        predictions = out.predictions
-        b, n, c = predictions.shape
-        if 0 < cfg.shared_top_k < n:
-            zero = torch.zeros((), dtype=predictions.dtype, device=predictions.device)
-            m = torch.where(base, predictions[..., 1:].amax(dim=-1), zero)  # [B, N]
-            _, cand = exact_top_k_chunked(m, cfg.shared_top_k, cfg.topk_chunks)  # [B, K], ties to the lower index
-            predictions = torch.gather(predictions, 1, cand[..., None].expand(b, -1, c))
-            decoded = torch.gather(decoded, 1, cand[..., None].expand(b, -1, 4))
-            base = torch.gather(base, 1, cand)
-        return masked_class_scores(predictions, base, cfg.select_threshold), decoded
+        with span("detect.decode", self.device):
+            decoded = decode_boxes(out.locations, self.anchors, self.spec.prior_scaling)
+            decoded = boxops.clip_to_ref(decoded)
+            base = (out.objness_pred > cfg.objectness_threshold) & boxops.min_size_mask(
+                decoded, cfg.min_size
+            )
+            predictions = out.predictions
+            b, n, c = predictions.shape
+            if 0 < cfg.shared_top_k < n:
+                zero = torch.zeros((), dtype=predictions.dtype, device=predictions.device)
+                m = torch.where(base, predictions[..., 1:].amax(dim=-1), zero)  # [B, N]
+                with span("detect.topk", self.device):  # cand [B, K], ties to the lower index
+                    _, cand = exact_top_k_chunked(m, cfg.shared_top_k, cfg.topk_chunks)
+                predictions = torch.gather(predictions, 1, cand[..., None].expand(b, -1, c))
+                decoded = torch.gather(decoded, 1, cand[..., None].expand(b, -1, 4))
+                base = torch.gather(base, 1, cand)
+            return masked_class_scores(predictions, base, cfg.select_threshold), decoded
 
     def candidates(self, out: DetectorOutputs) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decode, gate and select: -> per-class top-k candidates, score
@@ -154,11 +169,12 @@ class Detector:
         scores, decoded = self.class_scores(out)
         b, c, n = scores.shape
         k = min(cfg.top_k, n)
-        top_scores, top_boxes = top_k_per_class(scores, decoded, k, cfg.topk_chunks)
-        if k < cfg.top_k:
-            pad = cfg.top_k - k
-            top_scores = torch.nn.functional.pad(top_scores, (0, pad))
-            top_boxes = torch.nn.functional.pad(top_boxes, (0, 0, 0, pad))
+        with span("detect.topk", self.device):
+            top_scores, top_boxes = top_k_per_class(scores, decoded, k, cfg.topk_chunks)
+            if k < cfg.top_k:
+                pad = cfg.top_k - k
+                top_scores = torch.nn.functional.pad(top_scores, (0, pad))
+                top_boxes = torch.nn.functional.pad(top_boxes, (0, 0, 0, pad))
         return top_scores.reshape(b * c, -1), top_boxes.reshape(b * c, -1, 4)
 
     def keep_mask_kernel(self, rows: torch.Tensor) -> str:
@@ -173,8 +189,9 @@ class Detector:
         cfg = self.config
         b, c = out.predictions.shape[0], out.predictions.shape[-1] - 1
         flat_s, flat_b = self.candidates(out)
-        s, bx = nms_sorted_kernel(flat_s, flat_b, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode,
-                                  method=self.keep_mask_kernel(flat_s))
+        with span("detect.nms", self.device):
+            s, bx = nms_sorted_kernel(flat_s, flat_b, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode,
+                                      method=self.keep_mask_kernel(flat_s))
         return s.reshape(b, c, -1), bx.reshape(b, c, -1, 4)
 
 
@@ -253,8 +270,13 @@ class RealtimeDetector:
         vector. The caller passes `config.min_size * sqrt(H0*W0 / (Hnet*Wnet))`
         so that the filter scales with each original frame
         (ref: ron_eval.py:369-375)."""
-        images = torch.as_tensor(images, device=self.device)
-        return self.postprocess(self.model(images), min_size)
+        with span("realtime.call", self.device):
+            with span("realtime.upload", self.device):
+                placed = torch.as_tensor(images, device=self.device)
+                count_upload("realtime.h2d_bytes", images, placed)
+            with span("realtime.forward", self.device):
+                out = self.model(placed)
+            return self.postprocess(out, min_size)
 
     def postprocess(self, out: DetectorOutputs, min_size=None):
         return self.nms(self.candidates(out, min_size))
@@ -275,49 +297,55 @@ class RealtimeDetector:
         rows (scores [B*(C-1), top_k], boxes [B*(C-1), top_k, 4])."""
         cfg = self.config
         b = out.predictions.shape[0]
-        ms = self.min_sizes(min_size, b)[:, None]
-        boxes = boxops.clip_to_ref(decode_boxes(out.locations, self.anchors, self.spec.prior_scaling))
-        # Subnormal probabilities and scores are 0 in the JAX package: they
-        # must not pass a threshold of 0 or decide an argmax here either.
-        if cfg.class_wise:
-            objness = flush_subnormal(out.objness_pred)
-            base = (objness > cfg.objectness_threshold) & boxops.min_size_mask(boxes, ms)
-            scores = masked_class_scores(flush_subnormal(out.predictions), base, cfg.select_threshold)  # [B, C-1, N]
-            _, c, n = scores.shape
-            k = min(cfg.top_k, n)
-            top_scores, top_boxes = top_k_per_class(scores, boxes, k, TOPK_CHUNKS)
-            return top_scores.reshape(b * c, k), top_boxes.reshape(b * c, k, 4)
-        # score = objectness x class probability; the label is the argmax
-        # class, the first of equal maxima (ref: ron_eval.py:111-144
-        # flaten_predict). Both factors are probabilities (<= 1), so a
-        # subnormal factor gives a product that is flushed too: an anchor
-        # whose products are all 0 takes label 0 and is invalid.
-        scores_nc = flush_subnormal(out.objness_pred[..., None] * out.predictions)
-        labels = torch.argmax(scores_nc, dim=-1).to(torch.int32)
-        max_scores = torch.amax(scores_nc, dim=-1)
-        valid = (labels > 0) & (out.objness_pred > cfg.objectness_threshold)
-        valid &= max_scores > cfg.select_threshold  # ref: ron_eval.py:151-153
-        # min-size and centre-inside filters on the clipped boxes
-        # (ref: ron_eval.py:369-392)
-        valid &= boxops.min_size_mask(boxes, ms)
-        cy = (boxes[..., 0] + boxes[..., 2]) / 2.0
-        cx = (boxes[..., 1] + boxes[..., 3]) / 2.0
-        valid &= (cy > 0.0) & (cy < 1.0) & (cx > 0.0) & (cx < 1.0)
-        return top_k_with_labels(max_scores, labels, boxes, valid, cfg.top_k)
+        with span("realtime.decode", self.device):
+            ms = self.min_sizes(min_size, b)[:, None]
+            boxes = boxops.clip_to_ref(decode_boxes(out.locations, self.anchors, self.spec.prior_scaling))
+            # Subnormal probabilities and scores are 0 in the JAX package: they
+            # must not pass a threshold of 0 or decide an argmax here either.
+            if cfg.class_wise:
+                objness = flush_subnormal(out.objness_pred)
+                base = (objness > cfg.objectness_threshold) & boxops.min_size_mask(boxes, ms)
+                scores = masked_class_scores(flush_subnormal(out.predictions), base,
+                                             cfg.select_threshold)  # [B, C-1, N]
+            else:
+                # score = objectness x class probability; the label is the argmax
+                # class, the first of equal maxima (ref: ron_eval.py:111-144
+                # flaten_predict). Both factors are probabilities (<= 1), so a
+                # subnormal factor gives a product that is flushed too: an anchor
+                # whose products are all 0 takes label 0 and is invalid.
+                scores_nc = flush_subnormal(out.objness_pred[..., None] * out.predictions)
+                labels = torch.argmax(scores_nc, dim=-1).to(torch.int32)
+                max_scores = torch.amax(scores_nc, dim=-1)
+                valid = (labels > 0) & (out.objness_pred > cfg.objectness_threshold)
+                valid &= max_scores > cfg.select_threshold  # ref: ron_eval.py:151-153
+                # min-size and centre-inside filters on the clipped boxes
+                # (ref: ron_eval.py:369-392)
+                valid &= boxops.min_size_mask(boxes, ms)
+                cy = (boxes[..., 0] + boxes[..., 2]) / 2.0
+                cx = (boxes[..., 1] + boxes[..., 3]) / 2.0
+                valid &= (cy > 0.0) & (cy < 1.0) & (cx > 0.0) & (cx < 1.0)
+        with span("realtime.topk", self.device):
+            if cfg.class_wise:
+                _, c, n = scores.shape
+                k = min(cfg.top_k, n)
+                top_scores, top_boxes = top_k_per_class(scores, boxes, k, TOPK_CHUNKS)
+                return top_scores.reshape(b * c, k), top_boxes.reshape(b * c, k, 4)
+            return top_k_with_labels(max_scores, labels, boxes, valid, cfg.top_k)
 
     def nms(self, rows):
         """NMS of `candidates`' rows through K-C -> (scores, labels int32,
         boxes, valid) [B, keep_top_k(, 4)]."""
-        cfg = self.config
-        if not cfg.class_wise:
-            return nms_sorted_with_labels(*rows, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode)
-        top_scores, top_boxes = rows
-        c = self.spec.num_classes - 1
-        b = top_scores.shape[0] // c
-        s, bx = nms_per_class(top_scores, top_boxes, cfg.nms_threshold, cfg.keep_per_class, cfg.nms_mode)
-        flat_s, flat_b = s.reshape(b, -1), bx.reshape(b, -1, 4)
-        labels = torch.arange(1, c + 1, dtype=torch.int32, device=s.device).repeat_interleave(cfg.keep_per_class)
-        kk = min(cfg.keep_top_k, flat_s.shape[-1])
-        vals, idx = exact_top_k_chunked(flat_s, kk, TOPK_CHUNKS)
-        boxes = torch.gather(flat_b, 1, idx[..., None].expand(-1, -1, 4))
-        return vals, labels[idx], boxes, vals > 0
+        with span("realtime.nms", self.device):
+            cfg = self.config
+            if not cfg.class_wise:
+                return nms_sorted_with_labels(*rows, cfg.nms_threshold, cfg.keep_top_k, cfg.nms_mode)
+            top_scores, top_boxes = rows
+            c = self.spec.num_classes - 1
+            b = top_scores.shape[0] // c
+            s, bx = nms_per_class(top_scores, top_boxes, cfg.nms_threshold, cfg.keep_per_class, cfg.nms_mode)
+            flat_s, flat_b = s.reshape(b, -1), bx.reshape(b, -1, 4)
+            labels = torch.arange(1, c + 1, dtype=torch.int32, device=s.device).repeat_interleave(cfg.keep_per_class)
+            kk = min(cfg.keep_top_k, flat_s.shape[-1])
+            vals, idx = exact_top_k_chunked(flat_s, kk, TOPK_CHUNKS)
+            boxes = torch.gather(flat_b, 1, idx[..., None].expand(-1, -1, 4))
+            return vals, labels[idx], boxes, vals > 0

@@ -48,6 +48,7 @@ from ..ops.encode import TargetEncoder
 from ..parallel.collectives import all_gather_rows
 from ..parallel.mesh import Mesh, sharded_names
 from ..parallel.multihost import batch_rows, host_tree_to_global, sum_over
+from ..utils.profiling import span
 from .optimizer import Optimizer, global_norm
 
 
@@ -215,7 +216,11 @@ def make_train_step(model, encoder: TargetEncoder, tx: Optimizer, loss_config=Ro
 
     mesh: the model's mesh (see the module's docstring); the batch is then
     a `GlobalBatch` (or the whole global batch), and `draws` the global
-    batch's."""
+    batch's.
+
+    Its stages run inside the tracer's spans (`utils/profiling.py`):
+    `train.encode`, `train.forward_loss`, `train.backward`, `train.update`
+    (the reductions, the optimizer and the EMA)."""
     data_group = mesh.data_group if mesh is not None else None
     model_group = mesh.model_group if mesh is not None else None
     sharded = sharded_names(model, mesh) if mesh is not None else {}
@@ -225,14 +230,25 @@ def make_train_step(model, encoder: TargetEncoder, tx: Optimizer, loss_config=Ro
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None, draws=None):
         offset, _, total_rows = batch_rows(batch)
         rows = None if mesh is None else (offset, total_rows)
-        targets = encoder.batched(batch["gt_labels"], batch["gt_boxes"], batch["gt_valid"])
+        device = batch["image"].device
+        with span("train.encode", device):
+            targets = encoder.batched(batch["gt_labels"], batch["gt_boxes"], batch["gt_valid"])
         params = list(state.params.values())
         for p in params:
             p.grad = None
         with pinned_precision(model):
-            out = train_forward(model, batch["image"], generator, rows)
-            total, metrics = loss(out, targets, generator, draws, rows)
-            total.backward()
+            with span("train.forward_loss", device):
+                out = train_forward(model, batch["image"], generator, rows)
+                total, metrics = loss(out, targets, generator, draws, rows)
+            with span("train.backward", device):
+                total.backward()
+        with span("train.update", device):
+            state, metrics = update(state, params, metrics)
+        return state, metrics
+
+    def update(state: TrainState, params: list, metrics: Dict):
+        """The gradients reduced over the mesh, the metrics, the optimizer's
+        step and the EMA."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         if data_group is not None:
             grads = all_reduce_flat(grads, data_group)

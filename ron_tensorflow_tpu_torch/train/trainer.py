@@ -15,7 +15,12 @@ Around it, as the JAX trainer does:
   (`MetricsWriter`) and images/s;
 - step- and time-based checkpoints, and the host-RSS guard (save, then
   `SystemExit(75)`);
-- debug images of the augmented batch with its gt boxes.
+- debug images of the augmented batch with its gt boxes;
+- with the tracer enabled (`utils/profiling.py`, the CLI's `--spans`):
+  each span's mean host and device ms since the previous log step, as
+  the scalars `span/<name>_host_ms` and `span/<name>_device_ms`. The step
+  runs in `train.step`, its augmentation in `train.augment`, and the
+  upload's bytes go to the counter `train.h2d_bytes`.
 
 The SSD models train as in the JAX trainer (trainer.py:109-125): the
 'ssd' augmentation when `augment_variant` is 'auto', and the hard-negative
@@ -102,7 +107,8 @@ from ..ops.encode import TargetEncoder
 from ..parallel.collectives import barrier, broadcast_int
 from ..parallel.mesh import make_mesh, sharded_names, world_size
 from ..parallel.multihost import batch_rows, host_local_to_global, process_info, with_rows
-from ..utils.profiling import StepTimer
+from ..utils import profiling
+from ..utils.profiling import StepTimer, count_upload, span
 from ..utils.summaries import MetricsWriter
 from ..weights import from_jax_params, to_jax_params
 from .checkpoint import (
@@ -296,8 +302,11 @@ class Trainer:
     def step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One step on a device batch of the working canvas, with the
         generator of `state.step`."""
-        gen = self.generator(state.step)
-        return self._train_step(state, self.augment(batch, gen), gen)
+        with span("train.step", self.device):
+            gen = self.generator(state.step)
+            with span("train.augment", self.device):
+                batch = self.augment(batch, gen)
+            return self._train_step(state, batch, gen)
 
     def train(self, max_steps: Optional[int] = None, batches=None) -> TrainState:
         cfg = self.config
@@ -314,6 +323,7 @@ class Trainer:
             tb = TensorBoardWriter(cfg.model_dir)
             print(f"[trainer] TensorBoard events -> {tb.path}")
         timer = StepTimer()
+        last_spans = profiling.snapshot()
         last_save_time = time.time()
         it = batches if batches is not None else self.make_batches()
         # Grain input position: each rank its own file (its shard's stream)
@@ -327,7 +337,7 @@ class Trainer:
         if self.n_proc == 1 and not hasattr(it, "state_json"):
             # upload one batch ahead; not for a resumable input (read-ahead would
             # put the saved position past the consumed one) nor for several processes
-            it = DevicePrefetcher(it, self.device)
+            it = DevicePrefetcher(it, self.device, counter="train.h2d_bytes")
             place = None
         else:
             mesh = self.mesh
@@ -335,8 +345,12 @@ class Trainer:
             def place(host_batch):
                 keep = {k: host_batch[k] for k in ("image01", "gt_boxes", "gt_labels", "gt_valid")}
                 if mesh is None:
-                    return {k: torch.as_tensor(v).to(self.device) for k, v in keep.items()}
-                return host_local_to_global(keep, mesh, self.device)
+                    placed = {k: torch.as_tensor(v).to(self.device) for k, v in keep.items()}
+                else:
+                    placed = host_local_to_global(keep, mesh, self.device)
+                for k, t in placed.items():
+                    count_upload("train.h2d_bytes", keep[k], t)
+                return placed
         global_batch = cfg.data.batch_size * (self.mesh.data_size if self.mesh is not None else 1)
 
         def save_input_state():
@@ -369,6 +383,13 @@ class Trainer:
                     if primary:
                         scalars = {k: float(v) for k, v in metrics.items()}
                         scalars["images_per_sec"] = timer.images_per_sec(global_batch)
+                        if profiling.enabled():
+                            now = profiling.snapshot()
+                            for name, ms in profiling.since(last_spans, now).items():
+                                scalars[f"span/{name}_host_ms"] = ms["host_ms"]
+                                if ms["device_ms"] is not None:
+                                    scalars[f"span/{name}_device_ms"] = ms["device_ms"]
+                            last_spans = now
                         writer.write(step, scalars)
                         if tb is not None:
                             tb.scalars(scalars, step)
